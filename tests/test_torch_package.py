@@ -1,0 +1,111 @@
+"""The PyTorch port as a package: what it imports, where it runs, how its
+kernels are built."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+import torch
+
+from threshold_crypto_tpu_torch import _build, convert
+from threshold_crypto_tpu_torch.device import pairing as dpr
+from threshold_crypto_tpu_torch.host.curve import G1, G2
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+MODULES = [
+    "threshold_crypto_tpu_torch",
+    "threshold_crypto_tpu_torch._build",
+    "threshold_crypto_tpu_torch.convert",
+    "threshold_crypto_tpu_torch.host.params",
+    "threshold_crypto_tpu_torch.host.tower",
+    "threshold_crypto_tpu_torch.host.curve",
+    "threshold_crypto_tpu_torch.device.mont",
+    "threshold_crypto_tpu_torch.device.cuda_mont",
+    "threshold_crypto_tpu_torch.device.tower",
+    "threshold_crypto_tpu_torch.device.pairing",
+    "threshold_crypto_tpu_torch.ops",
+    "threshold_crypto_tpu_torch.ops.threshold",
+]
+
+
+def test_import_pulls_in_no_jax_and_builds_nothing():
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        for name in {MODULES!r}:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m.split(".")[0] in ("jax", "jaxlib", "threshold_crypto_tpu"))
+        assert not bad, bad
+        from threshold_crypto_tpu_torch import _build
+        assert _build._libs == {{}}, _build._libs
+        print("ok")
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dpr.g1_affine_from_host([G1.generator])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        dpr.g2_affine_from_host([G2.generator])
+    x = convert.to_jax(dpr.g1_affine_from_host([G1.generator], device="cpu"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        convert.g1_from_jax(*x)
+
+
+def test_build_command_targets_sm90a_from_package_sources():
+    srcs = _build.sources()
+    assert srcs and all(
+        os.path.dirname(s) == os.path.join(_build.HERE, "csrc") for s in srcs)
+    cmd = _build.command("mont", "/nonexistent/libmont.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    inputs = [a for a in cmd if a.endswith((".cu", ".cpp", ".c"))]
+    assert inputs == [os.path.join(_build.CSRC, "mont.cu")]
+    assert not any(a.startswith(("-I", "-l", "-L")) for a in cmd)  # no torch
+    assert cmd[0].endswith("nvcc")
+    assert os.path.dirname(_build.library_path("mont")) == _build.BUILD_DIR
+
+
+def _fake_nvcc(tmp_path, body):
+    path = tmp_path / "nvcc"
+    path.write_text(f"#!{sys.executable}\nimport sys\n{body}\n")
+    path.chmod(0o755)
+    return str(path)
+
+
+def test_build_renames_into_place_and_caches(tmp_path, monkeypatch):
+    """A build lands under its content-hash name via a temporary file, keeps
+    nvcc's log beside it, and is not run again once it is there."""
+    calls = tmp_path / "calls"
+    nvcc = _fake_nvcc(tmp_path, textwrap.dedent(f"""
+        open({str(calls)!r}, "a").write("x")
+        out = sys.argv[sys.argv.index("-o") + 1]
+        open(out, "wb").write(b"lib")
+        print("ptxas info    : Used 40 registers")
+    """))
+    monkeypatch.setattr(_build, "nvcc", lambda: nvcc)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    logs = _build.build()
+    assert "Used 40 registers" in logs["mont"]
+    path = _build.library_path("mont")
+    assert open(path, "rb").read() == b"lib"
+    assert sorted(os.listdir(tmp_path / "build")) == sorted(
+        [os.path.basename(path), os.path.basename(path) + ".log"])
+    assert _build.build()["mont"] == logs["mont"]
+    assert calls.read_text() == "x"
+
+
+def test_failed_build_raises_with_nvcc_output(tmp_path, monkeypatch):
+    nvcc = _fake_nvcc(tmp_path, 'print("error: no sm_90a here"); sys.exit(1)')
+    monkeypatch.setattr(_build, "nvcc", lambda: nvcc)
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="no sm_90a here"):
+        _build.build()
+    assert os.listdir(tmp_path / "build") == []

@@ -1,0 +1,14 @@
+"""threshold_crypto_tpu_torch — the PyTorch/CUDA port of threshold_crypto_tpu.
+
+A second package beside the JAX one, for one NVIDIA H100 (sm_90a). It
+imports torch, numpy and the standard library, never JAX and nothing of
+``threshold_crypto_tpu``. Entry points run on ``cuda`` unless the caller
+passes ``device="cpu"``; on the CPU the kernels' plain PyTorch versions run
+in their place.
+
+What is ported so far: strict per-pair BLS verification,
+:func:`threshold_crypto_tpu_torch.ops.verify_batch`, on the BLS12-381 stack
+of :mod:`.device` (Montgomery field arithmetic, the Fq2/Fq6/Fq12 tower, the
+Miller loop and the final exponentiation) with two hand-written kernels in
+``csrc/mont.cu``.
+"""

@@ -1,0 +1,129 @@
+"""Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each ``csrc/<name>.cu`` becomes one shared library with a plain C
+interface, built at its first use by ``nvcc`` alone (no ninja, no PyTorch
+headers), into ``_build/`` beside this file. The file name carries a hash of
+the source and the flags, so a changed source builds anew and an unchanged
+one is loaded from the cache. A build writes to a temporary name and is
+renamed into place, so concurrent workers cannot race, and no lock file can
+outlive a killed build. Importing the package builds nothing.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(HERE, "csrc")
+BUILD_DIR = os.path.join(HERE, "_build")
+
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ARCH + ["-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+                "-Xptxas", "-v"]
+BUILD_TIMEOUT_S = 600
+
+# C signatures of each library's launchers: (name, argtypes).
+_VP, _INT = ctypes.c_void_p, ctypes.c_int
+_U32P = ctypes.POINTER(ctypes.c_uint32)
+SIGNATURES = {
+    "mont": [
+        ("tc_mont_mul", [_VP, _VP, _VP, _INT, _INT, _U32P, _VP]),
+        ("tc_mont_pow", [_VP, _VP, _INT, _VP, _INT, _INT, _U32P, _VP]),
+    ],
+}
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def sources() -> list:
+    """Every kernel source of the package, sorted."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    return path if os.path.exists(path) else (shutil.which("nvcc") or path)
+
+
+def _source(name: str) -> str:
+    path = os.path.join(CSRC, name + ".cu")
+    if path not in sources():
+        raise ValueError(f"no kernel source {name}.cu")
+    return path
+
+
+def library_path(name: str) -> str:
+    """Where the library of ``csrc/<name>.cu`` lives once built."""
+    h = hashlib.sha256()
+    h.update(" ".join(FLAGS).encode())
+    with open(_source(name), "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
+
+
+def command(name: str, out_path: str) -> list:
+    """The nvcc command that builds ``csrc/<name>.cu`` into ``out_path``."""
+    return [nvcc(), *FLAGS, "-o", out_path, _source(name)]
+
+
+def build(names=None) -> dict:
+    """Build the named libraries (all by default), one nvcc per source,
+    all started together. Returns {name: nvcc's log}; raises with nvcc's
+    stderr if one fails. A library already built is not built again."""
+    if names is None:
+        names = [os.path.basename(s)[:-3] for s in sources()]
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    logs, running = {}, {}
+    for name in names:
+        path = library_path(name)
+        if os.path.exists(path):
+            with open(path + ".log") as f:
+                logs[name] = f.read()
+            continue
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.Popen(command(name, tmp), stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        running[name] = (proc, tmp, path)
+    failed = []
+    for name, (proc, tmp, path) in running.items():
+        try:
+            out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += f"\nnvcc timed out after {BUILD_TIMEOUT_S} s"
+        logs[name] = out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {name}.cu:\n{out}")
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+            continue
+        with open(tmp + ".log", "w") as f:
+            f.write(out)
+        os.replace(tmp + ".log", path + ".log")
+        os.replace(tmp, path)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
+def library(name: str):
+    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            for fn, argtypes in SIGNATURES[name]:
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+        return lib
