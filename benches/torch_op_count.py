@@ -1,13 +1,15 @@
-"""Count the torch ops and kernel launches of one port ``verify_batch`` call.
+"""Count the torch ops and kernel launches of one call of each verify path.
 
     python benches/torch_op_count.py
 
-Runs ``threshold_crypto_tpu_torch.ops.verify_batch`` on the CPU (the kernels'
-plain versions stand in for them) under a dispatch counter, and prints one
-JSON line: the torch ops the call issues outside the two kernels' plain
-versions (on the card each is one launch of a PyTorch kernel, the host
-overhead that sets the port's pace), and the launches the two kernels would
-get. The counts depend on the code path only, not on the lane count.
+Runs ``threshold_crypto_tpu_torch.ops.verify_batch`` and
+``ops.verify_batch_pallas`` (the megakernel path) on the CPU, where the
+kernels' plain versions stand in for them, under a dispatch counter, and
+prints one JSON line per path: the torch ops the call issues outside the
+kernels' plain versions (on the card each is one launch of a PyTorch
+kernel, the host overhead that sets the pace of a host-bound call), and the
+launches each kernel would get. The counts depend on the code path only,
+not on the lane count.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from threshold_crypto_tpu_torch import ops  # noqa: E402
 from threshold_crypto_tpu_torch.device import cuda_mont  # noqa: E402
+from threshold_crypto_tpu_torch.device import cuda_tower  # noqa: E402
 from threshold_crypto_tpu_torch.device import pairing as dpr  # noqa: E402
 from threshold_crypto_tpu_torch.host import curve as hcv  # noqa: E402
 from threshold_crypto_tpu_torch.host.params import R  # noqa: E402
@@ -43,6 +46,41 @@ class _Counter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
+def count(fn, args):
+    """(torch ops outside the plain versions, launches per kernel) of one
+    fn(*args) call; a plain version called inside another (a product in
+    the power's chain or a tower kernel) is part of that one launch."""
+    counter = _Counter()
+    launches = {}
+    saved = []
+
+    def as_kernel(name, plain):
+        def run(*a):
+            if counter.paused:
+                return plain(*a)
+            launches[name] = launches.get(name, 0) + 1
+            counter.paused = True
+            try:
+                return plain(*a)
+            finally:
+                counter.paused = False
+        return run
+
+    for mod in (cuda_mont, cuda_tower):
+        for k in mod.KERNELS:
+            saved.append((mod, k.plain.__name__, k.plain))
+            setattr(mod, k.plain.__name__, as_kernel(k.name, k.plain))
+    try:
+        with counter:
+            ok = fn(*args)
+    finally:
+        for mod, name, plain in saved:
+            setattr(mod, name, plain)
+    if not bool(ok.all()):
+        raise SystemExit(f"{fn.__name__} rejected valid lanes")
+    return counter.ops, launches
+
+
 def main():
     torch.set_num_threads(1)
 
@@ -55,33 +93,10 @@ def main():
     sig = dpr.g2_affine_from_host([hcv.G2.mul(h, s) for s in sks],
                                   device="cpu")
 
-    counter = _Counter()
-    launches = {"mont_mul": 0, "mont_pow": 0}
-    plain = cuda_mont.mul_ref, cuda_mont.pow_fixed_ref
-
-    def as_kernel(name, fn):
-        def run(*a):
-            if counter.paused:  # a product inside the power's chain
-                return fn(*a)
-            launches[name] += 1
-            counter.paused = True
-            try:
-                return fn(*a)
-            finally:
-                counter.paused = False
-        return run
-
-    cuda_mont.mul_ref = as_kernel("mont_mul", plain[0])
-    cuda_mont.pow_fixed_ref = as_kernel("mont_pow", plain[1])
-    try:
-        with counter:
-            ok = ops.verify_batch(pk, hs, sig)
-    finally:
-        cuda_mont.mul_ref, cuda_mont.pow_fixed_ref = plain
-    if not bool(ok.all()):
-        raise SystemExit("verify_batch rejected valid lanes")
-    print(json.dumps({"lanes": LANES, "torch_ops": counter.ops,
-                      "kernel_launches": launches}))
+    for fn in (ops.verify_batch, ops.verify_batch_pallas):
+        n_ops, launches = count(fn, (pk, hs, sig))
+        print(json.dumps({"path": fn.__name__, "lanes": LANES,
+                          "torch_ops": n_ops, "kernel_launches": launches}))
 
 
 if __name__ == "__main__":

@@ -6,17 +6,23 @@
 Phases, each announced on a flushed line before it starts:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
-2. build: every kernel source of the package with nvcc (sm_90a), with the
-   registers and spills that ptxas reports;
+2. build: every kernel source of the package with nvcc (sm_90a), one nvcc
+   per source, all started together: seconds per source, and per kernel the
+   registers, stack frame and spills that ptxas reports;
 3. kernels: each kernel on the card against its plain PyTorch version on the
-   same inputs, bit-exact, at the shapes of the main path, timed with CUDA
-   events beside the plain version;
-4. slice: ``ops.verify_batch`` on 8192 lanes (16,384 pairs) of keys,
+   same inputs, bit-exact, at the shapes of the main paths (the tower
+   kernels also on zero lanes and infinity points), timed with CUDA events
+   beside the plain version and the kernel's bound;
+4. slice 1: ``ops.verify_batch`` on 8192 lanes (16,384 pairs) of keys,
    messages and signatures made on the host from a seed; the result must
-   equal the mask known from construction lane for lane; a 256-lane
-   slice is timed the same way (a call that takes as long on 1/32 of the
-   data is host-bound) and must agree through the plain versions on the card;
-5. one JSON line of kernel numbers, then the device line, last.
+   equal the mask known from construction lane for lane, and a 256-lane
+   slice must agree through the plain versions on the card;
+5. slice 2: ``ops.verify_batch_pallas`` (the megakernel path) on the same
+   lanes: equal to the mask and to slice 1 lane for lane, with its launches
+   per call (63 / 5 / 290 / 25 / 8 / 1 of B4-B9 and one B2), its time and
+   kernel share, and both paths timed in turns in this one run (slice 1,
+   slice 2, slice 2, slice 1);
+6. one JSON line of kernel numbers, then the device line, last.
 
 Any mismatch or exception ends the run with a non-zero exit and no result
 line. Without a CUDA card, or without the package beside this file, it exits
@@ -44,6 +50,13 @@ LANES = 8192
 # Guide's throughput table for compute capability 9.0 (64 results/clk/SM).
 MEM_BYTES_PER_S = 3.35e12
 IMAD_PER_CLK_PER_SM = 64
+# 32-bit IMAD results of one 12-word CIOS Montgomery product (csrc/fq.cuh):
+# 2·12² 32×32→64 multiply-adds (two results each) and 12 low multiplies.
+FQ_PRODUCT_IMADS = 4 * 12 * 12 + 12
+# The megakernel path's launches per call (X_BITS[1:]: 63 bits, five 1s).
+PALLAS_LAUNCHES = {"dbl_fold": 63, "add_fold": 5, "cyclo_sqr": 290,
+                   "cyclo_sqr_mul": 25, "fq12_mul": 8, "fq12_sqr": 1,
+                   "mont_pow": 1}
 
 
 def phase(msg):
@@ -78,6 +91,127 @@ def cuda_time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def bound_ms(bytes_moved, imads, card):
+    """The larger of bytes over the memory rate and 32-bit multiply-add
+    results over the issue rate, in ms, and which of the two it is."""
+    t_bytes = bytes_moved / MEM_BYTES_PER_S
+    t_ops = imads / (IMAD_PER_CLK_PER_SM * card["sms"] * card["clock_hz"])
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def registry():
+    """(module, kernel) for every kernel of the port, B1-B9 in order."""
+    from threshold_crypto_tpu_torch.device import cuda_mont, cuda_tower
+
+    return [(mod, k) for mod in (cuda_mont, cuda_tower) for k in mod.KERNELS]
+
+
+@contextlib.contextmanager
+def kernels_replaced(make):
+    """Put make(kernel) in place of every kernel's wrapper (the attribute of
+    its module through which every caller reaches it), then restore them."""
+    for mod, k in registry():
+        setattr(mod, k.launch.__name__, make(k))
+    try:
+        yield
+    finally:
+        for mod, k in registry():
+            setattr(mod, k.launch.__name__, k.launch)
+
+
+def plain_versions():
+    """Route every kernel call to its plain PyTorch version."""
+    return kernels_replaced(lambda k: k.plain)
+
+
+def kernel_event_timer(spans):
+    """Bracket every kernel launch with CUDA events (timing runs only)."""
+    import torch
+
+    def timed(k):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = k.launch(*args)
+            stop.record()
+            spans.append((start, stop))
+            return out
+        return run
+
+    return kernels_replaced(timed)
+
+
+def reset_counts():
+    for _, k in registry():
+        k.count.reset()
+
+
+def read_counts():
+    return {k.name: k.count.launches for _, k in registry()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 2: the build
+# ---------------------------------------------------------------------------
+
+def _demangle(sym):
+    """The innermost name of an Itanium-mangled symbol, with a template
+    argument if it has one: '_ZN2tc6fq_mulE...' -> 'fq_mul'."""
+    names, i = [], sym.find("N") + 1 if sym.startswith("_ZN") else 2
+    while i < len(sym) and sym[i].isdigit():
+        m = re.match(r"\d+", sym[i:])
+        n = int(m.group())
+        i += len(m.group())
+        names.append(sym[i:i + n])
+        i += n
+    name = names[-1] if names else sym
+    targ = re.match(r"ILi(\d+)E", sym[i:])
+    return f"{name}<{targ.group(1)}>" if targ else name
+
+
+def print_ptxas(name, log):
+    """nvcc's seconds, then per kernel its registers, stack frame and
+    spills, and the device functions' largest stack frame."""
+    secs = re.search(rf"nvcc {name}\.cu: ([\d.]+) s", log)
+    print(f"  {name}.cu: nvcc {secs.group(1) if secs else '?'} s", flush=True)
+    frames, regs, entries, current = {}, {}, [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entries.append(m.group(1))
+            continue
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and current:
+            frames[current] = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entries:
+            regs[entries[-1]] = int(m.group(1))
+    for sym in entries:
+        frame = frames.get(sym, (0, 0, 0))
+        print(f"    {_demangle(sym)}: {regs.get(sym, '?')} registers, "
+              f"{frame[0]} bytes stack frame, {frame[1]} bytes spill stores, "
+              f"{frame[2]} bytes spill loads", flush=True)
+    funcs = {s: f for s, f in frames.items() if s not in entries}
+    if funcs:
+        big = max(funcs, key=lambda s: funcs[s][0])
+        spills = sum(f[1] + f[2] for f in funcs.values())
+        print(f"    {len(funcs)} device functions: largest stack frame "
+              f"{funcs[big][0]} bytes ({_demangle(big)}), spill bytes "
+              f"{spills}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
 def random_fq_lanes(spec, n, rng):
     """int32[n, L] canonical limbs: random below p's top limb, so < p."""
     import numpy as np
@@ -106,35 +240,7 @@ def edge_values(spec):
     return [v * r_inv % spec.p for v in raw] + raw
 
 
-# ---------------------------------------------------------------------------
-# Phase 3: kernels against their plain versions
-# ---------------------------------------------------------------------------
-
-def mul_bound_ms(n, L, sm_count, clock_hz):
-    """Least time for n Montgomery products of L 16-bit limbs: the larger of
-    bytes (2 inputs read, 1 output written) over the memory rate and 32-bit
-    multiply-add results (each 32×32→64 product is two) over the issue rate."""
-    S = L // 2
-    bytes_moved = n * 3 * L * 4
-    imads = n * (4 * S * S + S)
-    t_bytes = bytes_moved / MEM_BYTES_PER_S
-    t_ops = imads / (IMAD_PER_CLK_PER_SM * sm_count * clock_hz)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def pow_bound_ms(n, L, e, sm_count, clock_hz):
-    S = L // 2
-    products = e.bit_length() + bin(e).count("1")
-    bytes_moved = n * 2 * L * 4 + 4 * e.bit_length()
-    imads = n * products * (4 * S * S + S)
-    t_bytes = bytes_moved / MEM_BYTES_PER_S
-    t_ops = imads / (IMAD_PER_CLK_PER_SM * sm_count * clock_hz)
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
-def check_mul(spec, n, rng, dev, sm_count, clock_hz):
+def check_mul(spec, n, rng, dev, card):
     import torch
     from threshold_crypto_tpu_torch.device import cuda_mont
 
@@ -151,14 +257,15 @@ def check_mul(spec, n, rng, dev, sm_count, clock_hz):
              f"lanes (max abs limb error {err})")
     ms = cuda_time_ms(lambda: cuda_mont.mont_mul(spec, a, b), 20)
     plain_ms = cuda_time_ms(lambda: cuda_mont.mul_ref(spec, a, b), 2)
-    bound, by = mul_bound_ms(n, spec.L, sm_count, clock_hz)
+    S = spec.L // 2
+    bound, by = bound_ms(n * 3 * spec.L * 4, n * (4 * S * S + S), card)
     print(f"mont_mul {spec.name} lanes={n}: bit-exact; kernel {ms:.4f} ms, "
           f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
     return dict(lanes=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by)
 
 
-def check_pow(spec, n, e, rng, dev, sm_count, clock_hz, n_zero=4):
+def check_pow(spec, n, e, rng, dev, card, n_zero=4):
     import torch
     from threshold_crypto_tpu_torch.device import cuda_mont
 
@@ -176,7 +283,10 @@ def check_pow(spec, n, e, rng, dev, sm_count, clock_hz, n_zero=4):
         fail("mont_pow: inv(0) is not 0")
     ms = cuda_time_ms(lambda: cuda_mont.mont_pow(spec, a, e), 5)
     plain_ms = cuda_time_ms(lambda: cuda_mont.pow_fixed_ref(spec, a, e), 1)
-    bound, by = pow_bound_ms(n, spec.L, e, sm_count, clock_hz)
+    S = spec.L // 2
+    products = e.bit_length() + bin(e).count("1")
+    bound, by = bound_ms(n * 2 * spec.L * 4 + 4 * e.bit_length(),
+                         n * products * (4 * S * S + S), card)
     print(f"mont_pow {spec.name} e=p-2 lanes={n}: bit-exact, zeros -> 0; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
           f"({by})", flush=True)
@@ -184,8 +294,80 @@ def check_pow(spec, n, e, rng, dev, sm_count, clock_hz, n_zero=4):
                 bound_ms=bound, bound_by=by)
 
 
+def random_packed(k, n, gen, dev):
+    """Packed int32[k·24, n] of canonical Fq limbs, made on the card: each
+    top limb below p's, so every value is < p."""
+    import torch
+    from threshold_crypto_tpu_torch.device.mont import FQ
+
+    x = torch.randint(0, 1 << 16, (k, FQ.L, n), generator=gen, device=dev,
+                      dtype=torch.int32)
+    x[:, -1] = torch.randint(0, FQ.p_limbs[-1], (k, n), generator=gen,
+                             device=dev, dtype=torch.int32)
+    return x.reshape(k * FQ.L, n)
+
+
+# Per tower kernel: its operands (packed components each), the components
+# of its outputs, and its Fq products per lane as csrc/tower.cuh runs them
+# (B4: 36 for f², 47 for the doubling and its line, 39 for the fold; B5:
+# 41 + 39; B6: 9 Fq2 squares of 2; B7: 18 + 54; B8: 18 Fq2 products of 3;
+# B9: 12 of 3). fq_engine: 12 components, one product each.
+TOWER_CHECKS = {
+    "fq_engine": ((12, 12), 5 * 12, 12, 16384),
+    "dbl_fold": ((12, 6, 2), 12 + 6, 122, 2 * LANES),
+    "add_fold": ((12, 6, 4, 2), 12 + 6, 80, 2 * LANES),
+    "cyclo_sqr": ((12,), 12, 18, LANES),
+    "cyclo_sqr_mul": ((12, 12), 12, 72, LANES),
+    "fq12_mul": ((12, 12), 12, 54, LANES),
+    "fq12_sqr": ((12,), 12, 36, LANES),
+}
+
+
+def tower_inputs(name, gen, dev):
+    """The kernel's operands at the path's width, with special lanes: 0-3
+    all zero (f = 0, T = 0, P = (0, 0) the infinity point), 4-7 an infinity
+    P only, 8-11 a zero T only."""
+    comps, _, _, n = TOWER_CHECKS[name]
+    ins = [random_packed(k, n, gen, dev) for k in comps]
+    for x in ins:
+        x[:, 0:4] = 0
+    if name in ("dbl_fold", "add_fold"):
+        ins[-1][:, 4:8] = 0
+        ins[1][:, 8:12] = 0
+    return ins
+
+
+def check_tower(name, gen, dev, card):
+    import torch
+
+    kernel = {k.name: k for _, k in registry()}[name]
+    comps, out_comps, products, n = TOWER_CHECKS[name]
+    ins = tower_inputs(name, gen, dev)
+    extra = (8,) if name == "fq_engine" else ()
+    got = kernel.launch(*ins, *extra)
+    torch.cuda.synchronize()
+    with plain_versions():
+        want = kernel.plain(*ins, *extra)
+        plain_ms = cuda_time_ms(lambda: kernel.plain(*ins, *extra), 1)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(int((g - w).abs().max().item()) for g, w in zip(got, want))
+    if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"{name}: kernel disagrees with its plain version at {n} lanes "
+             f"(max abs limb error {err})")
+    ms = cuda_time_ms(lambda: kernel.launch(*ins, *extra), 10)
+    bytes_moved = (sum(comps) + out_comps) * 24 * 4 * n
+    bound, by = bound_ms(bytes_moved, n * products * FQ_PRODUCT_IMADS, card)
+    shapes = " ".join(str(list(x.shape)) for x in ins)
+    print(f"{name} {shapes}: bit-exact (zero and infinity lanes included); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
+          f"({by}), {ms / bound:.1f}x the bound", flush=True)
+    return dict(lanes=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
+
+
 # ---------------------------------------------------------------------------
-# Phase 4: the slice
+# Phases 4 and 5: the slices
 # ---------------------------------------------------------------------------
 
 def build_inputs():
@@ -227,51 +409,79 @@ def build_inputs():
     return pk, h, sig, want
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Route the package's kernel calls to their plain PyTorch versions, for
-    the plain-path comparison only."""
-    from threshold_crypto_tpu_torch.device import cuda_mont
-
-    saved = cuda_mont.mont_mul, cuda_mont.mont_pow
-    cuda_mont.mont_mul = cuda_mont.mul_ref
-    cuda_mont.mont_pow = cuda_mont.pow_fixed_ref
-    try:
-        yield
-    finally:
-        cuda_mont.mont_mul, cuda_mont.mont_pow = saved
+def _slice_aff(t, n):
+    if isinstance(t, tuple):
+        return tuple(_slice_aff(x, n) for x in t)
+    return t[:n]
 
 
-@contextlib.contextmanager
-def kernel_event_timer(spans):
-    """Bracket every kernel launch with CUDA events (timing run only)."""
+def timed_call(fn, args, want, what):
+    """One synchronised call, checked lane for lane; returns (out, s)."""
     import torch
+
+    t0 = time.time()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    if out.shape != want.shape or not torch.equal(out, want):
+        bad = (out != want).nonzero().flatten()[:8].tolist()
+        fail(f"{what} disagrees with the constructed mask at lanes {bad}")
+    return out, secs
+
+
+def run_path(fn, what, args, want_t, expect=None):
+    """The path's counted run (counts set to 0 just before, read just
+    after), then the median of 3 calls, the kernel share of one call
+    (every launch bracketed by CUDA events) and the plain versions on the
+    card at 256 lanes."""
+    import torch
+
+    reset_counts()
+    out, first_s = timed_call(fn, args, want_t, what)
+    launches = read_counts()
     from threshold_crypto_tpu_torch.device import cuda_mont
+    widest = {"mont_mul": cuda_mont.MUL.widest,
+              "mont_pow": cuda_mont.POW.widest}
+    print(f"{what} first call {first_s:.2f} s; launches per call "
+          f"{launches}; widest B1/B2 launch {widest}", flush=True)
+    if expect is not None:
+        got = {k: launches[k] for k in expect}
+        if got != expect:
+            fail(f"{what}: launches per call {got}, expected {expect}")
+    elif min(launches["mont_mul"], launches["mont_pow"]) < 1:
+        fail(f"a kernel of the path was not launched: {launches}")
 
-    saved = cuda_mont.mont_mul, cuda_mont.mont_pow
+    times = [timed_call(fn, args, want_t, what)[1] for _ in range(3)]
+    wall = statistics.median(times)
+    print(f"{what} lanes={LANES}: median {wall:.3f} s of "
+          f"{[round(t, 3) for t in times]} -> {LANES / wall:.1f} "
+          f"verifications/s", flush=True)
 
-    def timed(fn):
-        def run(*args):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args)
-            stop.record()
-            spans.append((start, stop))
-            return out
-        return run
+    spans = []
+    with kernel_event_timer(spans):
+        _, timed_wall = timed_call(fn, args, want_t, what)
+    kernel_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    print(f"{what} time split (one call, kernels bracketed by events): wall "
+          f"{timed_wall:.3f} s, kernels {kernel_s:.3f} s "
+          f"({100 * kernel_s / timed_wall:.1f} %), the rest (torch glue, "
+          f"launch overhead) {timed_wall - kernel_s:.3f} s", flush=True)
 
-    cuda_mont.mont_mul, cuda_mont.mont_pow = timed(saved[0]), timed(saved[1])
-    try:
-        yield
-    finally:
-        cuda_mont.mont_mul, cuda_mont.mont_pow = saved
+    n_small = 256
+    small = tuple(_slice_aff(a, n_small) for a in args)
+    with plain_versions():
+        _, plain_s = timed_call(fn, small, want_t[:n_small],
+                                f"{what} through the plain versions")
+    print(f"{what} through the plain versions on the card, {n_small} lanes: "
+          f"agrees ({plain_s:.1f} s)", flush=True)
+    torch.cuda.synchronize()
+    return dict(out=out, launches=launches, widest=widest, wall_s=wall,
+                per_s=LANES / wall, kernel_s=kernel_s,
+                timed_wall_s=timed_wall)
 
 
-def run_slice(dev):
+def run_slices(dev):
     import torch
     from threshold_crypto_tpu_torch import ops
-    from threshold_crypto_tpu_torch.device import cuda_mont
     from threshold_crypto_tpu_torch.device import pairing as dpr
 
     t0 = time.time()
@@ -283,83 +493,33 @@ def run_slice(dev):
     print(f"inputs: {LANES} lanes, {sum(want)} expected True, built in "
           f"{time.time() - t0:.1f} s", flush=True)
 
-    def call():
-        out = ops.verify_batch(*args)
-        torch.cuda.synchronize()
-        if out.shape != (LANES,) or not torch.equal(out, want_t):
-            bad = (out != want_t).nonzero().flatten()[:8].tolist()
-            fail(f"verify_batch disagrees with the constructed mask at lanes "
-                 f"{bad}")
-        return out
+    phase(f"slice 1: ops.verify_batch at {LANES} lanes")
+    old = run_path(ops.verify_batch, "verify_batch", args, want_t)
 
-    # The main path's run: counts set to 0 just before, read just after.
-    cuda_mont.MUL.reset()
-    cuda_mont.POW.reset()
-    t0 = time.time()
-    call()
-    first_s = time.time() - t0
-    launches = {"mont_mul": cuda_mont.MUL.launches,
-                "mont_pow": cuda_mont.POW.launches}
-    widest = {"mont_mul": cuda_mont.MUL.widest,
-              "mont_pow": cuda_mont.POW.widest}
-    print(f"verify_batch first call {first_s:.2f} s; launches per call "
-          f"{launches}; widest launch {widest}", flush=True)
-    if min(launches.values()) < 1:
-        fail(f"a kernel of the path was not launched: {launches}")
+    phase(f"slice 2: ops.verify_batch_pallas at {LANES} lanes "
+          f"(the megakernel path)")
+    new = run_path(ops.verify_batch_pallas, "verify_batch_pallas", args,
+                   want_t, expect=PALLAS_LAUNCHES)
+    if not torch.equal(new["out"], old["out"]):
+        fail("verify_batch_pallas and verify_batch disagree")
+    print(f"verify_batch_pallas equals verify_batch on all {LANES} lanes",
+          flush=True)
 
-    times = []
-    for _ in range(3):
-        t0 = time.time()
-        call()
-        times.append(time.time() - t0)
-    wall = statistics.median(times)
-    print(f"verify_batch lanes={LANES}: median {wall:.3f} s of {times} -> "
-          f"{LANES / wall:.1f} verifications/s", flush=True)
-
-    spans = []
-    with kernel_event_timer(spans):
-        t0 = time.time()
-        call()
-        timed_wall = time.time() - t0
-    kernel_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
-    print(f"time split (one call, kernels bracketed by events): wall "
-          f"{timed_wall:.3f} s, mont kernels {kernel_s:.3f} s "
-          f"({100 * kernel_s / timed_wall:.1f} %), the rest (torch glue, "
-          f"launch overhead) {timed_wall - kernel_s:.3f} s", flush=True)
-
-    # The same path on a 256-lane slice: a call that takes about as long on
-    # 1/32 of the data is bound by the host's dispatch of its torch ops.
-    n_small = 256
-    small = tuple(_slice_aff(a, n_small) for a in args)
-    small_times = []
-    for _ in range(3):
-        t0 = time.time()
-        out = ops.verify_batch(*small)
-        torch.cuda.synchronize()
-        small_times.append(time.time() - t0)
-        if not torch.equal(out, want_t[:n_small]):
-            fail(f"verify_batch at {n_small} lanes disagrees with the mask")
-    small_wall = statistics.median(small_times)
-    print(f"verify_batch lanes={n_small}: median {small_wall:.3f} s of "
-          f"{small_times}; {LANES} lanes take {wall / small_wall:.2f}x as "
-          f"long for {LANES // n_small}x the lanes", flush=True)
-
-    with plain_versions():
-        t0 = time.time()
-        out = ops.verify_batch(*small)
-        torch.cuda.synchronize()
-    if not torch.equal(out, want_t[:n_small]):
-        fail("plain path on the card disagrees with the constructed mask")
-    print(f"plain path on the card, {n_small} lanes: agrees "
-          f"({time.time() - t0:.1f} s)", flush=True)
-    return dict(launches=launches, widest=widest, wall_s=wall,
-                per_s=LANES / wall, kernel_s=kernel_s, timed_wall_s=timed_wall)
-
-
-def _slice_aff(t, n):
-    if isinstance(t, tuple):
-        return tuple(_slice_aff(x, n) for x in t)
-    return t[:n]
+    turns = []
+    for fn, what in ((ops.verify_batch, "verify_batch"),
+                     (ops.verify_batch_pallas, "verify_batch_pallas"),
+                     (ops.verify_batch_pallas, "verify_batch_pallas"),
+                     (ops.verify_batch, "verify_batch")):
+        turns.append((what, timed_call(fn, args, want_t, what)[1]))
+    old_s = [s for w, s in turns if w == "verify_batch"]
+    new_s = [s for w, s in turns if w == "verify_batch_pallas"]
+    print(f"in turns (verify_batch, pallas, pallas, verify_batch): "
+          f"{[round(s, 3) for _, s in turns]} s; verify_batch mean "
+          f"{statistics.mean(old_s):.3f} s, verify_batch_pallas mean "
+          f"{statistics.mean(new_s):.3f} s, "
+          f"{statistics.mean(old_s) / statistics.mean(new_s):.1f}x",
+          flush=True)
+    return old, new
 
 
 # ---------------------------------------------------------------------------
@@ -375,61 +535,67 @@ def main():
     from threshold_crypto_tpu_torch import _build
     from threshold_crypto_tpu_torch.device import mont
 
+    t_start = time.time()
     phase("card")
-    card = nvidia_smi("name,power.limit")
-    print(card, flush=True)
+    card_line = nvidia_smi("name,power.limit")
+    print(card_line, flush=True)
     clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     dev = torch.device("cuda", 0)
     props = torch.cuda.get_device_properties(dev)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{props.multi_processor_count} SMs, max SM clock {clock_mhz} MHz",
           flush=True)
-    clock_hz = clock_mhz * 1e6
+    card = {"sms": props.multi_processor_count, "clock_hz": clock_mhz * 1e6}
 
     phase("build")
     t0 = time.time()
     logs = _build.build()
-    print(f"built {sorted(logs)} in {time.time() - t0:.1f} s", flush=True)
-    for name, log in logs.items():
-        for line in log.splitlines():
-            m = re.search(r"entry function '(\w+)'", line)
-            if m:
-                print(f"  {name}: {m.group(1)}", flush=True)
-            elif "registers" in line or "spill" in line:
-                print(f"    {line.strip()}", flush=True)
+    print(f"built {sorted(logs)} in {time.time() - t0:.1f} s (one nvcc per "
+          f"source, all started together)", flush=True)
+    for name in sorted(logs):
+        print_ptxas(name, logs[name])
 
     phase("kernels against their plain versions (bit-exact)")
     rng = np.random.default_rng(SEED)
     widest_mul = 78 * LANES  # 13 Fq2 (39 Fq) products over 2 pairs
-    res_mul = check_mul(mont.FQ, widest_mul, rng, dev,
-                        props.multi_processor_count, clock_hz)
-    check_mul(mont.FR, widest_mul, rng, dev, props.multi_processor_count,
-              clock_hz)
-    res_pow = check_pow(mont.FQ, LANES, mont.FQ.p - 2, rng, dev,
-                        props.multi_processor_count, clock_hz)
-    check_pow(mont.FQ, 4 * LANES, mont.FQ.p - 2, rng, dev,
-              props.multi_processor_count, clock_hz)
+    results = {"mont_mul": check_mul(mont.FQ, widest_mul, rng, dev, card)}
+    check_mul(mont.FR, widest_mul, rng, dev, card)
+    results["mont_pow"] = check_pow(mont.FQ, LANES, mont.FQ.p - 2, rng, dev,
+                                    card)
+    check_pow(mont.FQ, 4 * LANES, mont.FQ.p - 2, rng, dev, card)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    for name in TOWER_CHECKS:
+        results[name] = check_tower(name, gen, dev, card)
 
-    phase(f"slice: ops.verify_batch at {LANES} lanes")
-    sl = run_slice(dev)
-    if sl["widest"] != {"mont_mul": widest_mul, "mont_pow": LANES}:
+    old, new = run_slices(dev)
+    if old["widest"] != {"mont_mul": widest_mul, "mont_pow": LANES}:
         fail(f"the kernel checks missed the path's widest launches "
-             f"{sl['widest']}")
+             f"{old['widest']}")
+    path_bound = sum(results[k]["bound_ms"] * new["launches"][k]
+                     for k in TOWER_CHECKS if k != "fq_engine")
+    print(f"the megakernel path: kernels {new['kernel_s']:.3f} s of "
+          f"{new['timed_wall_s']:.3f} s; bound of its B4-B9 launches "
+          f"{path_bound:.3f} ms", flush=True)
 
-    src = "threshold_crypto_tpu_torch/csrc/mont.cu"
     kernels = []
-    for name, res, replaces in (
-        ("mont_mul", res_mul, "threshold_crypto_tpu/device/pallas_mont.py:45"),
-        ("mont_pow", res_pow, "threshold_crypto_tpu/device/pallas_mont.py:267"),
-    ):
-        kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sl["launches"][name], "max_abs_err": res["max_abs_err"],
-            "ms": res["ms"], "plain_ms": res["plain_ms"],
-            "bound_ms": res["bound_ms"], "bound_by": res["bound_by"],
-            "library_ms": None, "lanes": res["lanes"], "check": "bit-exact",
-            "card": card,
-        })
+    for mod, k in registry():
+        res = results[k.name]
+        # B1/B2: launches of slice 1, where they carry the path; B3-B9:
+        # of slice 2 (B3 runs inside every B4-B9 launch).
+        path = old if k.name.startswith("mont_") else new
+        entry = {
+            "name": k.name, "route": "cuda", "source": k.source,
+            "replaces": k.replaces, "launches": path["launches"][k.name],
+            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
+            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+            "bound_by": res["bound_by"], "library_ms": None,
+            "lanes": res["lanes"], "check": "bit-exact", "card": card_line,
+        }
+        if k.name.startswith("mont_"):
+            entry["launches_megakernel_path"] = new["launches"][k.name]
+        kernels.append(entry)
+    print(f"whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

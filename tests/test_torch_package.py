@@ -2,6 +2,8 @@
 kernels are built."""
 
 import os
+import re
+import shutil
 import subprocess
 import sys
 import textwrap
@@ -24,6 +26,8 @@ MODULES = [
     "threshold_crypto_tpu_torch.device.mont",
     "threshold_crypto_tpu_torch.device.cuda_mont",
     "threshold_crypto_tpu_torch.device.tower",
+    "threshold_crypto_tpu_torch.device.packed",
+    "threshold_crypto_tpu_torch.device.cuda_tower",
     "threshold_crypto_tpu_torch.device.pairing",
     "threshold_crypto_tpu_torch.ops",
     "threshold_crypto_tpu_torch.ops.threshold",
@@ -73,6 +77,40 @@ def test_build_command_targets_sm90a_from_package_sources():
     assert os.path.dirname(_build.library_path("mont")) == _build.BUILD_DIR
 
 
+@pytest.mark.parametrize("name", ["miller", "fq12"])
+def test_tower_sources_build_alone_with_the_shared_headers(name):
+    """Each tower source is one nvcc of its own .cu, finding fq.cuh and
+    tower.cuh beside it, and its library name hashes those headers too."""
+    srcs = [os.path.basename(s) for s in _build.sources()]
+    assert srcs == ["fq12.cu", "miller.cu", "mont.cu"]
+    assert [os.path.basename(h) for h in _build.headers()] == [
+        "fq.cuh", "tower.cuh"]
+    cmd = _build.command(name, "/nonexistent/lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd and "-Xptxas" in cmd
+    inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
+    assert inputs == [os.path.join(_build.CSRC, name + ".cu")]
+    assert not any(a.startswith(("-I", "-l", "-L")) for a in cmd)
+    text = open(inputs[0]).read()
+    assert '#include "tower.cuh"' in text
+    assert "#include <torch" not in text and "#include <ATen" not in text
+    assert sorted(fn for fn, _ in _build.SIGNATURES[name]) == sorted(
+        re.findall(r'extern "C" int (\w+)\(', text))
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A changed header gives every library a new name, so no stale build
+    is loaded."""
+    before = {n: _build.library_path(n) for n in ("mont", "miller", "fq12")}
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    assert {n: _build.library_path(n) for n in before} == before
+    with open(csrc / "fq.cuh", "a") as f:
+        f.write("\n// changed\n")
+    after = {n: _build.library_path(n) for n in before}
+    assert all(after[n] != before[n] for n in before)
+
+
 def _fake_nvcc(tmp_path, body):
     path = tmp_path / "nvcc"
     path.write_text(f"#!{sys.executable}\nimport sys\n{body}\n")
@@ -93,13 +131,17 @@ def test_build_renames_into_place_and_caches(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "nvcc", lambda: nvcc)
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     logs = _build.build()
-    assert "Used 40 registers" in logs["mont"]
-    path = _build.library_path("mont")
-    assert open(path, "rb").read() == b"lib"
+    names = sorted(logs)
+    assert names == ["fq12", "miller", "mont"]
+    assert all("Used 40 registers" in logs[n] for n in names)
+    assert all(re.search(rf"nvcc {n}\.cu: \d+\.\d s", logs[n])
+               for n in names)
+    paths = [_build.library_path(n) for n in names]
+    assert all(open(p, "rb").read() == b"lib" for p in paths)
     assert sorted(os.listdir(tmp_path / "build")) == sorted(
-        [os.path.basename(path), os.path.basename(path) + ".log"])
-    assert _build.build()["mont"] == logs["mont"]
-    assert calls.read_text() == "x"
+        os.path.basename(p) + ext for p in paths for ext in ("", ".log"))
+    assert _build.build() == logs
+    assert calls.read_text() == "x" * len(names)
 
 
 def test_failed_build_raises_with_nvcc_output(tmp_path, monkeypatch):

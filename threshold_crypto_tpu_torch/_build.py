@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` becomes one shared library with a plain C
 interface, built at its first use by ``nvcc`` alone (no ninja, no PyTorch
-headers), into ``_build/`` beside this file. The file name carries a hash of
-the source and the flags, so a changed source builds anew and an unchanged
-one is loaded from the cache. A build writes to a temporary name and is
+headers), into ``_build/`` beside this file; the sources share the headers
+``csrc/*.cuh``. The file name carries a hash of the source, the headers and
+the flags, so a changed source builds anew and an unchanged one is loaded
+from the cache. A build writes to a temporary name and is
 renamed into place, so concurrent workers cannot race, and no lock file can
 outlive a killed build. Importing the package builds nothing.
 """
@@ -18,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(HERE, "csrc")
@@ -36,6 +38,17 @@ SIGNATURES = {
         ("tc_mont_mul", [_VP, _VP, _VP, _INT, _INT, _U32P, _VP]),
         ("tc_mont_pow", [_VP, _VP, _INT, _VP, _INT, _INT, _U32P, _VP]),
     ],
+    "miller": [
+        ("tc_dbl_fold", [_VP] * 5 + [_INT, _VP]),
+        ("tc_add_fold", [_VP] * 6 + [_INT, _VP]),
+    ],
+    "fq12": [
+        ("tc_cyclo_sqr", [_VP, _VP, _INT, _VP]),
+        ("tc_cyclo_sqr_mul", [_VP, _VP, _VP, _INT, _VP]),
+        ("tc_fq12_mul", [_VP, _VP, _VP, _INT, _VP]),
+        ("tc_fq12_sqr", [_VP, _VP, _INT, _VP]),
+        ("tc_fq_engine", [_VP, _VP, _VP, _INT, _INT, _INT, _VP]),
+    ],
 }
 
 _lock = threading.Lock()
@@ -45,6 +58,11 @@ _libs: dict = {}
 def sources() -> list:
     """Every kernel source of the package, sorted."""
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def headers() -> list:
+    """The headers the sources share (``#include "*.cuh"``), sorted."""
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
 
 
 def nvcc() -> str:
@@ -61,11 +79,13 @@ def _source(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    """Where the library of ``csrc/<name>.cu`` lives once built."""
+    """Where the library of ``csrc/<name>.cu`` lives once built; the name
+    hashes the flags, the source and every shared header."""
     h = hashlib.sha256()
     h.update(" ".join(FLAGS).encode())
-    with open(_source(name), "rb") as f:
-        h.update(f.read())
+    for path in (_source(name), *headers()):
+        with open(path, "rb") as f:
+            h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:16]}.so")
 
 
@@ -76,8 +96,9 @@ def command(name: str, out_path: str) -> list:
 
 def build(names=None) -> dict:
     """Build the named libraries (all by default), one nvcc per source,
-    all started together. Returns {name: nvcc's log}; raises with nvcc's
-    stderr if one fails. A library already built is not built again."""
+    all started together. Returns {name: nvcc's log, ending in a line with
+    the build's seconds}; raises with nvcc's output if one fails. A library
+    already built is not built again (its saved log is returned)."""
     if names is None:
         names = [os.path.basename(s)[:-3] for s in sources()]
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -91,15 +112,16 @@ def build(names=None) -> dict:
         tmp = f"{path}.{os.getpid()}.{threading.get_ident()}.tmp"
         proc = subprocess.Popen(command(name, tmp), stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
-        running[name] = (proc, tmp, path)
+        running[name] = (proc, tmp, path, time.monotonic())
     failed = []
-    for name, (proc, tmp, path) in running.items():
+    for name, (proc, tmp, path, start) in running.items():
         try:
             out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
         except subprocess.TimeoutExpired:
             proc.kill()
             out, _ = proc.communicate()
             out += f"\nnvcc timed out after {BUILD_TIMEOUT_S} s"
+        out += f"\nnvcc {name}.cu: {time.monotonic() - start:.1f} s\n"
         logs[name] = out
         if proc.returncode != 0:
             failed.append(f"nvcc failed for {name}.cu:\n{out}")

@@ -10,8 +10,9 @@
 // R = 2^(16 L) = 2^(32 S) either way, so the Montgomery form and the
 // canonical output are bit-identical with the TPU kernel's.
 //
-// Arithmetic. CIOS (coarsely integrated operand scanning) on 32-bit words
-// with 64-bit accumulation: S rounds of t += a·b_i, then t += q·p with
+// Arithmetic. The engine of fq.cuh (B3), shared with the tower kernels:
+// CIOS (coarsely integrated operand scanning) on 32-bit words with 64-bit
+// accumulation: S rounds of t += a·b_i, then t += q·p with
 // q = t_0·(−p⁻¹) mod 2^32 and a one-word shift; t < 2p at the end, and one
 // conditional subtract of p makes it canonical.
 //
@@ -32,87 +33,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "fq.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-
-template <int S>
-struct Modulus {
-  uint32_t p[S];    // the modulus, 32-bit words, least significant first
-  uint32_t n0;      // -p^-1 mod 2^32
-  uint32_t one[S];  // R mod p: 1 in Montgomery form
-};
-
-template <int S>
-__device__ __forceinline__ void load_lane(const int32_t* __restrict__ src,
-                                          uint32_t (&w)[S]) {
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    uint32_t lo = static_cast<uint32_t>(src[2 * k]);
-    uint32_t hi = static_cast<uint32_t>(src[2 * k + 1]);
-    w[k] = lo | (hi << 16);
-  }
-}
-
-template <int S>
-__device__ __forceinline__ void store_lane(int32_t* __restrict__ dst,
-                                           const uint32_t (&w)[S]) {
-#pragma unroll
-  for (int k = 0; k < S; ++k) {
-    dst[2 * k] = static_cast<int32_t>(w[k] & 0xFFFFu);
-    dst[2 * k + 1] = static_cast<int32_t>(w[k] >> 16);
-  }
-}
-
-// r = a·b·R^-1 mod p for a, b < p. r may alias a or b: it is written last.
-template <int S>
-__device__ __forceinline__ void mont_mul(uint32_t (&r)[S],
-                                         const uint32_t (&a)[S],
-                                         const uint32_t (&b)[S],
-                                         const Modulus<S>& m) {
-  uint32_t t[S + 2];
-#pragma unroll
-  for (int j = 0; j < S + 2; ++j) t[j] = 0;
-
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    uint64_t c = 0;
-#pragma unroll
-    for (int j = 0; j < S; ++j) {
-      c += static_cast<uint64_t>(a[j]) * b[i] + t[j];
-      t[j] = static_cast<uint32_t>(c);
-      c >>= 32;
-    }
-    c += t[S];
-    t[S] = static_cast<uint32_t>(c);
-    t[S + 1] = static_cast<uint32_t>(c >> 32);
-
-    const uint32_t q = t[0] * m.n0;
-    c = (static_cast<uint64_t>(q) * m.p[0] + t[0]) >> 32;
-#pragma unroll
-    for (int j = 1; j < S; ++j) {
-      c += static_cast<uint64_t>(q) * m.p[j] + t[j];
-      t[j - 1] = static_cast<uint32_t>(c);
-      c >>= 32;
-    }
-    c += t[S];
-    t[S - 1] = static_cast<uint32_t>(c);
-    t[S] = t[S + 1] + static_cast<uint32_t>(c >> 32);
-  }
-
-  // t < 2p: subtract p unless that borrows out of the top word.
-  uint32_t d[S];
-  uint32_t borrow = 0;
-#pragma unroll
-  for (int j = 0; j < S; ++j) {
-    const uint64_t x = static_cast<uint64_t>(t[j]) - m.p[j] - borrow;
-    d[j] = static_cast<uint32_t>(x);
-    borrow = static_cast<uint32_t>(x >> 63);
-  }
-  const bool take = (t[S] != 0) || (borrow == 0);
-#pragma unroll
-  for (int j = 0; j < S; ++j) r[j] = take ? d[j] : t[j];
-}
+using tc::kThreads;
+using tc::Modulus;
 
 template <int S>
 __global__ void __launch_bounds__(kThreads)
@@ -122,10 +48,10 @@ mont_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
   if (lane >= n) return;
   const size_t off = static_cast<size_t>(lane) * (2 * S);
   uint32_t x[S], y[S];
-  load_lane<S>(a + off, x);
-  load_lane<S>(b + off, y);
-  mont_mul<S>(x, x, y, m);
-  store_lane<S>(out + off, x);
+  tc::load_row<S>(a + off, x);
+  tc::load_row<S>(b + off, y);
+  tc::mont_mul<S>(x, x, y, m);
+  tc::store_row<S>(out + off, x);
 }
 
 // acc = a^e, e given MSB first as bits[0..nbits). Every lane reads the same
@@ -139,15 +65,15 @@ mont_pow_kernel(const int32_t* __restrict__ a, int32_t* __restrict__ out,
   if (lane >= n) return;
   const size_t off = static_cast<size_t>(lane) * (2 * S);
   uint32_t base[S], acc[S];
-  load_lane<S>(a + off, base);
+  tc::load_row<S>(a + off, base);
 #pragma unroll
   for (int k = 0; k < S; ++k) acc[k] = m.one[k];
 #pragma unroll 1
   for (int i = 0; i < nbits; ++i) {
-    mont_mul<S>(acc, acc, acc, m);
-    if (bits[i]) mont_mul<S>(acc, acc, base, m);
+    tc::mont_mul<S>(acc, acc, acc, m);
+    if (bits[i]) tc::mont_mul<S>(acc, acc, base, m);
   }
-  store_lane<S>(out + off, acc);
+  tc::store_row<S>(out + off, acc);
 }
 
 // mod = p words[S], n0, one words[S] (host memory).

@@ -13,6 +13,7 @@ public layout of :mod:`.mont`) and allocate their output with
 ``torch.empty``. They launch on the current stream and do not synchronise.
 Each wrapper counts its launches in a plain integer, ``MUL.launches`` /
 ``POW.launches``; ``widest`` keeps the most lanes one launch was given.
+``KERNELS`` lists both with their plain versions and counts.
 
 ``mul_ref`` / ``pow_fixed_ref`` are the same functions in plain PyTorch
 (int64 outer products and column sums). :mod:`.mont` sends CPU tensors
@@ -22,6 +23,7 @@ there; the tests and ``chip_smoke.py`` hold the kernels against them.
 from __future__ import annotations
 
 import ctypes
+from typing import Callable, NamedTuple
 
 import torch
 
@@ -45,6 +47,21 @@ class KernelCount:
     def add(self, lanes):
         self.launches += 1
         self.widest = max(self.widest, lanes)
+
+
+class Kernel(NamedTuple):
+    """One kernel of the port, for ``chip_smoke.py`` and the op counter:
+    the wrapper that launches it (an attribute of its module, under the
+    wrapper's own name, through which every caller reaches it), its plain
+    PyTorch version, its launch count, its source and the TPU kernel it
+    replaces."""
+
+    name: str
+    launch: Callable
+    plain: Callable
+    count: KernelCount
+    source: str
+    replaces: str
 
 
 MUL = KernelCount()
@@ -199,3 +216,13 @@ def pow_fixed_ref(spec, a, e: int):
         if c == "1":
             acc = mul_ref(spec, acc, a)
     return acc
+
+
+KERNELS = (
+    Kernel("mont_mul", mont_mul, mul_ref, MUL,
+           "threshold_crypto_tpu_torch/csrc/mont.cu",
+           "threshold_crypto_tpu/device/pallas_mont.py:45"),
+    Kernel("mont_pow", mont_pow, pow_fixed_ref, POW,
+           "threshold_crypto_tpu_torch/csrc/mont.cu",
+           "threshold_crypto_tpu/device/pallas_mont.py:267"),
+)

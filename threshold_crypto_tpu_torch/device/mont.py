@@ -218,7 +218,9 @@ def zero(spec: FpSpec, shape, device):
 # Products and powers: kernel on CUDA, plain version on the CPU
 # ---------------------------------------------------------------------------
 
-def _route(a):
+def on_card(a) -> bool:
+    """True for a CUDA tensor (its kernel runs), False for a CPU tensor (its
+    plain version runs); any other device raises."""
     if a.device.type == "cuda":
         return True
     if a.device.type == "cpu":
@@ -232,7 +234,7 @@ def mul(spec: FpSpec, a, b):
     shape = a.shape
     a = a.reshape(-1, spec.L).contiguous()
     b = b.reshape(-1, spec.L).contiguous()
-    if _route(a):
+    if on_card(a):
         out = cuda_mont.mont_mul(spec, a, b)
     else:
         out = cuda_mont.mul_ref(spec, a, b)
@@ -265,7 +267,7 @@ def pow_fixed(spec: FpSpec, a, e: int):
         return one(spec, a.shape[:-1], a.device).clone()
     shape = a.shape
     a = a.reshape(-1, spec.L).contiguous()
-    if _route(a):
+    if on_card(a):
         out = cuda_mont.mont_pow(spec, a, e)
     else:
         out = cuda_mont.pow_fixed_ref(spec, a, e)

@@ -1,11 +1,12 @@
 """Batched BLS12-381 ate pairing check on torch tensors.
 
-The counterpart of the XLA path of ``threshold_crypto_tpu/device/pairing.py``
-(``pairing_check_fused``): the Miller loop with Q in homogeneous projective
-Fq2 coordinates and sparse line values folded into f by
-``fq12_mul_by_014``, then the final exponentiation as the host oracle's
-lattice chain (X−1)²·(X+p)·(X²+p²−1)+3, so the GT elements are identical to
-the JAX package's and the host oracle's.
+Two paths, each the counterpart of one of ``threshold_crypto_tpu/device/
+pairing.py``: ``pairing_check_pallas`` (below, the megakernel path) and
+``pairing_check``, the XLA path (``pairing_check_fused``): the Miller loop
+with Q in homogeneous projective Fq2 coordinates and sparse line values
+folded into f by ``fq12_mul_by_014``, then the final exponentiation as the
+host oracle's lattice chain (X−1)²·(X+p)·(X²+p²−1)+3, so the GT elements
+are identical to the JAX package's and the host oracle's.
 
 PyTorch runs eagerly, so both loops are plain Python over the static bits
 of |X| (the JAX package's static-bit forms ``miller_loop`` / ``_exp_by_x``):
@@ -21,7 +22,9 @@ from __future__ import annotations
 import torch
 
 from ..host.params import X_BITS
+from . import cuda_tower as ctw
 from . import mont
+from . import packed as pk
 from . import tower as tw
 from .mont import FQ
 
@@ -51,74 +54,6 @@ def g2_affine_from_host(pts, device="cuda"):
     return (x, y, infs)
 
 
-# ---------------------------------------------------------------------------
-# Miller loop steps. T = (X, Y, Z) homogeneous projective over Fq2.
-# ---------------------------------------------------------------------------
-
-def _dbl_step(T, xp, yp):
-    """Double T and return (T', line coeffs (c0, c1, c4)).
-
-    Line (tangent at T, untwisted, evaluated at P=(xp,yp), scaled by
-    w³·2YZ²):  c0 = 3X³ − 2Y²Z,  c1 = −3X²Z·xp,  c4 = 2YZ²·yp.
-    Doubling: W=3X², S=YZ, B=XYS, H=W²−8B → X'=2HS, Y'=W(4B−H)−8Y²S²,
-    Z'=8S³  (homogeneous a=0 formulas).
-
-    The JAX package's formulas, with the independent products of each
-    layer issued as one stacked multiply (4 launches per step); every value
-    is the same field element, so the limbs are identical.
-    """
-    X, Y, Z = T
-    XX, YY, S, XY, ZZ = tw.fq2_mul_many(
-        [(X, X), (Y, Y), (Y, Z), (X, Y), (Z, Z)])
-    W = tw.fq2_mul_small(XX, 3)
-    WW, B, SS, XXX, ZYY, WZ, YZZ = tw.fq2_mul_many(
-        [(W, W), (XY, S), (S, S), (XX, X), (YY, Z), (W, Z), (Y, ZZ)])
-    B4 = tw.fq2_mul_small(B, 4)
-    H = tw.fq2_sub(WW, tw.fq2_add(B4, B4))                       # W² − 8B
-    H2, ZYY2, YZZ2 = tw.fq2_mul_small_many([H, ZYY, YZZ], 2)
-    XXX3 = tw.fq2_mul_small(XXX, 3)
-    Xo, WBH, YYSS, SSS = tw.fq2_mul_many(
-        [(H2, S), (W, tw.fq2_sub(B4, H)), (YY, SS), (S, SS)])
-    YYSS8, Zo = tw.fq2_mul_small_many([YYSS, SSS], 8)
-    Yo, c0 = tw.fq2_sub_many([(WBH, YYSS8), (XXX3, ZYY2)])
-    c1, c4 = _scale_many([(tw.fq2_neg(WZ), xp), (YZZ2, yp)])
-    return (Xo, Yo, Zo), (c0, c1, c4)
-
-
-def _scale_many(pairs):
-    """Fq2 × Fq products (x·k) of a list, as one stacked multiply."""
-    t = mont.mul(FQ, tw._stack([c for x, _ in pairs for c in x]),
-                 tw._stack([k for _, k in pairs for _ in range(2)]))
-    return [(t[2 * i], t[2 * i + 1]) for i in range(len(pairs))]
-
-
-def _add_step(T, Q, xp, yp):
-    """Mixed addition T += Q (Q affine) and the line through T, Q at P.
-
-    u = y₂Z − Y, v = x₂Z − X;  line (scaled by w³·v):
-      c0 = u·x₂ − v·y₂,  c1 = −u·xp,  c4 = v·yp.
-    Addition: A = u²Z − v³ − 2v²X → X'=vA, Y'=u(v²X−A)−v³Y, Z'=v³Z.
-    """
-    X, Y, Z = T
-    x2, y2 = Q
-    u = tw.fq2_sub(tw.fq2_mul(y2, Z), Y)
-    v = tw.fq2_sub(tw.fq2_mul(x2, Z), X)
-    vv = tw.fq2_sqr(v)
-    vvv = tw.fq2_mul(v, vv)
-    R = tw.fq2_mul(vv, X)
-    A = tw.fq2_sub(
-        tw.fq2_sub(tw.fq2_mul(tw.fq2_sqr(u), Z), vvv), tw.fq2_mul_small(R, 2)
-    )
-    Xo = tw.fq2_mul(v, A)
-    Yo = tw.fq2_sub(tw.fq2_mul(u, tw.fq2_sub(R, A)), tw.fq2_mul(vvv, Y))
-    Zo = tw.fq2_mul(vvv, Z)
-
-    c0 = tw.fq2_sub(tw.fq2_mul(u, x2), tw.fq2_mul(v, y2))
-    c1 = tw.fq2_scale_fq(tw.fq2_neg(u), xp)
-    c4 = tw.fq2_scale_fq(v, yp)
-    return (Xo, Yo, Zo), (c0, c1, c4)
-
-
 def miller_loop(p_aff, q_aff):
     """f_{|X|,Q}(P), conjugated for X < 0; batched Fq12.
 
@@ -132,10 +67,10 @@ def miller_loop(p_aff, q_aff):
     f = tw.fq12_one(shape, dev)
     for bit in X_BITS[1:]:
         f = tw.fq12_sqr(f)
-        T, line = _dbl_step(T, xp, yp)
+        T, line = tw.dbl_step(T, xp, yp)
         f = tw.fq12_mul_by_014(f, *line)
         if bit:
-            T, line = _add_step(T, (xq, yq), xp, yp)
+            T, line = tw.add_step(T, (xq, yq), xp, yp)
             f = tw.fq12_mul_by_014(f, *line)
     f = tw.fq12_conj(f)  # X < 0
     return tw.fq12_select(p_inf | q_inf, tw.fq12_one(shape, dev), f)
@@ -196,3 +131,99 @@ def pairing_check(p_aff, q_aff):
     f = miller_loop(p_aff, q_aff)
     acc = _fq12_prod_leading(f, p_aff[0].shape[0])
     return tw.fq12_is_one(final_exponentiation(acc))
+
+
+# ---------------------------------------------------------------------------
+# The megakernel path (``pairing_check_pallas``): whole Miller iterations and
+# whole Fq12 steps of the final exponentiation as one kernel launch each, on
+# the packed layout of device/packed.py. The JAX package's DIRECT-mode
+# driver: Python loops over the static bits of |X|.
+# ---------------------------------------------------------------------------
+
+def _flatten_aff(aff):
+    """Affine tuple of any batch shape -> (flat [N, 24] components, inf[N])."""
+    x, y, inf = aff
+    coords = (*x, *y) if isinstance(x, tuple) else (x, y)
+    return [c.reshape(-1, FQ.L) for c in coords], inf.reshape(-1)
+
+
+def miller_loop_packed(p_packed, q_packed):
+    """f_{|X|,Q}(P) before the conjugation, every lane live.
+
+    p_packed: [48, N] (xp, yp); q_packed: [96, N] (x0, x1, y0, y1). One
+    B4 launch on each of the 63 bits of |X| after the first, and one B5 on
+    each of its five 1-bits. Returns the packed Fq12 [288, N]."""
+    n, dev = p_packed.shape[1], p_packed.device
+    T = torch.cat([q_packed, pk.packed_one2(n, dev)])      # (X, Y, Z = 1)
+    f = pk.packed_one12(n, dev)
+    for bit in X_BITS[1:]:
+        f, T = ctw.p_dbl_fold(f, T, p_packed)
+        if bit:
+            f, T = ctw.p_add_fold(f, T, q_packed, p_packed)
+    return f
+
+
+def _packed_frob(f, power: int):
+    """Frobenius through the tower (twice per final exponentiation)."""
+    return pk.pack12(tw.fq12_frob(pk.unpack12(f), power))
+
+
+def _expx_packed(f):
+    """f^X (X < 0) in the cyclotomic subgroup: B6 on the 58 zero bits of
+    |X| after the first, B7 (square, then ·f) on its five 1-bits, then the
+    conjugation."""
+    acc = f
+    for bit in X_BITS[1:]:
+        acc = ctw.p_cyclo_sqr_mul(acc, f) if bit else ctw.p_cyclo_sqr(acc)
+    return pk.packed_conj12(acc)
+
+
+def final_exponentiation_packed(f):
+    """The final exponentiation on the packed layout; the same GT limbs as
+    ``final_exponentiation``. The easy part (one Fermat inversion, one B2
+    launch) and the Frobenius run on the tower; the hard part is the lattice
+    chain t1 = x^X·conj(x), t2 = t1^X·conj(t1), t3 = t2^X·frob1(t2),
+    t5 = t3^X^X·frob2(t3)·conj(t3), result t5·x²·x, in B6-B9 launches."""
+    f = pk.pack12(_easy_part(pk.unpack12(f)))
+    t = ctw.p_fq12_mul(_expx_packed(f), pk.packed_conj12(f))
+    t = ctw.p_fq12_mul(_expx_packed(t), pk.packed_conj12(t))
+    t = ctw.p_fq12_mul(_expx_packed(t), _packed_frob(t, 1))
+    tx2 = _expx_packed(_expx_packed(t))
+    t = ctw.p_fq12_mul(ctw.p_fq12_mul(tx2, _packed_frob(t, 2)),
+                       pk.packed_conj12(t))
+    f3 = ctw.p_fq12_mul(ctw.p_fq12_sqr(f), f)
+    return ctw.p_fq12_mul(t, f3)
+
+
+def _miller_packed(p_aff, q_aff):
+    """Conjugated Miller values of every (P, Q) lane, flattened; lanes with
+    an infinite P or Q are exactly 1."""
+    pc, p_inf = _flatten_aff(p_aff)
+    qc, q_inf = _flatten_aff(q_aff)
+    f = pk.packed_conj12(miller_loop_packed(pk.pack(pc), pk.pack(qc)))
+    one = pk.packed_one12(f.shape[1], f.device)
+    return torch.where((p_inf | q_inf)[None, :], one, f)
+
+
+def pairing_check_pallas(p_aff, q_aff):
+    """bool[...]: ∏ e(P_i, Q_i) == 1 over the leading pair axis, on the
+    megakernel path. The k pairs of a lane sit in k bands of the lane axis
+    and are folded by k − 1 B8 launches before one shared final
+    exponentiation."""
+    k = p_aff[2].shape[0]
+    f = _miller_packed(p_aff, q_aff)
+    n = f.shape[1] // k
+    acc = f[:, :n].contiguous()
+    for i in range(1, k):
+        acc = ctw.p_fq12_mul(acc, f[:, i * n:(i + 1) * n].contiguous())
+    gt = final_exponentiation_packed(acc)
+    return pk.packed_is_one12(gt).reshape(p_aff[2].shape[1:])
+
+
+def pairing_pallas(p_aff, q_aff):
+    """Reduced pairing per batch lane on the megakernel path: the same
+    limbs-last Fq12 tuple as ``pairing``."""
+    shape = p_aff[2].shape
+    gt = pk.unpack12(final_exponentiation_packed(_miller_packed(p_aff, q_aff)))
+    return tuple(tuple(tuple(c.reshape(shape + (FQ.L,)) for c in x2)
+                       for x2 in x6) for x6 in gt)

@@ -409,6 +409,75 @@ def fq12_mul_by_014(f, c0, c1, c4):
 
 
 # ---------------------------------------------------------------------------
+# Miller loop steps (used by device/pairing.py and the plain versions of the
+# fused Miller kernels). T = (X, Y, Z) homogeneous projective over Fq2.
+# ---------------------------------------------------------------------------
+
+def dbl_step(T, xp, yp):
+    """Double T and return (T', line coeffs (c0, c1, c4)).
+
+    Line (tangent at T, untwisted, evaluated at P=(xp,yp), scaled by
+    w³·2YZ²):  c0 = 3X³ − 2Y²Z,  c1 = −3X²Z·xp,  c4 = 2YZ²·yp.
+    Doubling: W=3X², S=YZ, B=XYS, H=W²−8B → X'=2HS, Y'=W(4B−H)−8Y²S²,
+    Z'=8S³  (homogeneous a=0 formulas).
+
+    The JAX package's formulas, with the independent products of each
+    layer issued as one stacked multiply (4 launches per step); every value
+    is the same field element, so the limbs are identical.
+    """
+    X, Y, Z = T
+    XX, YY, S, XY, ZZ = fq2_mul_many(
+        [(X, X), (Y, Y), (Y, Z), (X, Y), (Z, Z)])
+    W = fq2_mul_small(XX, 3)
+    WW, B, SS, XXX, ZYY, WZ, YZZ = fq2_mul_many(
+        [(W, W), (XY, S), (S, S), (XX, X), (YY, Z), (W, Z), (Y, ZZ)])
+    B4 = fq2_mul_small(B, 4)
+    H = fq2_sub(WW, fq2_add(B4, B4))                       # W² − 8B
+    H2, ZYY2, YZZ2 = fq2_mul_small_many([H, ZYY, YZZ], 2)
+    XXX3 = fq2_mul_small(XXX, 3)
+    Xo, WBH, YYSS, SSS = fq2_mul_many(
+        [(H2, S), (W, fq2_sub(B4, H)), (YY, SS), (S, SS)])
+    YYSS8, Zo = fq2_mul_small_many([YYSS, SSS], 8)
+    Yo, c0 = fq2_sub_many([(WBH, YYSS8), (XXX3, ZYY2)])
+    c1, c4 = fq2_scale_fq_many([(fq2_neg(WZ), xp), (YZZ2, yp)])
+    return (Xo, Yo, Zo), (c0, c1, c4)
+
+
+def fq2_scale_fq_many(pairs):
+    """Fq2 × Fq products (x·k) of a list, as one stacked multiply."""
+    t = mont.mul(FQ, _stack([c for x, _ in pairs for c in x]),
+                 _stack([k for _, k in pairs for _ in range(2)]))
+    return [(t[2 * i], t[2 * i + 1]) for i in range(len(pairs))]
+
+
+def add_step(T, Q, xp, yp):
+    """Mixed addition T += Q (Q affine) and the line through T, Q at P.
+
+    u = y₂Z − Y, v = x₂Z − X;  line (scaled by w³·v):
+      c0 = u·x₂ − v·y₂,  c1 = −u·xp,  c4 = v·yp.
+    Addition: A = u²Z − v³ − 2v²X → X'=vA, Y'=u(v²X−A)−v³Y, Z'=v³Z.
+    """
+    X, Y, Z = T
+    x2, y2 = Q
+    u = fq2_sub(fq2_mul(y2, Z), Y)
+    v = fq2_sub(fq2_mul(x2, Z), X)
+    vv = fq2_sqr(v)
+    vvv = fq2_mul(v, vv)
+    R = fq2_mul(vv, X)
+    A = fq2_sub(
+        fq2_sub(fq2_mul(fq2_sqr(u), Z), vvv), fq2_mul_small(R, 2)
+    )
+    Xo = fq2_mul(v, A)
+    Yo = fq2_sub(fq2_mul(u, fq2_sub(R, A)), fq2_mul(vvv, Y))
+    Zo = fq2_mul(vvv, Z)
+
+    c0 = fq2_sub(fq2_mul(u, x2), fq2_mul(v, y2))
+    c1 = fq2_scale_fq(fq2_neg(u), xp)
+    c4 = fq2_scale_fq(v, yp)
+    return (Xo, Yo, Zo), (c0, c1, c4)
+
+
+# ---------------------------------------------------------------------------
 # Frobenius — coefficients derived by the host tower, embedded as constants.
 # ---------------------------------------------------------------------------
 

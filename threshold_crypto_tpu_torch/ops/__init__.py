@@ -1,5 +1,5 @@
 """Batched protocol operations on the device stack."""
 
-from .threshold import verify_batch
+from .threshold import verify_batch, verify_batch_pallas
 
-__all__ = ["verify_batch"]
+__all__ = ["verify_batch", "verify_batch_pallas"]

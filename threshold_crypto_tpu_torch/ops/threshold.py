@@ -1,8 +1,10 @@
 """Batched threshold-protocol checks on the device stack.
 
 The counterpart of ``threshold_crypto_tpu/ops/threshold.py``; so far
-``verify_batch``, the strict per-pair BLS check that every protocol verify
-reduces to.
+``verify_batch`` and ``verify_batch_pallas``, the strict per-pair BLS check
+that every protocol verify reduces to, on the XLA-form path and on the
+megakernel path. The JAX package's ``verify_batch_pallas_jit`` (a jit and
+AOT-cache wrapper) has no counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
@@ -50,3 +52,14 @@ def verify_batch(pk_aff, h_aff, sig_aff):
     p = _pair2(pk_aff, neg_gen)
     q = _pair2(h_aff, sig_aff)
     return dpr.pairing_check(p, q)
+
+
+def verify_batch_pallas(pk_aff, h_aff, sig_aff):
+    """``verify_batch`` on the megakernel path
+    (``device.pairing.pairing_check_pallas``): the same bool[N], with each
+    Miller iteration and each Fq12 step of the final exponentiation one
+    kernel launch."""
+    n = pk_aff[2].shape[0]
+    neg_gen = _neg_gen_g1((n,), pk_aff[2].device)
+    return dpr.pairing_check_pallas(_pair2(pk_aff, neg_gen),
+                                    _pair2(h_aff, sig_aff))
