@@ -2,14 +2,26 @@
 
     python benches/torch_op_count.py
 
-Runs ``threshold_crypto_tpu_torch.ops.verify_batch`` and
-``ops.verify_batch_pallas`` (the megakernel path) on the CPU, where the
-kernels' plain versions stand in for them, under a dispatch counter, and
-prints one JSON line per path: the torch ops the call issues outside the
-kernels' plain versions (on the card each is one launch of a PyTorch
-kernel, the host overhead that sets the pace of a host-bound call), and the
-launches each kernel would get. The counts depend on the code path only,
-not on the lane count.
+Runs ``threshold_crypto_tpu_torch.ops.verify_batch``,
+``ops.verify_batch_pallas`` (the megakernel path) and the RLC path
+(``ops.rlc_exponents`` then ``ops.verify_sig_shares_rlc_pallas``) on the
+CPU, where the kernels' plain versions stand in for them, under a dispatch
+counter, and prints one JSON line per path: the torch ops the call issues
+outside the kernels' plain versions (on the card each is one launch of a
+PyTorch kernel, the host overhead that sets the pace of a host-bound call),
+and the launches each kernel would get.
+
+The per-pair counts depend on the code path only, not on the lane count.
+The RLC path's run at RLC_N shares differs from one at 262,144 in what
+depends on N and the accumulators A = min(``cuda_curve.ACCUMULATORS``, N):
+the fold's ⌈log₂ A⌉ levels per group (each one complete add, 5 B1
+launches and a fixed number of torch ops), and B12's launches (2 once the
+transcript has 64 chunks or more, which RLC_N = 256 reaches). The line
+gives the fold levels and checks the launches against
+``chip_smoke.rlc_launches``, the count the card run checks at 262,144.
+Its ``torch_ops_at_262144_extrapolated`` is not counted: it is the count at
+RLC_N plus the extra fold levels at 262,144 times the counted ops of one
+level.
 """
 
 from __future__ import annotations
@@ -24,14 +36,21 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
+import chip_smoke  # noqa: E402
 from threshold_crypto_tpu_torch import ops  # noqa: E402
+from threshold_crypto_tpu_torch.device import cuda_curve  # noqa: E402
 from threshold_crypto_tpu_torch.device import cuda_mont  # noqa: E402
 from threshold_crypto_tpu_torch.device import cuda_tower  # noqa: E402
+from threshold_crypto_tpu_torch.device import curve as dcv  # noqa: E402
+from threshold_crypto_tpu_torch.device import keccak  # noqa: E402
 from threshold_crypto_tpu_torch.device import pairing as dpr  # noqa: E402
 from threshold_crypto_tpu_torch.host import curve as hcv  # noqa: E402
 from threshold_crypto_tpu_torch.host.params import R  # noqa: E402
 
 LANES = 2
+# The RLC call: shares (16 keys tiled) and check lanes. The check's counts
+# do not depend on its lanes; 2 keep the CPU run short.
+RLC_N, RLC_CHECK = 256, 2
 
 
 class _Counter(TorchDispatchMode):
@@ -66,7 +85,7 @@ def count(fn, args):
                 counter.paused = False
         return run
 
-    for mod in (cuda_mont, cuda_tower):
+    for mod in (cuda_mont, cuda_tower, cuda_curve, keccak):
         for k in mod.KERNELS:
             saved.append((mod, k.plain.__name__, k.plain))
             setattr(mod, k.plain.__name__, as_kernel(k.name, k.plain))
@@ -79,6 +98,14 @@ def count(fn, args):
     if not bool(ok.all()):
         raise SystemExit(f"{fn.__name__} rejected valid lanes")
     return counter.ops, launches
+
+
+def rlc_call(pk_aff, h_jac, sig_aff):
+    """One RLC verification as bench.py times it: exponents, then check."""
+    r = ops.rlc_exponents(RLC_N, b"\x01" * 32, pk_aff=pk_aff,
+                          sig_aff=sig_aff)
+    return ops.verify_sig_shares_rlc_pallas(pk_aff, h_jac, sig_aff, r,
+                                            check_batch=RLC_CHECK)
 
 
 def main():
@@ -97,6 +124,33 @@ def main():
         n_ops, launches = count(fn, (pk, hs, sig))
         print(json.dumps({"path": fn.__name__, "lanes": LANES,
                           "torch_ops": n_ops, "kernel_launches": launches}))
+
+    keys = [rnd.randrange(1, R) for _ in range(16)]
+    pk16 = [hcv.G1.mul(hcv.G1.generator, s) for s in keys]
+    sig16 = [hcv.G2.mul(h, s) for s in keys]
+    rlc_pk = dpr.g1_affine_from_host(pk16 * (RLC_N // 16), device="cpu")
+    rlc_sig = dpr.g2_affine_from_host(sig16 * (RLC_N // 16), device="cpu")
+    h_jac = dcv.G2.from_host_affine([h], device="cpu")
+    n_ops, launches = count(rlc_call, (rlc_pk, h_jac, rlc_sig))
+    expect = chip_smoke.rlc_launches(RLC_N)
+    if {k: launches.get(k, 0) for k in expect} != expect:
+        raise SystemExit(f"RLC launches {launches}, expected {expect}")
+    levels = (min(cuda_curve.ACCUMULATORS, RLC_N) - 1).bit_length()
+    full = (min(cuda_curve.ACCUMULATORS, 262144) - 1).bit_length()
+    # one fold level: one complete add per group
+    level_ops = sum(
+        count(lambda p: (c.add(p, p), torch.ones(()))[1],
+              (c.from_host_affine([c.gen_affine_host] * 2, device="cpu"),))[0]
+        for c in (dcv.G1, dcv.G2))
+    print(json.dumps({"path": "rlc_exponents+verify_sig_shares_rlc_pallas",
+                      "shares": RLC_N, "check_batch": RLC_CHECK,
+                      "fold_levels_per_group": levels, "torch_ops": n_ops,
+                      "kernel_launches": launches,
+                      "torch_ops_per_fold_level": level_ops,
+                      "torch_ops_at_262144_extrapolated": n_ops + (full - levels)
+                      * level_ops,
+                      "kernel_launches_at_262144": chip_smoke.rlc_launches(
+                          262144)}))
 
 
 if __name__ == "__main__":

@@ -22,7 +22,16 @@ Phases, each announced on a flushed line before it starts:
    per call (63 / 5 / 290 / 25 / 8 / 1 of B4-B9 and one B2), its time and
    kernel share, and both paths timed in turns in this one run (slice 1,
    slice 2, slice 2, slice 1);
-6. one JSON line of kernel numbers, then the device line, last.
+6. slice 3: the RLC path, the system's main path, ``ops.rlc_exponents`` then
+   ``ops.verify_sig_shares_rlc_pallas``, at N = 262,144 shares of 16 keys on
+   one message (the inputs of ``bench.py``'s ``_make_rlc_batch``, four lanes
+   with pk and sig at infinity): the exponents equal the host stream, the
+   transcript of the card tensors equals that of their numpy copies, the
+   folded MSM sums equal the host oracle's, the batch is accepted and is
+   rejected with one signature or one public key replaced; its launches per
+   call, the median of 3 calls (exponents included), the kernel share and
+   the split of one call into its stages, from CUDA events;
+7. one JSON line of kernel numbers, then the device line, last.
 
 Any mismatch or exception ends the run with a non-zero exit and no result
 line. Without a CUDA card, or without the package beside this file, it exits
@@ -57,6 +66,34 @@ FQ_PRODUCT_IMADS = 4 * 12 * 12 + 12
 PALLAS_LAUNCHES = {"dbl_fold": 63, "add_fold": 5, "cyclo_sqr": 290,
                    "cyclo_sqr_mul": 25, "fq12_mul": 8, "fq12_sqr": 1,
                    "mont_pow": 1}
+# The RLC path of bench.py (_bench_rlc_pallas): N shares on one message,
+# 16 keys tiled, the aggregate check on 512 replicated lanes; four lanes
+# with pk and sig at infinity.
+RLC_N = 262144
+RLC_KEYS = 16
+RLC_CHECK_BATCH = 512
+RLC_DEAD = (3, 1000, 77777, RLC_N - 1)
+RLC_WINDOW, RLC_NBITS = 3, 64
+# 32-bit integer results per Keccak-f round as sm_90a can issue them: 3-input
+# LOP3 xors for theta's columns (20) and its application (50), 2 funnel
+# shifts per 64-bit rotation (5 for theta, 24 for rho: 58), one LOP3 per
+# 32-bit half of chi (50), iota (1).
+KECCAK_ROUND_OPS = 179
+# Fq products that the point formulas of csrc/curve.cuh need per call, G1 /
+# G2 (an Fq2 product is 3 Fq products, an Fq2 square 2). The kernels also
+# compute the doubling branch on every lane and select it for T == Q, as
+# the TPU kernels do; a branch would give the same bits, so the bounds
+# count the general path alone. jac_madd: 8 products and 3 squares;
+# jac_add: 12 and 4; jac_dbl: 2 and 5.
+MADD_FQ_PRODUCTS = (11, 30)
+ADD_FQ_PRODUCTS = (16, 44)
+DBL_FQ_PRODUCTS = (7, 16)
+# B11's accumulators at which the whole RLC call is timed (in turns), to
+# weigh cuda_curve.ACCUMULATORS end to end: fewer accumulators mean fewer
+# fold levels but fewer blocks for B11.
+RLC_A_SWEEP = (8192, 16384, 32768)
+RLC_A_ROUNDS = 5
+RLC_KERNELS = ("g1_madd", "g2_madd", "g1_winacc", "g2_winacc", "sha3_chunks")
 
 
 def phase(msg):
@@ -92,8 +129,10 @@ def cuda_time_ms(fn, reps):
 
 
 def bound_ms(bytes_moved, imads, card):
-    """The larger of bytes over the memory rate and 32-bit multiply-add
-    results over the issue rate, in ms, and which of the two it is."""
+    """The larger of bytes over the memory rate and 32-bit integer results
+    (multiply-adds, or for B12 logic and shift operations, issued at the
+    same 64 per clock per SM) over the issue rate, in ms, and which of the
+    two it is."""
     t_bytes = bytes_moved / MEM_BYTES_PER_S
     t_ops = imads / (IMAD_PER_CLK_PER_SM * card["sms"] * card["clock_hz"])
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -101,10 +140,12 @@ def bound_ms(bytes_moved, imads, card):
 
 
 def registry():
-    """(module, kernel) for every kernel of the port, B1-B9 in order."""
-    from threshold_crypto_tpu_torch.device import cuda_mont, cuda_tower
+    """(module, kernel) for every kernel of the port, B1-B12 in order."""
+    from threshold_crypto_tpu_torch.device import (cuda_curve, cuda_mont,
+                                                   cuda_tower, keccak)
 
-    return [(mod, k) for mod in (cuda_mont, cuda_tower) for k in mod.KERNELS]
+    return [(mod, k) for mod in (cuda_mont, cuda_tower, cuda_curve, keccak)
+            for k in mod.KERNELS]
 
 
 @contextlib.contextmanager
@@ -136,7 +177,7 @@ def kernel_event_timer(spans):
             start.record()
             out = k.launch(*args)
             stop.record()
-            spans.append((start, stop))
+            spans.append((k.name, start, stop))
             return out
         return run
 
@@ -158,7 +199,9 @@ def read_counts():
 
 def _demangle(sym):
     """The innermost name of an Itanium-mangled symbol, with a template
-    argument if it has one: '_ZN2tc6fq_mulE...' -> 'fq_mul'."""
+    argument if it has one (an int, or a field type of namespace tc):
+    '_ZN2tc6fq_mulE...' -> 'fq_mul', '...madd_kernelIN2tc3Fq2EE...' ->
+    'madd_kernel<Fq2>'."""
     names, i = [], sym.find("N") + 1 if sym.startswith("_ZN") else 2
     while i < len(sym) and sym[i].isdigit():
         m = re.match(r"\d+", sym[i:])
@@ -167,7 +210,8 @@ def _demangle(sym):
         names.append(sym[i:i + n])
         i += n
     name = names[-1] if names else sym
-    targ = re.match(r"ILi(\d+)E", sym[i:])
+    targ = (re.match(r"ILi(\d+)E", sym[i:])
+            or re.match(r"IN2tc\d+(\w+?)EE", sym[i:]))
     return f"{name}<{targ.group(1)}>" if targ else name
 
 
@@ -460,7 +504,7 @@ def run_path(fn, what, args, want_t, expect=None):
     spans = []
     with kernel_event_timer(spans):
         _, timed_wall = timed_call(fn, args, want_t, what)
-    kernel_s = sum(a.elapsed_time(b) for a, b in spans) / 1e3
+    kernel_s = sum(a.elapsed_time(b) for _, a, b in spans) / 1e3
     print(f"{what} time split (one call, kernels bracketed by events): wall "
           f"{timed_wall:.3f} s, kernels {kernel_s:.3f} s "
           f"({100 * kernel_s / timed_wall:.1f} %), the rest (torch glue, "
@@ -523,6 +567,467 @@ def run_slices(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, continued: the RLC path's kernels B10-B12
+# ---------------------------------------------------------------------------
+
+def timed_once(fn, *args):
+    """(fn(*args), its device time in ms), one call bracketed by events."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn(*args)
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def compare(name, got, want, what):
+    """Bit-exact or fail; returns the max abs error (0)."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = max(int((g.long() - w.long()).abs().max().item())
+              for g, w in zip(got, want))
+    if err != 0 or not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"{name}: kernel disagrees with its plain version {what} "
+             f"(max abs limb error {err})")
+    return err
+
+
+def madd_inputs(g2, n, gen, dev):
+    """acc [3k·24, n] Jacobian and q [2k·24, n] affine, random canonical
+    values with special lanes: 0-3 T at infinity (Z = 0), 4-7 T == Q
+    (Z = 1), 8-11 T == −Q, 12-15 everything zero."""
+    import torch
+    from threshold_crypto_tpu_torch.device import mont
+    from threshold_crypto_tpu_torch.device import packed as pk
+    from threshold_crypto_tpu_torch.device.mont import FQ
+
+    k = 2 if g2 else 1
+    rows = k * FQ.L
+    acc = random_packed(3 * k, n, gen, dev)
+    q = random_packed(2 * k, n, gen, dev)
+    acc[2 * rows:, 0:4] = 0
+    acc[:2 * rows, 4:12] = q[:, 4:12]
+    acc[2 * rows:, 4:12] = pk._one_rows(k, 8, dev)
+    y = torch.stack(pk.unpack(q[rows:, 8:12].contiguous(), k))
+    acc[rows:2 * rows, 8:12] = pk.pack(list(mont.neg(FQ, y)))
+    acc[:, 12:16] = 0
+    q[:, 12:16] = 0
+    return acc, q
+
+
+def check_madd(g2, gen, dev, card):
+    """B10 at the path's width, N = 262,144 lanes, against its plain
+    version (run over blocks of 16,384 lanes, which it treats alike)."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
+    name = "g2_madd" if g2 else "g1_madd"
+    kernel = {k.name: k for _, k in registry()}[name]
+    n, k = RLC_N, 2 if g2 else 1
+    acc, q = madd_inputs(g2, n, gen, dev)
+    got = kernel.launch(acc, q)
+    torch.cuda.synchronize()
+    step = 16384
+    with plain_versions():
+        parts, plain_ms = [], 0.0
+        for s in range(0, n, step):
+            out, ms = timed_once(kernel.plain, acc[:, s:s + step].contiguous(),
+                                 q[:, s:s + step].contiguous())
+            parts.append(out)
+            plain_ms += ms
+    err = compare(name, got, torch.cat(parts, 1), f"at {n} lanes")
+    pts = ccv.unpack_jac(got[:, :12], g2)
+    z = pts[2] if not g2 else torch.cat(pts[2], -1)
+    if bool(z[8:12].any()) or not bool(z[4:8].any()):
+        fail(f"{name}: T == -Q lanes are not at infinity, or T == Q lanes "
+             f"are")
+    ms = cuda_time_ms(lambda: kernel.launch(acc, q), 10)
+    products = MADD_FQ_PRODUCTS[k - 1]
+    bound, by = bound_ms(n * 8 * k * 96, n * products * FQ_PRODUCT_IMADS,
+                         card)
+    print(f"{name} acc {list(acc.shape)} q {list(q.shape)}: bit-exact (T at "
+          f"infinity, T == Q, T == -Q and zero lanes included); kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
+          f"({by}), {ms / bound:.1f}x the bound", flush=True)
+    return dict(lanes=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
+
+
+def winacc_inputs(g2, n, gen, dev):
+    """A table of 7 random entries [7·3k·24, n], with entry 2 at infinity
+    on lanes 0-63, and 22 random digits 0-7 per lane, all 0 on lanes
+    100-109 (as the driver sets dead lanes)."""
+    import torch
+    from threshold_crypto_tpu_torch.device.mont import FQ
+
+    k = 2 if g2 else 1
+    table = random_packed(7 * 3 * k, n, gen, dev)
+    e2z = (2 * 3 * k + 2 * k) * FQ.L
+    table[e2z:e2z + k * FQ.L, 0:64] = 0
+    digits = torch.randint(0, 8, (22, n), generator=gen, device=dev,
+                           dtype=torch.int32)
+    digits[:, 100:110] = 0
+    return table, digits
+
+
+def check_winacc(g2, gen, dev, card):
+    """B11 over all 22 windows at the chosen A: bit-exact against its plain
+    version (a sequential loop over blocks of A lanes) at N = 2A, so every
+    accumulator owns two lanes; timed at the path's N = 262,144, and at two
+    other A beside the chosen one."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
+    name = "g2_winacc" if g2 else "g1_winacc"
+    kernel = {k.name: k for _, k in registry()}[name]
+    A, k = ccv.ACCUMULATORS, 2 if g2 else 1
+    table, digits = winacc_inputs(g2, 2 * A, gen, dev)
+    got = kernel.launch(table, digits, A, RLC_WINDOW)
+    torch.cuda.synchronize()
+    with plain_versions():
+        want, plain_ms = timed_once(kernel.plain, table, digits, A,
+                                    RLC_WINDOW)
+    err = compare(name, got, want, f"at N = {2 * A}, A = {A}")
+    del table, digits, want
+    table, digits = winacc_inputs(g2, RLC_N, gen, dev)
+    ms = cuda_time_ms(lambda: kernel.launch(table, digits, A, RLC_WINDOW), 2)
+    others = {a: cuda_time_ms(lambda: kernel.launch(table, digits, a,
+                                                    RLC_WINDOW), 1)
+              for a in (A // 2, 2 * A)}
+    nonzero = int((digits != 0).sum().item())
+    add_p, dbl_p = ADD_FQ_PRODUCTS[k - 1], DBL_FQ_PRODUCTS[k - 1]
+    products = nonzero * add_p + A * 22 * RLC_WINDOW * dbl_p
+    bytes_moved = (table.numel() + digits.numel() + 3 * k * 24 * A) * 4
+    bound, by = bound_ms(bytes_moved, products * FQ_PRODUCT_IMADS, card)
+    print(f"{name} table {list(table.shape)} digits {list(digits.shape)} "
+          f"A={A}: bit-exact at N={2 * A} (plain {plain_ms:.1f} ms); kernel "
+          f"{ms:.3f} ms at N={RLC_N} ({nonzero} nonzero digits), bound "
+          f"{bound:.3f} ms ({by}), {ms / bound:.1f}x the bound; at "
+          f"A={A // 2}: {others[A // 2]:.3f} ms, A={2 * A}: "
+          f"{others[2 * A]:.3f} ms", flush=True)
+    return dict(lanes=RLC_N, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                plain_lanes=2 * A, bound_ms=bound, bound_by=by,
+                accumulators=A, ms_other_accumulators=others)
+
+
+def rlc_chunks(n):
+    """B12's chunks per RLC call: the full 2176-byte chunks of the six
+    [n, 24] limb leaves (pk x, y; sig x0, x1, y0, y1)."""
+    return 6 * (n * 24 * 4 // 2176)
+
+
+def check_sha3(gen, dev, card):
+    """B12 at the path's K chunks against its plain version, and a sample
+    of chunks against hashlib."""
+    import hashlib
+
+    import torch
+    from threshold_crypto_tpu_torch.device import keccak as dk
+
+    K = rlc_chunks(RLC_N)
+    words = torch.randint(-2 ** 31, 2 ** 31, (K, 544), generator=gen,
+                          device=dev, dtype=torch.int64).to(torch.int32)
+    words[0] = 0
+    words[1] = -1
+    got = dk.sha3_chunks(words)
+    torch.cuda.synchronize()
+    with plain_versions():
+        want, plain_ms = timed_once(dk.sha3_256_chunks, words)
+    err = compare("sha3_chunks", got, want, f"at K = {K}")
+    sample = list(range(0, K, K // 61))[:64]
+    w_np, g_np = words[sample].cpu().numpy(), got[sample].cpu().numpy()
+    for i in range(len(sample)):
+        if g_np[i].tobytes() != hashlib.sha3_256(w_np[i].tobytes()).digest():
+            fail(f"sha3_chunks: chunk {sample[i]} differs from hashlib")
+    ms = cuda_time_ms(lambda: dk.sha3_chunks(words), 10)
+    bound, by = bound_ms(K * (2176 + 32), K * 17 * 24 * KECCAK_ROUND_OPS,
+                         card)
+    print(f"sha3_chunks words {list(words.shape)}: bit-exact, {len(sample)} "
+          f"chunks equal to hashlib; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {bound:.4f} ms ({by}), "
+          f"{ms / bound:.1f}x the bound", flush=True)
+    return dict(lanes=K, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by)
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: slice 3, the RLC path
+# ---------------------------------------------------------------------------
+
+def rlc_launches(n):
+    """Launches of one RLC call: 2 B12 (level 1 and 2 of the transcript),
+    6 + 6 B10, 1 + 1 B11, the megakernel check's B4-B9, 4 B2 (the inverses
+    of jacobian_to_affine on both sums and on H, and the easy part) and B1
+    for the fold (5 stacked products per complete add, one add per level,
+    ⌈log₂ A⌉ levels per group) plus 28 (the affine conversions 4 + 6 + 6
+    and the check's 12)."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
+    levels = (min(ccv.ACCUMULATORS, n) - 1).bit_length()
+    expect = dict(PALLAS_LAUNCHES)
+    expect.update({"sha3_chunks": 2, "g1_madd": 6, "g2_madd": 6,
+                   "g1_winacc": 1, "g2_winacc": 1, "mont_pow": 4,
+                   "mont_mul": 2 * 5 * levels + 28})
+    return expect
+
+
+def rlc_inputs(dev):
+    """bench.py's _make_rlc_batch: 16 keys and one H from its seed, made on
+    the host and tiled to RLC_N lanes on the card; lanes RLC_DEAD get pk and
+    sig at infinity (coordinates 0, as the host builders give them)."""
+    import torch
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import pairing as dpr
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.host.params import R
+
+    rnd = random.Random(0xA66)
+    sks = [rnd.randrange(1, R) for _ in range(RLC_KEYS)]
+    h = hcv.G2.mul(hcv.G2.generator, rnd.randrange(1, R))
+    pk = [hcv.G1.mul(hcv.G1.generator, s) for s in sks]
+    sig = [hcv.G2.mul(h, s) for s in sks]
+    reps = RLC_N // RLC_KEYS
+
+    def tile(tree):
+        return dcv.tree_map(
+            lambda a: a.repeat((reps,) + (1,) * (a.dim() - 1)), tree)
+
+    pk_aff = tile(dpr.g1_affine_from_host(pk, device=dev))
+    sig_aff = tile(dpr.g2_affine_from_host(sig, device=dev))
+    dead = torch.tensor(RLC_DEAD, device=dev)
+    for aff in (pk_aff, sig_aff):
+        aff[2][dead] = True
+        for c in dcv.leaves(aff[:2]):
+            c[dead] = 0
+    h_jac = dcv.G2.from_host_affine([h], device=dev)
+    return pk_aff, sig_aff, h_jac, pk, sig
+
+
+def rlc_call(pk_aff, sig_aff, h_jac, seed):
+    """One RLC verification as bench.py times it: exponents, then the
+    check. Returns (ok, r, seconds), synchronised."""
+    import torch
+    from threshold_crypto_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    r = ops.rlc_exponents(RLC_N, seed, pk_aff=pk_aff, sig_aff=sig_aff)
+    ok = bool(ops.verify_sig_shares_rlc_pallas(
+        pk_aff, h_jac, sig_aff, r, check_batch=RLC_CHECK_BATCH))
+    torch.cuda.synchronize()
+    return ok, r, time.time() - t0
+
+
+def host_affine(aff, g2):
+    """A [1]-batched affine tuple on the card -> the host point (or None)."""
+    from threshold_crypto_tpu_torch.device import mont
+    from threshold_crypto_tpu_torch.device import tower as tw
+    from threshold_crypto_tpu_torch.device.mont import FQ
+
+    x, y, inf = aff
+    if bool(inf[0]):
+        return None
+    if g2:
+        return (tw.fq2_to_host(x)[0], tw.fq2_to_host(y)[0])
+    return (mont.unstack_mont(FQ, x)[0], mont.unstack_mont(FQ, y)[0])
+
+
+@contextlib.contextmanager
+def stage_timer(spans):
+    """Bracket the stages of an RLC call with CUDA events: the transcript,
+    ChaCha, each MSM with its table (B10), Horner (B11) and fold, the
+    affine conversions and the check. Wraps the module attributes through
+    which the entry points reach each stage, and restores them."""
+    import torch
+    from threshold_crypto_tpu_torch.device import chacha
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import keccak
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    def group(g2):
+        return "G2" if g2 else "G1"
+
+    def wrap(label, fn):
+        def run(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            stop.record()
+            spans.append((label(*args), start, stop))
+            return out
+        return run
+
+    patches = [
+        (keccak, "transcript_digests", lambda *a: "transcript"),
+        (chacha, "rlc_exponent_limbs", lambda *a: "chacha"),
+        (ccv, "msm_pallas_shared",
+         lambda c, *a: f"msm {group(c is dcv.G2)}"),
+        (ccv, "p_madd", lambda g2, *a: f"  table (B10) {group(g2)}"),
+        (ccv, "p_winacc", lambda g2, *a: f"  horner (B11) {group(g2)}"),
+        (tops, "jacobian_to_affine", lambda *a: "affine"),
+        (tops, "verify_batch_pallas", lambda *a: "check"),
+    ]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, label in patches:
+        setattr(mod, name, wrap(label, getattr(mod, name)))
+    for curve in (dcv.G1, dcv.G2):
+        g = curve.name
+        curve.fold_sum = wrap(lambda *a, g=g: f"  fold {g}", curve.fold_sum)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+        for curve in (dcv.G1, dcv.G2):
+            del curve.fold_sum
+
+
+def run_rlc(dev, results):
+    """Slice 3: drive the RLC path at RLC_N and check it."""
+    import numpy as np
+    import torch
+    from threshold_crypto_tpu_torch import convert, ops
+    from threshold_crypto_tpu_torch.device import keccak
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.host.params import R
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    t0 = time.time()
+    pk_aff, sig_aff, h_jac, pk, sig = rlc_inputs(dev)
+    print(f"inputs: {RLC_N} shares of {RLC_KEYS} keys on one message, lanes "
+          f"{list(RLC_DEAD)} with pk and sig at infinity, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    reset_counts()
+    ok, r, first_s = rlc_call(pk_aff, sig_aff, h_jac, b"\x01" * 32)
+    launches = read_counts()
+    print(f"rlc first call {first_s:.2f} s; launches per call {launches}",
+          flush=True)
+    expect = rlc_launches(RLC_N)
+    got = {k: launches[k] for k in expect}
+    if got != expect:
+        fail(f"rlc: launches per call {got}, expected {expect}")
+    if min(launches.values()) < 1:
+        fail(f"a kernel of the RLC path was not launched: {launches}")
+    if not ok:
+        fail("rlc: the valid batch was rejected")
+
+    # 1. the exponents equal the host stream
+    host_r = ops.rlc_exponents(RLC_N, b"\x01" * 32, pk_aff=pk_aff,
+                               sig_aff=sig_aff, on_device=False)
+    if not torch.equal(r, host_r):
+        fail("rlc: device exponents differ from the host stream")
+    # 2. the transcript of the card tensors equals that of numpy copies
+    leaves = dcv.leaves((pk_aff, sig_aff))
+    if keccak.transcript_digests(leaves) != keccak.transcript_digests(
+            [convert.to_jax(x) for x in leaves]):
+        fail("rlc: transcript digests differ between card and host leaves")
+    # 3. the folded sums equal the host oracle's
+    k = r[:, :4].long().cpu().numpy().astype(np.uint64)
+    ks = k[:, 0] | (k[:, 1] << 16) | (k[:, 2] << 32) | (k[:, 3] << 48)
+    live = ~pk_aff[2].cpu().numpy()
+    sums = [sum(int(v) for v in ks[j::RLC_KEYS][live[j::RLC_KEYS]]) % R
+            for j in range(RLC_KEYS)]
+    want_pk = want_sig = None
+    for j in range(RLC_KEYS):
+        want_pk = hcv.G1.add(want_pk, hcv.G1.mul(pk[j], sums[j]))
+        want_sig = hcv.G2.add(want_sig, hcv.G2.mul(sig[j], sums[j]))
+    pk_a, sg_a = tops.rlc_aggregate_pallas(pk_aff, sig_aff, r)
+    if (host_affine(pk_a, False), host_affine(sg_a, True)) != (want_pk,
+                                                               want_sig):
+        fail("rlc: the MSM sums differ from the host oracle")
+    print("exponents equal the host stream on all lanes; transcript digests "
+          "of card and numpy leaves equal; G1 and G2 sums equal the host "
+          "oracle's", flush=True)
+    # 4. tampered batches are rejected
+    for what, lane in (("sig", 7), ("pk", 10)):
+        bad = dcv.tree_map(lambda a: a.clone(),
+                           sig_aff if what == "sig" else pk_aff)
+        for c in dcv.leaves(bad[:2]):
+            c[lane] = c[lane + 1]      # the next key's point
+        pk_t, sig_t = (pk_aff, bad) if what == "sig" else (bad, sig_aff)
+        if rlc_call(pk_t, sig_t, h_jac, b"\x02" * 32)[0]:
+            fail(f"rlc: a batch with one {what} replaced was accepted")
+    print("the batch with one sig replaced and the one with one pk replaced "
+          "are rejected", flush=True)
+
+    times = [rlc_call(pk_aff, sig_aff, h_jac, bytes([i + 3]) * 32)[2]
+             for i in range(3)]
+    wall = statistics.median(times)
+    print(f"rlc N={RLC_N}: median {wall:.3f} s of "
+          f"{[round(t, 3) for t in times]} -> {RLC_N / wall:.1f} share "
+          f"verifications/s (exponent derivation included)", flush=True)
+
+    per_a = rlc_accumulator_sweep(pk_aff, sig_aff, h_jac)
+
+    spans = []
+    with kernel_event_timer(spans):
+        _, _, kwall = rlc_call(pk_aff, sig_aff, h_jac, b"\x07" * 32)
+    per_kernel = {}
+    for name, start, stop in spans:
+        per_kernel[name] = per_kernel.get(name, 0.0) + start.elapsed_time(stop)
+    kernel_s = sum(per_kernel.values()) / 1e3
+    print(f"rlc time split (one call, kernels bracketed by events): wall "
+          f"{kwall:.3f} s, kernels {kernel_s:.3f} s "
+          f"({100 * kernel_s / kwall:.1f} %), the rest {kwall - kernel_s:.3f}"
+          f" s; ms per kernel "
+          f"{ {k: round(v, 3) for k, v in per_kernel.items()} }", flush=True)
+
+    stages = []
+    with stage_timer(stages):
+        _, _, swall = rlc_call(pk_aff, sig_aff, h_jac, b"\x08" * 32)
+    split = {}
+    for label, start, stop in stages:
+        split[label] = split.get(label, 0.0) + start.elapsed_time(stop)
+    top = sum(v for key, v in split.items() if not key.startswith(" "))
+    print(f"rlc stages of one call (CUDA events; wall {swall * 1e3:.1f} ms, "
+          f"outside the stages {swall * 1e3 - top:.1f} ms):", flush=True)
+    for label, ms in split.items():
+        print(f"  {label}: {ms:.1f} ms", flush=True)
+    return dict(launches=launches, wall_s=wall, per_s=RLC_N / wall,
+                kernel_s=kernel_s, timed_wall_s=kwall, split_ms=split,
+                kernel_ms=per_kernel, wall_s_per_accumulators=per_a)
+
+
+def rlc_accumulator_sweep(pk_aff, sig_aff, h_jac):
+    """Time the whole RLC call at each A of RLC_A_SWEEP, in turns (forward,
+    then backward, ...), RLC_A_ROUNDS calls each; every call must accept
+    the valid batch. Returns {A: median seconds}."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
+    chosen = ccv.ACCUMULATORS
+    times = {a: [] for a in RLC_A_SWEEP}
+    try:
+        for rnd in range(RLC_A_ROUNDS):
+            order = RLC_A_SWEEP if rnd % 2 == 0 else RLC_A_SWEEP[::-1]
+            for a in order:
+                ccv.ACCUMULATORS = a
+                ok, _, s = rlc_call(pk_aff, sig_aff, h_jac,
+                                    bytes([16 + rnd]) * 32)
+                if not ok:
+                    fail(f"rlc: the valid batch was rejected at A = {a}")
+                times[a].append(s)
+    finally:
+        ccv.ACCUMULATORS = chosen
+    per_a = {a: statistics.median(t) for a, t in times.items()}
+    print(f"rlc call by B11's accumulators A (median of {RLC_A_ROUNDS} in "
+          f"turns; the path runs A = {chosen}): "
+          + ", ".join(f"A={a}: {per_a[a]:.4f} s of "
+                      f"{[round(t, 4) for t in times[a]]}"
+                      for a in RLC_A_SWEEP), flush=True)
+    return per_a
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import numpy as np
@@ -567,6 +1072,14 @@ def main():
     gen.manual_seed(SEED)
     for name in TOWER_CHECKS:
         results[name] = check_tower(name, gen, dev, card)
+    for g2 in (False, True):
+        results["g2_madd" if g2 else "g1_madd"] = check_madd(g2, gen, dev,
+                                                             card)
+    for g2 in (False, True):
+        results["g2_winacc" if g2 else "g1_winacc"] = check_winacc(
+            g2, gen, dev, card)
+    results["sha3_chunks"] = check_sha3(gen, dev, card)
+    torch.cuda.empty_cache()
 
     old, new = run_slices(dev)
     if old["widest"] != {"mont_mul": widest_mul, "mont_pow": LANES}:
@@ -578,12 +1091,24 @@ def main():
           f"{new['timed_wall_s']:.3f} s; bound of its B4-B9 launches "
           f"{path_bound:.3f} ms", flush=True)
 
+    phase(f"slice 3: the RLC path at N = {RLC_N} (ops.rlc_exponents -> "
+          f"ops.verify_sig_shares_rlc_pallas)")
+    rlc = run_rlc(dev, results)
+    rlc_bound = sum(results[k]["bound_ms"] * rlc["launches"][k]
+                    for k in ("g1_madd", "g2_madd", "g1_winacc", "g2_winacc",
+                              "sha3_chunks"))
+    print(f"the RLC path: kernels {rlc['kernel_s']:.3f} s of "
+          f"{rlc['timed_wall_s']:.3f} s; bound of its B10-B12 launches "
+          f"{rlc_bound:.3f} ms", flush=True)
+
     kernels = []
     for mod, k in registry():
         res = results[k.name]
         # B1/B2: launches of slice 1, where they carry the path; B3-B9:
-        # of slice 2 (B3 runs inside every B4-B9 launch).
-        path = old if k.name.startswith("mont_") else new
+        # of slice 2 (B3 runs inside every B4-B9 launch); B10-B12: of
+        # slice 3. Every kernel's launches on the RLC path beside them.
+        path = (old if k.name.startswith("mont_") else
+                rlc if k.name in RLC_KERNELS else new)
         entry = {
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": path["launches"][k.name],
@@ -594,6 +1119,12 @@ def main():
         }
         if k.name.startswith("mont_"):
             entry["launches_megakernel_path"] = new["launches"][k.name]
+        entry["launches_rlc_path"] = rlc["launches"][k.name]
+        if "plain_lanes" in res:
+            entry["plain_lanes"] = res["plain_lanes"]
+        if "accumulators" in res:
+            entry["accumulators"] = res["accumulators"]
+            entry["ms_other_accumulators"] = res["ms_other_accumulators"]
         kernels.append(entry)
     print(f"whole run {time.time() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,0 +1,251 @@
+"""The MSM and SHA3 kernels' CUDA sources, compiled for the host, against their
+plain versions and ``hashlib``.
+
+The per-lane bodies of B10 and B11 (``csrc/curve.cuh``: the doubling, the
+complete add, the complete mixed add and the Horner loop of one
+accumulator) and of B12 (``csrc/keccak.cuh``) are plain C++ behind CUDA's
+function qualifiers. Here g++ compiles them with the qualifiers defined
+away, and a serial loop over the lanes (or accumulators, or chunks) stands
+in for the grid: the same integer arithmetic the kernels run on the card,
+on the packed layout, checked bit-exact against the plain versions
+(``device/curve.py``, ``device/cuda_curve.py``, ``device/keccak.py``) on
+seeded points with the special lanes T == Q, T == −Q and infinity on
+either side, and against ``hashlib.sha3_256``. Without g++ the tests skip
+(the kernels themselves run only on the card, in ``chip_smoke.py``).
+"""
+
+import hashlib
+import random
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from threshold_crypto_tpu_torch import _build
+from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+from threshold_crypto_tpu_torch.device import curve as dcv
+from threshold_crypto_tpu_torch.device import keccak as dk
+from threshold_crypto_tpu_torch.host import curve as hcv
+from threshold_crypto_tpu_torch.host import tower as htw
+from threshold_crypto_tpu_torch.host.params import P, R
+
+HARNESS = r"""
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define __constant__
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+#include "curve.cuh"
+#include "keccak.cuh"
+
+// stdin: int32 op, n, accs, ndig, window, then the inputs; stdout: output.
+static std::vector<int32_t> rd(size_t count) {
+  std::vector<int32_t> v(count);
+  if (fread(v.data(), 4, count, stdin) != count) exit(3);
+  return v;
+}
+
+template <class F>
+void run(int op, int n, int accs, int ndig, int window) {
+  const size_t P = 3ul * tc::Comps<F>::k * 24;  // Jacobian rows
+  std::vector<int32_t> out;
+  if (op == 0) {  // madd
+    auto acc = rd(P * n), q = rd(2 * P / 3 * n);
+    out.resize(P * n);
+    for (int l = 0; l < n; ++l)
+      tc::madd_lane<F>(acc.data(), q.data(), out.data(), n, l);
+  } else if (op == 1 || op == 2) {  // dbl, add
+    auto a = rd(P * n);
+    auto b = op == 2 ? rd(P * n) : std::vector<int32_t>();
+    out.resize(P * n);
+    for (int l = 0; l < n; ++l) {
+      tc::Jac<F> T, Q;
+      tc::load_jac(T, a.data(), 0, n, l);
+      if (op == 1) {
+        tc::jac_dbl(T, T);
+      } else {
+        tc::load_jac(Q, b.data(), 0, n, l);
+        tc::jac_add(T, T, Q);
+      }
+      tc::store_jac(out.data(), T, n, l);
+    }
+  } else {  // winacc
+    auto table = rd(((1ul << window) - 1) * P * n), digits = rd(ndig * n);
+    out.resize(P * accs);
+    for (int j = 0; j < accs; ++j)
+      tc::winacc_lane<F>(table.data(), digits.data(), out.data(), n, accs,
+                         ndig, window, j);
+  }
+  fwrite(out.data(), 4, out.size(), stdout);
+}
+
+int main() {
+  int32_t h[6];
+  if (fread(h, 4, 6, stdin) != 6) return 2;
+  const int op = h[0], g2 = h[1], n = h[2];
+  if (op == 4) {  // sha3 chunks
+    auto words = rd(544ul * n);
+    std::vector<int32_t> out(8ul * n);
+    for (int c = 0; c < n; ++c)
+      tc::sha3_chunk_lane(words.data(), out.data(), c);
+    fwrite(out.data(), 4, out.size(), stdout);
+  } else if (g2) {
+    run<tc::Fq2>(op, n, h[3], h[4], h[5]);
+  } else {
+    run<tc::Fq>(op, n, h[3], h[4], h[5]);
+  }
+  return 0;
+}
+"""
+
+OPS = {"madd": 0, "dbl": 1, "add": 2, "winacc": 3, "sha3": 4}
+N = 16
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to compile the kernel sources for the host")
+    d = tmp_path_factory.mktemp("csrc_msm")
+    src = d / "harness.cpp"
+    src.write_text(HARNESS)
+    exe = str(d / "harness")
+    subprocess.run([gxx, "-O1", "-std=c++17", "-I", _build.CSRC, str(src),
+                    "-o", exe], check=True, capture_output=True, timeout=300)
+    return exe
+
+
+def _run(exe, op, g2, n, ins, out_shape, accs=0, ndig=0, window=0):
+    blob = np.array([OPS[op], int(g2), n, accs, ndig, window],
+                    np.int32).tobytes()
+    blob += b"".join(t.numpy().tobytes() for t in ins)
+    proc = subprocess.run([exe], input=blob, capture_output=True,
+                          timeout=120, check=True)
+    flat = np.frombuffer(proc.stdout, np.int32).copy()
+    return torch.from_numpy(flat.reshape(out_shape))
+
+
+def _jacobian(curve, host, pts, rnd):
+    """Host affine points (None = infinity) as a Jacobian tuple with a
+    random Z ≠ 1 on every live lane (X·z², Y·z³, z)."""
+    mul = htw.fq_mul if curve is dcv.G1 else htw.fq2_mul
+    one = 1 if curve is dcv.G1 else (1, 0)
+    xs, ys, zs = [], [], []
+    for p in pts:
+        if p is None:
+            xs.append(one), ys.append(one), zs.append(0 if curve is dcv.G1
+                                                      else (0, 0))
+            continue
+        z = rnd.randrange(2, P) if curve is dcv.G1 else \
+            (rnd.randrange(P), rnd.randrange(P))
+        z2 = mul(z, z)
+        xs.append(mul(p[0], z2)), ys.append(mul(p[1], mul(z2, z)))
+        zs.append(z)
+    f = curve.f
+    return tuple(f.from_host(v, "cpu") for v in (xs, ys, zs))
+
+
+@pytest.fixture(scope="module", params=["G1", "G2"])
+def group(request):
+    """(curve, host group, T, Q): T and Q Jacobian [N] with the special lanes
+    0: T = inf; 1: Q = inf; 2: T == Q; 3: T == −Q; 4: both inf."""
+    g2 = request.param == "G2"
+    curve, host = (dcv.G2, hcv.G2) if g2 else (dcv.G1, hcv.G1)
+    rnd = random.Random(0xC0DE + g2)
+    ts = [host.mul(host.generator, rnd.randrange(1, R)) for _ in range(N)]
+    qs = [host.mul(host.generator, rnd.randrange(1, R)) for _ in range(N)]
+    ts[0] = None
+    qs[1] = None
+    qs[2] = ts[2]
+    qs[3] = host.neg(ts[3])
+    ts[4] = qs[4] = None
+    return (curve, host, _jacobian(curve, host, ts, rnd),
+            _jacobian(curve, host, qs, rnd))
+
+
+def test_doubling_body_matches_plain_version(harness, group):
+    curve, _, T, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    got = _run(harness, "dbl", g2, N, [ccv.pack_point(T)], (rows, N))
+    assert torch.equal(got, ccv.pack_point(dcv.jac_dbl(curve.f, T)))
+
+
+def test_complete_add_body_matches_plain_version(harness, group):
+    curve, host, T, Q = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    got = _run(harness, "add", g2, N,
+               [ccv.pack_point(T), ccv.pack_point(Q)], (rows, N))
+    want = dcv.jac_add(curve.f, T, Q)
+    assert torch.equal(got, ccv.pack_point(want))
+    # and the sums are the host group's, special lanes included
+    sums = curve.to_host_affine(want)
+    hosts = [host.add(a, b) for a, b in zip(curve.to_host_affine(T),
+                                            curve.to_host_affine(Q))]
+    assert sums == hosts and sums[3] is None and sums[4] is None
+
+
+def test_mixed_add_body_matches_plain_version(harness, group):
+    curve, _, T, Q = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    # Q affine: lane 2 equals T, lane 3 is −T, lane 1 (infinity) carries
+    # the generator, as ``from_host_affine`` places it
+    pts = [curve.gen_affine_host if p is None else p
+           for p in curve.to_host_affine(Q)]
+    q = ccv.pack_point(tuple(curve.f.from_host([p[c] for p in pts], "cpu")
+                             for c in range(2)))
+    got = _run(harness, "madd", g2, N, [ccv.pack_point(T), q], (rows, N))
+    want = ccv._madd_ref(g2, ccv.pack_point(T), q)
+    assert torch.equal(got, want)
+    pts = curve.to_host_affine(ccv.unpack_jac(want, g2))
+    assert pts[3] is None and pts[2] is not None
+
+
+@pytest.mark.parametrize("accs", [1, 3, 5])
+def test_winacc_body_matches_plain_version(harness, group, accs):
+    """The Horner loop of each accumulator over 2 windows of w = 3 (and a
+    ragged last block of lanes), bit-exact with the plain version."""
+    curve, _, T, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    n, window, ndig = 11, 3, 4
+    rng = np.random.default_rng(accs)
+    table = torch.cat([ccv.pack_point(T)[:, i:i + n] for i in range(5)]
+                      + [ccv.pack_point(T)[:, :n]] * 2)
+    digits = torch.from_numpy(rng.integers(0, 8, (ndig, n)).astype(np.int32))
+    digits[:, 0] = 0
+    got = _run(harness, "winacc", g2, n, [table.contiguous(), digits],
+               (rows, accs), accs=accs, ndig=ndig, window=window)
+    want = ccv._winacc_ref(g2, table, digits, accs, window)
+    assert torch.equal(got, want)
+
+
+def test_sha3_body_matches_hashlib_and_plain_version(harness):
+    rng = np.random.default_rng(12)
+    words = rng.integers(0, 1 << 32, (5, 544), dtype=np.uint64).astype(
+        np.uint32)
+    words[0] = 0
+    got = _run(harness, "sha3", False, 5,
+               [torch.from_numpy(words.view(np.int32))], (5, 8))
+    for i in range(5):
+        assert got[i].numpy().tobytes() == \
+            hashlib.sha3_256(words[i].tobytes()).digest()
+    assert torch.equal(got, dk.sha3_256_chunks(
+        torch.from_numpy(words.view(np.int32))))

@@ -23,12 +23,17 @@ MODULES = [
     "threshold_crypto_tpu_torch.host.params",
     "threshold_crypto_tpu_torch.host.tower",
     "threshold_crypto_tpu_torch.host.curve",
+    "threshold_crypto_tpu_torch.host.chacha",
     "threshold_crypto_tpu_torch.device.mont",
     "threshold_crypto_tpu_torch.device.cuda_mont",
     "threshold_crypto_tpu_torch.device.tower",
     "threshold_crypto_tpu_torch.device.packed",
     "threshold_crypto_tpu_torch.device.cuda_tower",
     "threshold_crypto_tpu_torch.device.pairing",
+    "threshold_crypto_tpu_torch.device.curve",
+    "threshold_crypto_tpu_torch.device.cuda_curve",
+    "threshold_crypto_tpu_torch.device.keccak",
+    "threshold_crypto_tpu_torch.device.chacha",
     "threshold_crypto_tpu_torch.ops",
     "threshold_crypto_tpu_torch.ops.threshold",
 ]
@@ -82,9 +87,9 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
     """Each tower source is one nvcc of its own .cu, finding fq.cuh and
     tower.cuh beside it, and its library name hashes those headers too."""
     srcs = [os.path.basename(s) for s in _build.sources()]
-    assert srcs == ["fq12.cu", "miller.cu", "mont.cu"]
+    assert srcs == ["fq12.cu", "keccak.cu", "miller.cu", "mont.cu", "msm.cu"]
     assert [os.path.basename(h) for h in _build.headers()] == [
-        "fq.cuh", "tower.cuh"]
+        "curve.cuh", "fq.cuh", "keccak.cuh", "tower.cuh"]
     cmd = _build.command(name, "/nonexistent/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-Xptxas" in cmd
     inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
@@ -92,6 +97,22 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
     assert not any(a.startswith(("-I", "-l", "-L")) for a in cmd)
     text = open(inputs[0]).read()
     assert '#include "tower.cuh"' in text
+    assert "#include <torch" not in text and "#include <ATen" not in text
+    assert sorted(fn for fn, _ in _build.SIGNATURES[name]) == sorted(
+        re.findall(r'extern "C" int (\w+)\(', text))
+
+
+@pytest.mark.parametrize("name,header", [("msm", "curve.cuh"),
+                                         ("keccak", "keccak.cuh")])
+def test_msm_and_keccak_sources_build_alone(name, header):
+    """The RLC slice's sources: one nvcc each, their header beside them, no
+    PyTorch headers, and a C launcher for every signature."""
+    cmd = _build.command(name, "/nonexistent/lib.so")
+    assert "arch=compute_90a,code=sm_90a" in cmd
+    inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
+    assert inputs == [os.path.join(_build.CSRC, name + ".cu")]
+    text = open(inputs[0]).read()
+    assert f'#include "{header}"' in text
     assert "#include <torch" not in text and "#include <ATen" not in text
     assert sorted(fn for fn, _ in _build.SIGNATURES[name]) == sorted(
         re.findall(r'extern "C" int (\w+)\(', text))
@@ -132,7 +153,7 @@ def test_build_renames_into_place_and_caches(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     logs = _build.build()
     names = sorted(logs)
-    assert names == ["fq12", "miller", "mont"]
+    assert names == ["fq12", "keccak", "miller", "mont", "msm"]
     assert all("Used 40 registers" in logs[n] for n in names)
     assert all(re.search(rf"nvcc {n}\.cu: \d+\.\d s", logs[n])
                for n in names)

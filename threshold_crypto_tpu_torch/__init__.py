@@ -6,13 +6,17 @@ imports torch, numpy and the standard library, never JAX and nothing of
 passes ``device="cpu"``; on the CPU the kernels' plain PyTorch versions run
 in their place.
 
-What is ported so far: strict per-pair BLS verification on the
-BLS12-381 stack of :mod:`.device` (Montgomery field arithmetic, the
-Fq2/Fq6/Fq12 tower, the Miller loop and the final exponentiation), on two
-paths: :func:`threshold_crypto_tpu_torch.ops.verify_batch` (the tower as
-stacked field products, kernels B1 and B2 in ``csrc/mont.cu``) and
-:func:`threshold_crypto_tpu_torch.ops.verify_batch_pallas` (the megakernel
-path: whole Miller iterations and Fq12 steps as one launch each, kernels
-B4-B9 in ``csrc/miller.cu`` and ``csrc/fq12.cu`` on the engine B3 of
-``csrc/fq.cuh``).
+What is ported so far: BLS verification on the BLS12-381 stack of
+:mod:`.device` (Montgomery field arithmetic, the Fq2/Fq6/Fq12 tower, G1/G2
+Jacobian curves, the Miller loop and the final exponentiation), on three
+paths: :func:`threshold_crypto_tpu_torch.ops.verify_batch` (strict per-pair
+verify, the tower as stacked field products, kernels B1 and B2 in
+``csrc/mont.cu``), :func:`threshold_crypto_tpu_torch.ops.verify_batch_pallas`
+(the megakernel path: whole Miller iterations and Fq12 steps as one launch
+each, kernels B4-B9 in ``csrc/miller.cu`` and ``csrc/fq12.cu`` on the engine
+B3 of ``csrc/fq.cuh``), and the RLC batch verification of N shares on one
+message, :func:`threshold_crypto_tpu_torch.ops.rlc_exponents` then
+:func:`threshold_crypto_tpu_torch.ops.verify_sig_shares_rlc_pallas` (the
+transcript hash B12 in ``csrc/keccak.cu``, the shared-window MSMs B10 and
+B11 in ``csrc/msm.cu``, and one check through ``verify_batch_pallas``).
 """

@@ -49,6 +49,15 @@ SIGNATURES = {
         ("tc_fq12_sqr", [_VP, _VP, _INT, _VP]),
         ("tc_fq_engine", [_VP, _VP, _VP, _INT, _INT, _INT, _VP]),
     ],
+    "msm": [
+        ("tc_g1_madd", [_VP, _VP, _VP, _INT, _VP]),
+        ("tc_g2_madd", [_VP, _VP, _VP, _INT, _VP]),
+        ("tc_g1_winacc", [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP]),
+        ("tc_g2_winacc", [_VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP]),
+    ],
+    "keccak": [
+        ("tc_sha3_chunks", [_VP, _VP, _INT, _VP]),
+    ],
 }
 
 _lock = threading.Lock()

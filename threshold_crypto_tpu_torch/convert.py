@@ -7,7 +7,12 @@ Montgomery limb arrays (G1: x, y Fq; G2: x, y Fq2 pairs) and a bool array
 those arrive as numpy arrays and become the port's int32 tensors with the
 same values; ``to_jax`` turns any such tuple back into numpy arrays that
 are bit-exact with the JAX package's. ``fq12_from_jax`` / ``fq12_to_jax``
-carry Fq12 values (the pairing's GT elements) the same way.
+carry Fq12 values (the pairing's GT elements) the same way,
+``g1_jac_from_jax`` / ``g2_jac_from_jax`` Jacobian points (``device/curve.py``
+pytrees), ``fr_from_jax`` / ``fr_to_jax`` Fr limbs (the MSM scalars and RLC
+exponents, ``uint32[..., 16]``), and ``msm_table_from_jax`` /
+``msm_table_to_jax`` the table of an MSM: its 2^w − 1 Jacobian entries
+1P..(2^w−1)P as the port's packed ``int32[(2^w−1)·3k·24, N]``.
 """
 
 from __future__ import annotations
@@ -18,11 +23,11 @@ import torch
 from .device import mont
 
 
-def _limbs(arr, device):
+def _limbs(arr, device, L=mont.FQ.L):
     arr = np.asarray(arr)
-    if arr.dtype != np.uint32 or arr.ndim < 1 or arr.shape[-1] != mont.FQ.L:
+    if arr.dtype != np.uint32 or arr.ndim < 1 or arr.shape[-1] != L:
         raise ValueError(
-            f"expected uint32[..., {mont.FQ.L}] limbs, got {arr.dtype}{arr.shape}"
+            f"expected uint32[..., {L}] limbs, got {arr.dtype}{arr.shape}"
         )
     if (arr > 0xFFFF).any():
         raise ValueError("limbs must be 16-bit")
@@ -48,6 +53,54 @@ def g2_from_jax(x, y, inf, device="cuda"):
         (_limbs(y[0], device), _limbs(y[1], device)),
         _inf(inf, device),
     )
+
+
+def g1_jac_from_jax(X, Y, Z, device="cuda"):
+    """JAX G1 Jacobian (X, Y, Z) as numpy arrays -> the port's tuple."""
+    device = mont.device_of(device)
+    return tuple(_limbs(c, device) for c in (X, Y, Z))
+
+
+def g2_jac_from_jax(X, Y, Z, device="cuda"):
+    """JAX G2 Jacobian ((X0, X1), (Y0, Y1), (Z0, Z1)) -> the port's tuple."""
+    device = mont.device_of(device)
+    return tuple((_limbs(c[0], device), _limbs(c[1], device))
+                 for c in (X, Y, Z))
+
+
+def fr_from_jax(limbs, device="cuda"):
+    """uint32[..., 16] Fr limbs (canonical or Montgomery) -> int32 tensor."""
+    return _limbs(limbs, mont.device_of(device), mont.FR.L)
+
+
+def fr_to_jax(limbs):
+    """int32[..., 16] Fr limbs -> uint32 numpy, as the JAX package holds
+    them."""
+    return to_jax(limbs)
+
+
+def msm_table_from_jax(entries, device="cuda"):
+    """The JAX table entries 1P..(2^w−1)P (a list of G1 or G2 Jacobian
+    pytrees of uint32[N, 24] arrays, as ``pallas_curve`` builds them before
+    packing) -> the port's packed table."""
+    device = mont.device_of(device)
+    comps = [_limbs(c, device) for e in entries for c in _flat(e)]
+    return torch.cat([c.reshape(-1, mont.FQ.L).T for c in comps]).contiguous()
+
+
+def msm_table_to_jax(table, g2: bool):
+    """The port's packed table -> the list of its Jacobian entries as numpy
+    pytrees (G2 coordinates as (c0, c1) pairs)."""
+    L = mont.FQ.L
+    comps = [table[i * L:(i + 1) * L].T for i in range(table.shape[0] // L)]
+    k = 6 if g2 else 3
+    out = []
+    for e in range(len(comps) // k):
+        c = comps[e * k:(e + 1) * k]
+        pt = (((c[0], c[1]), (c[2], c[3]), (c[4], c[5])) if g2
+              else (c[0], c[1], c[2]))
+        out.append(to_jax(pt))
+    return out
 
 
 def _flat(tree):

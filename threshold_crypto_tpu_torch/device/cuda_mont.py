@@ -94,6 +94,20 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def launch(lib, fn, count, tensors, *ints, lanes):
+    """Call the launcher ``fn`` of ``csrc/<lib>.cu`` with the tensors' data
+    pointers, then the ints, then the current stream of the first tensor's
+    device; raise if the launch was refused, else count it (``lanes`` wide).
+    """
+    dev = tensors[0].device
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = getattr(_build.library(lib), fn)(
+            *(t.data_ptr() for t in tensors), *ints, stream)
+    _raise_on(err, fn)
+    count.add(lanes)
+
+
 def mont_mul(spec, a, b):
     """Kernel B1: int32[N, L] Montgomery product on the card."""
     _check(spec, a, "a")
@@ -102,15 +116,9 @@ def mont_mul(spec, a, b):
         raise ValueError("a and b must have one shape and one device")
     out = torch.empty_like(a)
     n = a.shape[0]
-    if n == 0:
-        return out
-    lib = _build.library("mont")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.tc_mont_mul(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
-                              spec.L // 2, _modulus_arg(spec), stream)
-    _raise_on(err, "mont_mul")
-    MUL.add(n)
+    if n:
+        launch("mont", "tc_mont_mul", MUL, (a, b, out), n, spec.L // 2,
+               _modulus_arg(spec), lanes=n)
     return out
 
 
@@ -125,14 +133,8 @@ def mont_pow(spec, a, e: int):
         return out
     bits = torch.tensor([int(c) for c in bin(e)[2:]], dtype=torch.int32,
                         device=a.device)
-    lib = _build.library("mont")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.tc_mont_pow(a.data_ptr(), out.data_ptr(), n, bits.data_ptr(),
-                              bits.numel(), spec.L // 2, _modulus_arg(spec),
-                              stream)
-    _raise_on(err, "mont_pow")
-    POW.add(n)
+    launch("mont", "tc_mont_pow", POW, (a, out), n, bits.data_ptr(),
+           bits.numel(), spec.L // 2, _modulus_arg(spec), lanes=n)
     return out
 
 

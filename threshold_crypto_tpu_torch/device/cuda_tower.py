@@ -30,11 +30,10 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
 from . import mont
 from . import packed as pk
 from . import tower as tw
-from .cuda_mont import Kernel, KernelCount, _raise_on
+from .cuda_mont import Kernel, KernelCount, launch
 from .mont import FQ
 
 # Packed rows of an Fq12 f, a point T, an affine Q and a G1 point P.
@@ -75,13 +74,7 @@ def _launch(lib, fn, count, ins, outs, n, *extra):
     (and, for B4-B9, in ``ENGINE`` too)."""
     if n == 0:
         return
-    dev = ins[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_build.library(lib), fn)(
-            *(t.data_ptr() for t in (*ins, *outs)), *extra, n, stream)
-    _raise_on(err, fn)
-    count.add(n)
+    launch(lib, fn, count, (*ins, *outs), *extra, n, lanes=n)
     if count is not ENGINE:
         ENGINE.add(n)
 

@@ -1,0 +1,315 @@
+"""Batched, branch-free G1/G2 curve operations on torch tensors.
+
+The counterpart of ``threshold_crypto_tpu/device/curve.py`` (``DeviceCurve``:
+``infinity``, ``from_host_affine``, ``to_host_affine``, ``double``, ``add``;
+``scalar_digits``, ``fold_sum``) and of the point formulas
+of ``threshold_crypto_tpu/device/pallas_curve.py:234-353`` (``_jac_dbl``,
+``_jac_add``, ``_jac_madd``), which are the plain versions of the MSM
+kernels B10 and B11 (``device/cuda_curve.py``, ``csrc/curve.cuh``).
+
+Points are Jacobian tuples ``(X, Y, Z)`` (infinity ⇔ Z == 0) of batched field
+values: int32[..., 24] Montgomery limb tensors for G1 (Fq), pairs of them
+for G2 (Fq2). Every case (infinity, T == Q, T == −Q) is a select, never a
+branch. The formulas are the JAX kernels' value for value: the same
+products in the same layers (each layer one stacked product, so one B1
+launch on the card), the same small multiples and the same select order,
+so every coordinate is the same canonical field value as the TPU kernels'.
+``DeviceCurve.double``/``add`` are ``jac_dbl``/``jac_add``: the JAX
+``curve.double``/``curve.add`` compute the same values (the same
+X, Y, Z for every input), with one product per call instead of one per
+layer.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..host import curve as hcv
+from ..host.params import G1_GEN, G2_GEN
+from . import mont
+from . import tower as tw
+from .mont import FQ
+
+
+def tree_map(fn, *trees):
+    """fn over the leaves of equally shaped nested tuples."""
+    if isinstance(trees[0], tuple):
+        return tuple(tree_map(fn, *xs) for xs in zip(*trees))
+    return fn(*trees)
+
+
+def leaves(tree):
+    if isinstance(tree, tuple):
+        return [leaf for t in tree for leaf in leaves(t)]
+    return [tree]
+
+
+class FqOps:
+    """Fq as the field vocabulary of the point formulas."""
+
+    mul_many = staticmethod(tw._mul_many)
+
+    @staticmethod
+    def mul(a, b):
+        return mont.mul(FQ, a, b)
+
+    @staticmethod
+    def sqr(a):
+        return mont.mul(FQ, a, a)
+
+    @staticmethod
+    def add(a, b):
+        return mont.add(FQ, a, b)
+
+    @staticmethod
+    def sub(a, b):
+        return mont.sub(FQ, a, b)
+
+    @staticmethod
+    def small(a, k):
+        return mont.mul_small(FQ, a, k)
+
+    @staticmethod
+    def inv(a):
+        return mont.inv(FQ, a)
+
+    @staticmethod
+    def select(cond, a, b):
+        return mont.select(cond, a, b)
+
+    @staticmethod
+    def is_zero(a):
+        return mont.is_zero(FQ, a)
+
+    @staticmethod
+    def shape(a):
+        return a.shape[:-1]
+
+    @staticmethod
+    def one(shape, device):
+        return mont.one(FQ, shape, device)
+
+    @staticmethod
+    def zero(shape, device):
+        return mont.zero(FQ, shape, device)
+
+    @staticmethod
+    def one_like(a):
+        return mont.one(FQ, a.shape[:-1], a.device)
+
+    @staticmethod
+    def zero_like(a):
+        return torch.zeros_like(a)
+
+    @staticmethod
+    def from_host(vals, device):
+        return torch.from_numpy(mont.stack_mont(FQ, vals)).to(device)
+
+    @staticmethod
+    def to_host(a):
+        return mont.unstack_mont(FQ, a)
+
+
+class Fq2Ops:
+    """Fq2 pairs (c0, c1) as the field vocabulary of the point formulas."""
+
+    mul_many = staticmethod(tw.fq2_mul_many)
+    mul = staticmethod(tw.fq2_mul)
+    sqr = staticmethod(tw.fq2_sqr)
+    add = staticmethod(tw.fq2_add)
+    sub = staticmethod(tw.fq2_sub)
+    small = staticmethod(tw.fq2_mul_small)
+    inv = staticmethod(tw.fq2_inv)
+    select = staticmethod(tw.fq2_select)
+    one = staticmethod(tw.fq2_one)
+    zero = staticmethod(tw.fq2_zero)
+    from_host = staticmethod(tw.fq2_from_host)
+    to_host = staticmethod(tw.fq2_to_host)
+
+    @staticmethod
+    def is_zero(a):
+        return mont.is_zero(FQ, a[0]) & mont.is_zero(FQ, a[1])
+
+    @staticmethod
+    def shape(a):
+        return a[0].shape[:-1]
+
+    @staticmethod
+    def one_like(a):
+        return tw.fq2_one(a[0].shape[:-1], a[0].device)
+
+    @staticmethod
+    def zero_like(a):
+        return (torch.zeros_like(a[0]), torch.zeros_like(a[1]))
+
+
+# ---------------------------------------------------------------------------
+# The point formulas of the MSM kernels (pallas_curve.py:234-353)
+# ---------------------------------------------------------------------------
+
+def _sel3(F, c, a, b):
+    return tuple(F.select(c, a[i], b[i]) for i in range(3))
+
+
+def jac_dbl(F, T):
+    """Jacobian doubling (a = 0): 7 products in 3 layers; Z = 0 stays 0."""
+    X, Y, Z = T
+    A, B, S = F.mul_many([(X, X), (Y, Y), (Y, Z)])
+    XpB = F.add(X, B)
+    E = F.small(A, 3)
+    C, XB2, E2 = F.mul_many([(B, B), (XpB, XpB), (E, E)])
+    D = F.small(F.sub(F.sub(XB2, A), C), 2)
+    Xd = F.sub(E2, F.small(D, 2))
+    (EDX,) = F.mul_many([(E, F.sub(D, Xd))])
+    Yd = F.sub(EDX, F.small(C, 8))
+    Zd = F.small(S, 2)
+    return (Xd, Yd, Zd)
+
+
+def jac_add(F, T, Q):
+    """Complete Jacobian + Jacobian add: T or Q at infinity, T == Q
+    (doubles) and T == −Q (infinity) by selects; 23 products in 5 layers."""
+    X1, Y1, Z1 = T
+    X2, Y2, Z2 = Q
+    z1z, z2z, Z1Z2 = F.mul_many([(Z1, Z1), (Z2, Z2), (Z1, Z2)])
+    u1, u2, z2c, z1c = F.mul_many([(X1, z2z), (X2, z1z), (z2z, Z2),
+                                   (z1z, Z1)])
+    h = F.sub(u2, u1)
+    s1, s2, hh, A_, B_, S_ = F.mul_many(
+        [(Y1, z2c), (Y2, z1c), (h, h), (X1, X1), (Y1, Y1), (Y1, Z1)])
+    r = F.sub(s2, s1)
+    XpB = F.add(X1, B_)
+    E_ = F.small(A_, 3)
+    hhh, v, rr, Zo, C_, XB2, E2 = F.mul_many(
+        [(h, hh), (u1, hh), (r, r), (Z1Z2, h), (B_, B_), (XpB, XpB),
+         (E_, E_)])
+    Xo = F.sub(F.sub(rr, hhh), F.small(v, 2))
+    D_ = F.small(F.sub(F.sub(XB2, A_), C_), 2)
+    Xd = F.sub(E2, F.small(D_, 2))
+    rvx, s1hhh, EDX = F.mul_many(
+        [(r, F.sub(v, Xo)), (s1, hhh), (E_, F.sub(D_, Xd))])
+    Yo = F.sub(rvx, s1hhh)
+    Yd = F.sub(EDX, F.small(C_, 8))
+    Zd = F.small(S_, 2)
+
+    one, zero = F.one_like(X1), F.zero_like(X1)
+    inf1, inf2 = F.is_zero(Z1), F.is_zero(Z2)
+    h0, r0 = F.is_zero(h), F.is_zero(r)
+    out = (Xo, Yo, Zo)
+    out = _sel3(F, h0 & r0, (Xd, Yd, Zd), out)        # T == Q  -> 2T
+    out = _sel3(F, h0 & ~r0, (one, one, zero), out)   # T == -Q -> infinity
+    out = _sel3(F, inf2, T, out)                      # T + 0
+    out = _sel3(F, inf1, Q, out)                      # 0 + Q
+    return out
+
+
+def jac_madd(F, T, Q):
+    """Complete mixed add T (Jacobian) + Q (affine, not at infinity): T at
+    infinity, T == Q and T == −Q by selects; 18 products in 5 layers."""
+    X, Y, Z = T
+    x2, y2 = Q
+    z1z, A, B, S = F.mul_many([(Z, Z), (X, X), (Y, Y), (Y, Z)])
+    XpB = F.add(X, B)
+    E = F.small(A, 3)
+    u2, z1cu, C, XB2, E2 = F.mul_many(
+        [(x2, z1z), (z1z, Z), (B, B), (XpB, XpB), (E, E)])
+    h = F.sub(u2, X)
+    D = F.small(F.sub(F.sub(XB2, A), C), 2)
+    Xd = F.sub(E2, F.small(D, 2))
+    s2, hh, EDX = F.mul_many([(y2, z1cu), (h, h), (E, F.sub(D, Xd))])
+    r = F.sub(s2, Y)
+    Yd = F.sub(EDX, F.small(C, 8))
+    Zd = F.small(S, 2)
+    hhh, v, rr, Zn = F.mul_many([(h, hh), (X, hh), (r, r), (Z, h)])
+    Xn = F.sub(F.sub(rr, hhh), F.small(v, 2))
+    m = F.mul_many([(r, F.sub(v, Xn)), (Y, hhh)])
+    Yn = F.sub(m[0], m[1])
+
+    one, zero = F.one_like(X), F.zero_like(X)
+    h0, r0, t_inf = F.is_zero(h), F.is_zero(r), F.is_zero(Z)
+    out = (Xn, Yn, Zn)
+    out = _sel3(F, h0 & r0, (Xd, Yd, Zd), out)        # T == Q  -> 2T
+    out = _sel3(F, h0 & ~r0, (one, one, zero), out)   # T == -Q -> infinity
+    out = _sel3(F, t_inf, (x2, y2, one), out)         # 0 + Q -> Q
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The curve groups
+# ---------------------------------------------------------------------------
+
+class DeviceCurve:
+    """One batched curve group (E(Fq) for G1, E'(Fq2) for G2)."""
+
+    def __init__(self, f, gen_affine, host, name):
+        self.f = f
+        self.gen_affine_host = gen_affine
+        self.host = host
+        self.name = name
+
+    def infinity(self, shape, device):
+        f = self.f
+        return (f.one(shape, device), f.one(shape, device),
+                f.zero(shape, device))
+
+    def from_host_affine(self, pts, device="cuda"):
+        """Host affine points (None = infinity) -> batched Jacobian tuple,
+        Z ∈ {0, 1}; an infinity lane carries the generator's coordinates."""
+        device = mont.device_of(device)
+        f = self.f
+        pts2 = [self.gen_affine_host if p is None else p for p in pts]
+        live = torch.tensor([p is not None for p in pts], device=device)
+        n = len(pts)
+        return (f.from_host([p[0] for p in pts2], device),
+                f.from_host([p[1] for p in pts2], device),
+                f.select(live, f.one((n,), device), f.zero((n,), device)))
+
+    def to_host_affine(self, pt):
+        """Batched Jacobian tuple [N] -> host affine points (None = inf)."""
+        f = self.f
+        cols = [f.to_host(c) for c in pt]
+        return [self.host._to_affine(j) for j in zip(*cols)]
+
+    def double(self, p):
+        return jac_dbl(self.f, p)
+
+    def add(self, p1, p2):
+        return jac_add(self.f, p1, p2)
+
+    def fold_sum(self, pts):
+        """Σ over the leading axis by a pairwise tree of complete adds:
+        ⌈log₂ N⌉ levels, each one stacked add over half the lanes; an odd
+        level is padded with infinity. Returns an unbatched point."""
+        n = self.f.shape(pts[2])[0]
+        while n > 1:
+            if n % 2:
+                pad = self.infinity((1,), leaves(pts)[0].device)
+                pts = tree_map(lambda a, b: torch.cat([a, b]), pts, pad)
+                n += 1
+            half = n // 2
+            pts = self.add(tree_map(lambda a: a[:half], pts),
+                           tree_map(lambda a: a[half:], pts))
+            n = half
+        return tree_map(lambda a: a[0], pts)
+
+
+G1 = DeviceCurve(FqOps, G1_GEN, hcv.G1, "G1")
+G2 = DeviceCurve(Fq2Ops, G2_GEN, hcv.G2, "G2")
+
+
+def scalar_digits(k_limbs, nbits: int, window: int):
+    """int32[..., L] canonical limbs -> int32[D, ...] base-2^window digits,
+    MSB first, D = ⌈nbits/window⌉. Digit d covers bits [d·w, (d+1)·w),
+    read from one limb or, where the window straddles a 16-bit boundary,
+    two adjacent limbs."""
+    assert 1 <= window <= 16
+    L = k_limbs.shape[-1]
+    mask = (1 << window) - 1
+    chunks = []
+    for d in range(-(-nbits // window) - 1, -1, -1):
+        limb, shift = divmod(d * window, 16)
+        v = k_limbs[..., limb] >> shift
+        if shift + window > 16 and limb + 1 < L:
+            v = v | (k_limbs[..., limb + 1] << (16 - shift))
+        chunks.append(v & mask)
+    return torch.stack(chunks)

@@ -1,5 +1,10 @@
 """Batched protocol operations on the device stack."""
 
-from .threshold import verify_batch, verify_batch_pallas
+from .threshold import (affine_to_jacobian, batch_inv_field,
+                        jacobian_to_affine, rlc_exponents,
+                        verify_batch, verify_batch_pallas,
+                        verify_sig_shares_rlc_pallas)
 
-__all__ = ["verify_batch", "verify_batch_pallas"]
+__all__ = ["affine_to_jacobian", "batch_inv_field", "jacobian_to_affine",
+           "rlc_exponents", "verify_batch", "verify_batch_pallas",
+           "verify_sig_shares_rlc_pallas"]

@@ -1,20 +1,103 @@
 """Batched threshold-protocol checks on the device stack.
 
-The counterpart of ``threshold_crypto_tpu/ops/threshold.py``; so far
-``verify_batch`` and ``verify_batch_pallas``, the strict per-pair BLS check
-that every protocol verify reduces to, on the XLA-form path and on the
-megakernel path. The JAX package's ``verify_batch_pallas_jit`` (a jit and
-AOT-cache wrapper) has no counterpart: PyTorch runs eagerly.
+The counterpart of ``threshold_crypto_tpu/ops/threshold.py``; so far:
+
+* the coordinate plumbing ``batch_inv_field``, ``jacobian_to_affine`` and
+  ``affine_to_jacobian``;
+* ``verify_batch`` and ``verify_batch_pallas``, the strict per-pair BLS
+  check that every protocol verify reduces to, on the XLA-form path and on
+  the megakernel path;
+* the RLC batch verification of N shares on one message, the system's main
+  path: ``rlc_exponents`` (transcript SHA3, then ChaCha20), then
+  ``verify_sig_shares_rlc_pallas`` (two 64-bit shared-window MSMs and one
+  2-pair check through ``verify_batch_pallas``).
+
+The JAX package's jit and AOT-cache wrappers (``verify_batch_pallas_jit``,
+the jitted aggregate of ``verify_sig_shares_rlc_pallas``) have no
+counterpart: PyTorch runs eagerly.
 """
 
 from __future__ import annotations
 
+import hashlib
+
+import numpy as np
 import torch
 
+from ..device import chacha as dchacha
+from ..device import cuda_curve as ccv
+from ..device import curve as dcv
+from ..device import keccak as dkeccak
 from ..device import mont
 from ..device import pairing as dpr
+from ..device.curve import leaves, tree_map
 from ..device.mont import FQ
+from ..host import chacha as hchacha
 from ..host.params import G1_GEN, P
+
+
+# ---------------------------------------------------------------------------
+# Coordinate plumbing
+# ---------------------------------------------------------------------------
+
+def batch_inv_field(f, a):
+    """Batched inversion over a field namespace (``curve.FqOps`` arrays,
+    ``curve.Fq2Ops`` pairs) of any batch shape; zero maps to zero.
+
+    On the card it is ``f.inv``: one Fermat chain in one B2 launch, as the
+    JAX package defers to ``f.inv`` on its Pallas path. On the CPU it is the
+    JAX package's product tree: pairwise products up, one inversion at the
+    root, the tree walked down.
+    """
+    if mont.on_card(leaves(a)[0]):
+        return f.inv(a)
+    bs = f.shape(a)
+    n = int(np.prod(bs, dtype=np.int64))
+    if n <= 1:
+        return f.inv(a)
+    k = len(bs)
+    dev = leaves(a)[0].device
+    flat = tree_map(lambda x: x.reshape((n,) + x.shape[k:]), a)
+    zm = f.is_zero(flat)
+    safe = f.select(zm, f.one((n,), dev), flat)
+    m = 1 << (n - 1).bit_length()
+    if m != n:
+        safe = tree_map(lambda x, q: torch.cat([x, q]), safe,
+                        f.one((m - n,), dev))
+    levels = [safe]
+    while leaves(levels[-1])[0].shape[0] > 1:
+        cur = levels[-1]
+        levels.append(f.mul(tree_map(lambda x: x[0::2], cur),
+                            tree_map(lambda x: x[1::2], cur)))
+    inv_cur = f.inv(levels[-1])
+    for lev in levels[-2::-1]:
+        il = f.mul(inv_cur, tree_map(lambda x: x[1::2], lev))
+        ir = f.mul(inv_cur, tree_map(lambda x: x[0::2], lev))
+        inv_cur = tree_map(
+            lambda l, r: torch.stack([l, r], 1).reshape(
+                (2 * l.shape[0],) + l.shape[1:]), il, ir)
+    out = f.select(zm, f.zero((n,), dev),
+                   tree_map(lambda x: x[:n], inv_cur))
+    return tree_map(lambda x: x.reshape(tuple(bs) + x.shape[1:]), out)
+
+
+def jacobian_to_affine(curve, p):
+    """Batched Jacobian -> affine tuple (x, y, inf) for the pairing: one
+    batched inversion of Z. Infinity lanes (Z = 0) get inf = True and
+    coordinates 0 (Z⁻¹ = 0)."""
+    f = curve.f
+    X, Y, Z = p
+    zinv = batch_inv_field(f, Z)
+    zinv2 = f.sqr(zinv)
+    return (f.mul(X, zinv2), f.mul(Y, f.mul(zinv2, zinv)), f.is_zero(Z))
+
+
+def affine_to_jacobian(curve, aff):
+    """Affine tuple (x, y, inf) -> Jacobian (X, Y, Z) with Z ∈ {0, 1}."""
+    f = curve.f
+    x, y, inf = aff
+    shape, dev = f.shape(x), leaves(x)[0].device
+    return (x, y, f.select(~inf, f.one(shape, dev), f.zero(shape, dev)))
 
 
 def _pair2(a_aff, b_aff):
@@ -63,3 +146,81 @@ def verify_batch_pallas(pk_aff, h_aff, sig_aff):
     neg_gen = _neg_gen_g1((n,), pk_aff[2].device)
     return dpr.pairing_check_pallas(_pair2(pk_aff, neg_gen),
                                     _pair2(h_aff, sig_aff))
+
+
+# ---------------------------------------------------------------------------
+# RLC batch verification: N shares on one message
+# ---------------------------------------------------------------------------
+
+def rlc_aggregate_pallas(pk_aff, sig_aff, r_plain, nbits: int = 64):
+    """(Σ rᵢ·pkᵢ, Σ rᵢ·sigᵢ) as affine tuples batched [1]: the two
+    shared-window MSMs (B10, B11, the fold) and ``jacobian_to_affine``."""
+    def one(p):
+        return tree_map(lambda a: a[None], p)
+
+    apk = ccv.msm_pallas_shared(dcv.G1, pk_aff, r_plain, nbits=nbits)
+    asg = ccv.msm_pallas_shared(dcv.G2, sig_aff, r_plain, nbits=nbits)
+    return (jacobian_to_affine(dcv.G1, one(apk)),
+            jacobian_to_affine(dcv.G2, one(asg)))
+
+
+def verify_sig_shares_rlc_pallas(pk_aff, h_jac, sig_aff, r_plain,
+                                 check_batch: int = 512):
+    """Probabilistic batch verification of N signature shares on ONE
+    message: e(Σ rᵢ·pkᵢ, H) == e(G1, Σ rᵢ·sigᵢ) with 64-bit exponents rᵢ.
+
+    pk_aff: G1 affine tuple [N]; h_jac: the shared hash point as a G2
+    Jacobian tuple (leaves [24] or [1, 24]); sig_aff: G2 affine tuple [N];
+    r_plain: int32[N, 16] canonical Fr limbs, low 64 bits set (from
+    ``rlc_exponents``). Both MSMs run as ``cuda_curve.msm_pallas_shared``
+    (the JAX ``msm="shared"``); the one aggregate check runs through
+    ``verify_batch_pallas`` on ``check_batch`` replicated lanes, the per-pair
+    path's own shape. Returns a bool scalar tensor: True iff the check
+    passes.
+    """
+    pk_a, sg_a = rlc_aggregate_pallas(pk_aff, sig_aff, r_plain)
+    h1 = tree_map(lambda a: a if a.dim() == 2 else a[None], h_jac)
+    h_a = jacobian_to_affine(dcv.G2, h1)
+
+    def bc(tree):
+        return tree_map(
+            lambda a: a.expand((check_batch,) + a.shape[1:]), tree)
+
+    return verify_batch_pallas(bc(pk_a), bc(h_a), bc(sg_a))[0]
+
+
+def rlc_exponents(n: int, seed: bytes, pk_aff=None, sig_aff=None,
+                  on_device: bool = True, device=None):
+    """Deterministic 64-bit batch-verification exponents, bound to the
+    verification transcript: ChaCha20 keyed by SHA3-256(seed ‖ n ‖
+    transcript digests), where the transcript absorbs every leaf of
+    ``pk_aff`` then ``sig_aff`` (``device.keccak.transcript_digests``).
+
+    Returns int32[n, 16] canonical Fr limbs with the low 64 bits set and
+    never zero (a zero draw becomes 1), on ``device``: by default the device
+    of the first tensor absorbed, else the card. ``on_device=True`` expands
+    the ChaCha stream there (``device.chacha``); ``on_device=False`` on the
+    host (``host.chacha``); both give the same limbs.
+    """
+    absorb = [t for t in (pk_aff, sig_aff) if t is not None]
+    leaf_list = leaves(tuple(absorb))
+    if device is None:
+        device = next((x.device for x in leaf_list
+                       if isinstance(x, torch.Tensor)), "cuda")
+    device = mont.device_of(device)
+    digests = dkeccak.transcript_digests(leaf_list) if absorb else []
+    material = (bytes(seed) + n.to_bytes(8, "little")
+                + len(digests).to_bytes(8, "little") + b"".join(digests))
+    digest = hashlib.sha3_256(material).digest()
+
+    if on_device:
+        key = torch.from_numpy(
+            np.frombuffer(digest, dtype="<u4").astype(np.int64)).to(device)
+        return dchacha.rlc_exponent_limbs(key, n)
+    w = hchacha.chacha20_words(digest, 2 * n).astype(np.uint64)
+    v = w[0::2] | (w[1::2] << np.uint64(32))
+    v = np.where(v == 0, np.uint64(1), v)
+    out = np.zeros((n, 16), np.int32)
+    for limb in range(4):
+        out[:, limb] = (v >> np.uint64(16 * limb)) & np.uint64(0xFFFF)
+    return torch.from_numpy(out).to(device)
