@@ -1,15 +1,25 @@
-"""Count the torch ops and kernel launches of one call of each verify path.
+"""Count the torch ops and kernel launches of one call of each path.
 
     python benches/torch_op_count.py
 
 Runs ``threshold_crypto_tpu_torch.ops.verify_batch``,
-``ops.verify_batch_pallas`` (the megakernel path) and the RLC path
-(``ops.rlc_exponents`` then ``ops.verify_sig_shares_rlc_pallas``) on the
+``ops.verify_batch_pallas`` (the megakernel path), the RLC path
+(``ops.rlc_exponents`` then ``ops.verify_sig_shares_rlc_pallas``),
+``ops.verify_with_hash_batch`` and ``ops.encrypt_batch_pallas`` on the
 CPU, where the kernels' plain versions stand in for them, under a dispatch
 counter, and prints one JSON line per path: the torch ops the call issues
 outside the kernels' plain versions (on the card each is one launch of a
 PyTorch kernel, the host overhead that sets the pace of a host-bound call),
 and the launches each kernel would get.
+
+The hash line runs one message: on the CPU ``batch_inv_field`` takes a
+product tree above one lane, where the card takes one B2 at any width, so
+only at one lane do the launches equal ``chip_smoke.hash_launches``, which
+the line checks. It splits the ops by stage, and counts the candidate
+extraction again on the streams of ``chip_smoke``'s 8192 messages, since
+its loop runs until the slowest lane is done. The host splice issues no
+torch ops; the line gives the host oracle's seconds per message on this
+CPU instead (no lane of the counted call is spliced).
 
 The per-pair counts depend on the code path only, not on the lane count.
 The RLC path's run at RLC_N shares differs from one at 262,144 in what
@@ -65,13 +75,30 @@ class _Counter(TorchDispatchMode):
         return func(*args, **(kwargs or {}))
 
 
-def count(fn, args):
-    """(torch ops outside the plain versions, launches per kernel) of one
-    fn(*args) call; a plain version called inside another (a product in
-    the power's chain or a tower kernel) is part of that one launch."""
+def count(fn, args, stages=()):
+    """(torch ops outside the plain versions, launches per kernel, ops per
+    stage) of one fn(*args) call; a plain version called inside another (a
+    product in the power's chain or a tower kernel) is part of that one
+    launch. stages: (module, attribute, label) of functions whose ops are
+    also summed by label."""
     counter = _Counter()
     launches = {}
     saved = []
+    per_stage = {}
+
+    def in_stage(label, f):
+        def run(*a, **kw):
+            before = counter.ops
+            try:
+                return f(*a, **kw)
+            finally:
+                per_stage[label] = (per_stage.get(label, 0) + counter.ops
+                                    - before)
+        return run
+
+    for mod, name, label in stages:
+        saved.append((mod, name, getattr(mod, name)))
+        setattr(mod, name, in_stage(label, getattr(mod, name)))
 
     def as_kernel(name, plain):
         def run(*a):
@@ -97,7 +124,7 @@ def count(fn, args):
             setattr(mod, name, plain)
     if not bool(ok.all()):
         raise SystemExit(f"{fn.__name__} rejected valid lanes")
-    return counter.ops, launches
+    return counter.ops, launches, per_stage
 
 
 def rlc_call(pk_aff, h_jac, sig_aff):
@@ -121,7 +148,7 @@ def main():
                                   device="cpu")
 
     for fn in (ops.verify_batch, ops.verify_batch_pallas):
-        n_ops, launches = count(fn, (pk, hs, sig))
+        n_ops, launches, _ = count(fn, (pk, hs, sig))
         print(json.dumps({"path": fn.__name__, "lanes": LANES,
                           "torch_ops": n_ops, "kernel_launches": launches}))
 
@@ -131,7 +158,7 @@ def main():
     rlc_pk = dpr.g1_affine_from_host(pk16 * (RLC_N // 16), device="cpu")
     rlc_sig = dpr.g2_affine_from_host(sig16 * (RLC_N // 16), device="cpu")
     h_jac = dcv.G2.from_host_affine([h], device="cpu")
-    n_ops, launches = count(rlc_call, (rlc_pk, h_jac, rlc_sig))
+    n_ops, launches, _ = count(rlc_call, (rlc_pk, h_jac, rlc_sig))
     expect = chip_smoke.rlc_launches(RLC_N)
     if {k: launches.get(k, 0) for k in expect} != expect:
         raise SystemExit(f"RLC launches {launches}, expected {expect}")
@@ -151,6 +178,79 @@ def main():
                       * level_ops,
                       "kernel_launches_at_262144": chip_smoke.rlc_launches(
                           262144)}))
+    hash_line()
+    encrypt_line()
+
+
+def hash_line():
+    """``verify_with_hash_batch`` on one message, by stage."""
+    import time
+
+    from threshold_crypto_tpu_torch import hashing
+    from threshold_crypto_tpu_torch.device import hash2g2
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    msg = b"bench-msg-0"
+    sk = random.Random(0xD15C).randrange(1, R)
+    h = hashing.hash_g2(msg)
+    pk = dpr.g1_affine_from_host([hcv.G1.mul(hcv.G1.generator, sk)],
+                                 device="cpu")
+    sig = dpr.g2_affine_from_host([hcv.G2.mul(h, sk)], device="cpu")
+    stages = [
+        (hashing, "digest_words", "host digests"),
+        (hash2g2, "_chacha_words_multikey", "ChaCha streams"),
+        (hash2g2, "extract_candidates", "candidate extraction"),
+        (hash2g2, "residue_test", "residue test"),
+        (hash2g2, "fq2_sqrt", "Fq2 sqrt (two fq2_pow_fixed)"),
+        (cuda_curve, "scalar_mul_fixed_pallas", "table + cofactor ladder"),
+        (tops, "splice_host_hashes", "host splice"),
+        (tops, "jacobian_to_affine", "affine"),
+        (tops, "verify_batch_pallas", "check"),
+    ]
+    n_ops, launches, per_stage = count(
+        ops.verify_with_hash_batch, (pk, [msg], sig), stages)
+    expect = chip_smoke.hash_launches()
+    if {k: launches.get(k, 0) for k in expect} != expect:
+        raise SystemExit(f"hash launches {launches}, expected {expect}")
+    msgs = [b"bench-msg-%d" % i for i in range(chip_smoke.HASH_N)]
+    words = hash2g2._chacha_words_multikey(
+        hashing.digest_words(msgs, "cpu"), hash2g2.DEFAULT_WORDS)
+    counter = _Counter()
+    with counter:
+        hash2g2.extract_candidates(words, chip_smoke.HASH_ATTEMPTS)
+    t0 = time.time()
+    for m in msgs[:8]:
+        hashing.hash_g2(m)
+    oracle_s = (time.time() - t0) / 8
+    print(json.dumps({"path": "verify_with_hash_batch", "lanes": 1,
+                      "torch_ops": n_ops, "kernel_launches": launches,
+                      "torch_ops_by_stage": per_stage,
+                      f"extraction_torch_ops_at_{chip_smoke.HASH_N}":
+                          counter.ops,
+                      "host_oracle_s_per_message_this_cpu": oracle_s}))
+
+
+def encrypt_line():
+    """``encrypt_batch_pallas`` on two lanes."""
+    rnd = random.Random(0xE2C)
+    pk_pt = hcv.G1.mul(hcv.G1.generator, rnd.randrange(1, R))
+    huv = [hcv.G2.mul(hcv.G2.generator, rnd.randrange(1, R))
+           for _ in range(LANES)]
+    r = chip_smoke.fr_limbs([rnd.randrange(1, R) for _ in range(LANES)],
+                            "cpu")
+
+    def call(pk_aff, r, huv_aff):
+        ops.encrypt_batch_pallas(pk_aff, r, huv_aff)
+        return torch.ones(())
+
+    n_ops, launches, _ = count(call, (
+        dpr.g1_affine_from_host([pk_pt] * LANES, device="cpu"), r,
+        dpr.g2_affine_from_host(huv, device="cpu")))
+    expect = chip_smoke.encrypt_launches()
+    if {k: launches.get(k, 0) for k in expect} != expect:
+        raise SystemExit(f"encrypt launches {launches}, expected {expect}")
+    print(json.dumps({"path": "encrypt_batch_pallas", "lanes": LANES,
+                      "torch_ops": n_ops, "kernel_launches": launches}))
 
 
 if __name__ == "__main__":

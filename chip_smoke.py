@@ -30,8 +30,23 @@ Phases, each announced on a flushed line before it starts:
    folded MSM sums equal the host oracle's, the batch is accepted and is
    rejected with one signature or one public key replaced; its launches per
    call, the median of 3 calls (exponents included), the kernel share and
-   the split of one call into its stages, from CUDA events;
-7. one JSON line of kernel numbers, then the device line, last.
+   the split of one call into its stages, from CUDA events; and one call
+   of its ladder form (``msm="ladder"``, B13) beside it;
+7. slice 4: ``ops.verify_with_hash_batch`` at 8192 distinct messages (the
+   inputs of ``benches/hash_bench.py``: 16 keys tiled, signatures made on
+   the card with the ladder from ``hashing.hash_g2_batch``'s points), 1/8
+   of the lanes given another lane's signature and four lanes with pk
+   and/or sig at infinity: equal to the mask; 128 sampled hash points,
+   every lane that is not ``ok`` and 32 sampled signatures equal to the
+   host oracle, the lanes that are not ``ok`` at most 2 %; its launches
+   per call, the median of 3 calls, the kernel share and a stage split;
+8. slice 5: ``ops.encrypt_batch_pallas`` at 4096 lanes (the inputs of
+   ``benches/encrypt_bench.py``): every lane passes the ciphertext check
+   e(u, H) == e(G1, w), lanes 0, 1 and n − 1 equal the host oracle; its
+   launches and the median of 3 calls; then ``msm_pallas(window=1)`` (B15)
+   at N = 65,536 with 64-bit scalars in G1 and G2, equal to
+   ``msm_pallas_shared`` and the host oracle;
+9. one JSON line of kernel numbers, then the device line, last.
 
 Any mismatch or exception ends the run with a non-zero exit and no result
 line. Without a CUDA card, or without the package beside this file, it exits
@@ -94,6 +109,26 @@ DBL_FQ_PRODUCTS = (7, 16)
 RLC_A_SWEEP = (8192, 16384, 32768)
 RLC_A_ROUNDS = 5
 RLC_KERNELS = ("g1_madd", "g2_madd", "g1_winacc", "g2_winacc", "sha3_chunks")
+# Slice 4, benches/hash_bench.py: distinct messages, 16 keys tiled; lanes
+# ≡ 3 (mod 8) carry the next lane's signature, and four lanes an infinite
+# pk, sig or both. The hash points of HASH_SAMPLE lanes and SIG_SAMPLE
+# signatures are checked on the host; more than HASH_NOT_OK of the lanes
+# left to the host oracle fails the run.
+HASH_N = 8192
+HASH_KEYS = 16
+HASH_INF = ((5, "pk"), (13, "sig"), (21, "both"), (29, "pk"))
+HASH_SAMPLE, SIG_SAMPLE = 128, 32
+HASH_NOT_OK = 0.02
+HASH_ATTEMPTS = 8
+# Slice 5, benches/encrypt_bench.py: one key, 16 H(u, v) points tiled.
+ENC_N = 4096
+# The window-1 MSM (B15): N points of 16 keys tiled, 64-bit scalars.
+MSM1_N = 65536
+# B13/B15 against their plain versions over many digits: lanes, and the
+# lanes the path gives them (the ladders' own shapes).
+LADDER_CHECK_LANES = 1024
+LADDER_KERNELS = {"g1_step4": "encrypt", "g2_step4": "hash",
+                  "g1_step": "msm1", "g2_step": "msm1"}
 
 
 def phase(msg):
@@ -140,7 +175,8 @@ def bound_ms(bytes_moved, imads, card):
 
 
 def registry():
-    """(module, kernel) for every kernel of the port, B1-B12 in order."""
+    """(module, kernel) for every kernel of the port, module by module:
+    B1-B2, B3-B9, B10, B11, B13, B15, B12."""
     from threshold_crypto_tpu_torch.device import (cuda_curve, cuda_mont,
                                                    cuda_tower, keccak)
 
@@ -757,6 +793,167 @@ def check_sha3(gen, dev, card):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, continued: the ladder kernels B13 and B15
+# ---------------------------------------------------------------------------
+
+def _host_packed(curve, pts, dev, affine=False):
+    """Host points (None = infinity) as packed Jacobian (Z = 1, or Z = 0 at
+    infinity) or affine columns on the card."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
+    jac = curve.from_host_affine(pts, device=dev)
+    return ccv.pack_point(jac[:2] if affine else jac)
+
+
+def ladder_special(g2, kind, n, gen, dev):
+    """Inputs of B13 (kind "step4": acc, table [15·3k·24, n], digits [1, n])
+    or B15 ("step": acc, q [2k·24, n], bits [1, n]): random canonical
+    values, and host points on lanes 0-15: 0-3 an infinite accumulator,
+    4-7 digit (bit) 0, 8-11 table[d − 1] == 16T (Q == 2T), 12-15
+    table[d − 1] == −16T (Q == −2T)."""
+    import torch
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.host.params import R
+
+    k = 2 if g2 else 1
+    rows = 3 * k * 24
+    curve, host = (dcv.G2, hcv.G2) if g2 else (dcv.G1, hcv.G1)
+    rnd = random.Random(0x1AD + g2)
+    ts = [None] * 4 + [host.mul(host.generator, rnd.randrange(1, R))
+                       for _ in range(12)]
+    acc = random_packed(3 * k, n, gen, dev)
+    acc[:, :16] = _host_packed(curve, ts, dev)
+    top = 16 if kind == "step4" else 2
+    digits = torch.randint(0, top, (1, n), generator=gen, device=dev,
+                           dtype=torch.int32)
+    digits[0, :16] = torch.tensor(
+        [rnd.randrange(1, top) if not 4 <= i < 8 else 0 for i in range(16)],
+        dtype=torch.int32, device=dev)
+    if kind == "step4":
+        other = random_packed(15 * 3 * k, n, gen, dev)
+        for i in range(8, 16):
+            q = host.mul(ts[i], 16)
+            d = int(digits[0, i])
+            other[(d - 1) * rows:d * rows, i] = _host_packed(
+                curve, [q if i < 12 else host.neg(q)], dev)[:, 0]
+    else:
+        other = random_packed(2 * k, n, gen, dev)
+        for i in range(8, 16):
+            q = host.double(ts[i])
+            other[:, i] = _host_packed(curve, [q if i < 12 else host.neg(q)],
+                                       dev, affine=True)[:, 0]
+    return acc, other, digits
+
+
+def ladder_path_inputs(g2, kind, n, gen, dev):
+    """The operands a path gives the kernel: the infinite accumulator the
+    drivers start from, a random table (or affine Q), and the digits or
+    bits: G2 step4 the hash ladder's 127 digits of H2 (every lane the
+    same), G1 step4 the encrypt ladder's 64 random base-16 digits, step
+    the window-1 MSM's 64 random bits; lanes 0-3 dead (digit 0)."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.host.params import H2
+
+    k = 2 if g2 else 1
+    acc = ccv.packed_infinity(g2, n, dev)
+    if kind == "step4":
+        other = random_packed(15 * 3 * k, n, gen, dev)
+        if g2:
+            digs = torch.tensor(ccv.fixed_digits(H2), dtype=torch.int32,
+                                device=dev)
+            digits = digs[:, None].repeat(1, n)
+        else:
+            digits = torch.randint(0, 16, (64, n), generator=gen, device=dev,
+                                   dtype=torch.int32)
+    else:
+        other = random_packed(2 * k, n, gen, dev)
+        digits = torch.randint(0, 2, (64, n), generator=gen, device=dev,
+                               dtype=torch.int32)
+    digits[:, :4] = 0
+    return acc, other, digits.contiguous()
+
+
+def ladder_bound(g2, kind, digits, card):
+    """bound_ms of one ladder launch on these digits: per lane and digit
+    4 doublings (B13) or one (B15), and per nonzero digit the general path
+    of the complete add (B13) or mixed add (B15); bytes: the accumulator in
+    and out, the digits, and each (lane, table entry) pair the digits use
+    (B13) or the affine Q (B15)."""
+    D, n = digits.shape
+    k = 2 if g2 else 1
+    nonzero = int((digits != 0).sum().item())
+    dbl = DBL_FQ_PRODUCTS[k - 1]
+    if kind == "step4":
+        products = D * n * 4 * dbl + nonzero * ADD_FQ_PRODUCTS[k - 1]
+        pairs = sum(int((digits == e).any(0).sum().item())
+                    for e in range(1, 16))
+        bytes_moved = (2 * 3 * k * 96 * n + 4 * D * n + 3 * k * 96 * pairs)
+    else:
+        products = D * n * dbl + nonzero * MADD_FQ_PRODUCTS[k - 1]
+        bytes_moved = (2 * 3 * k * 96 + 2 * k * 96) * n + 4 * D * n
+    return bound_ms(bytes_moved, products * FQ_PRODUCT_IMADS, card)
+
+
+def check_ladder(g2, kind, gen, dev, card):
+    """B13 ("step4") or B15 ("step") against its plain version: one step
+    at LANES lanes with the special lanes, then the path's digits over
+    LADDER_CHECK_LANES lanes (the plain version is a loop of stacked ops);
+    timed at the path's width and digits."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+
+    from threshold_crypto_tpu_torch.device import packed as pk
+
+    name = f"g{1 + g2}_{kind}"
+    kernel = {k.name: k for _, k in registry()}[name]
+    k = 2 if g2 else 1
+    rows = 3 * k * 24
+    acc, other, digits = ladder_special(g2, kind, LANES, gen, dev)
+    got = kernel.launch(acc, other, digits)
+    torch.cuda.synchronize()
+    with plain_versions():
+        want = kernel.plain(acc, other, digits)
+    err = compare(name, got, want, f"at {LANES} lanes, one step")
+    curve = dcv.G2 if g2 else dcv.G1
+    pts = curve.to_host_affine(ccv.unpack_jac(got[:, :16], g2))
+    if any(p is not None for p in pts[12:16]):
+        fail(f"{name}: 16T == -Q (2T == -Q) lanes are not at infinity")
+    for i in range(4):
+        d = int(digits[0, i])
+        first = other[(d - 1) * rows:d * rows, i] if kind == "step4" else \
+            torch.cat([other[:, i], pk._one_rows(k, 1, dev)[:, 0]])
+        if not torch.equal(got[:, i], first):
+            fail(f"{name}: the step from infinity is not table[d-1] (Q)")
+
+    m = LADDER_CHECK_LANES
+    acc, other, digits = ladder_path_inputs(g2, kind, m, gen, dev)
+    got = kernel.launch(acc, other, digits)
+    torch.cuda.synchronize()
+    with plain_versions():
+        want, plain_ms = timed_once(kernel.plain, acc, other, digits)
+    err = max(err, compare(name, got, want,
+                           f"over {digits.shape[0]} digits at {m} lanes"))
+    del acc, other, digits, got, want
+    n = {"hash": HASH_N, "encrypt": ENC_N, "msm1": MSM1_N}[
+        LADDER_KERNELS[name]]
+    acc, other, digits = ladder_path_inputs(g2, kind, n, gen, dev)
+    ms = cuda_time_ms(lambda: kernel.launch(acc, other, digits), 3)
+    bound, by = ladder_bound(g2, kind, digits, card)
+    print(f"{name} acc {list(acc.shape)} {list(other.shape)} digits "
+          f"{list(digits.shape)}: bit-exact (one step with infinity, digit "
+          f"0, 16T == +-Q / 2T == +-Q lanes at {LANES} lanes; "
+          f"{digits.shape[0]} steps at {m} lanes, plain {plain_ms:.1f} ms); "
+          f"kernel {ms:.4f} ms at {n} lanes, bound {bound:.4f} ms ({by}), "
+          f"{ms / bound:.1f}x the bound", flush=True)
+    return dict(lanes=n, digits=digits.shape[0], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, plain_lanes=m, bound_ms=bound,
+                bound_by=by)
+
+
+# ---------------------------------------------------------------------------
 # Phase 6: slice 3, the RLC path
 # ---------------------------------------------------------------------------
 
@@ -809,7 +1006,7 @@ def rlc_inputs(dev):
     return pk_aff, sig_aff, h_jac, pk, sig
 
 
-def rlc_call(pk_aff, sig_aff, h_jac, seed):
+def rlc_call(pk_aff, sig_aff, h_jac, seed, msm="shared"):
     """One RLC verification as bench.py times it: exponents, then the
     check. Returns (ok, r, seconds), synchronised."""
     import torch
@@ -819,7 +1016,7 @@ def rlc_call(pk_aff, sig_aff, h_jac, seed):
     t0 = time.time()
     r = ops.rlc_exponents(RLC_N, seed, pk_aff=pk_aff, sig_aff=sig_aff)
     ok = bool(ops.verify_sig_shares_rlc_pallas(
-        pk_aff, h_jac, sig_aff, r, check_batch=RLC_CHECK_BATCH))
+        pk_aff, h_jac, sig_aff, r, check_batch=RLC_CHECK_BATCH, msm=msm))
     torch.cuda.synchronize()
     return ok, r, time.time() - t0
 
@@ -839,20 +1036,12 @@ def host_affine(aff, g2):
 
 
 @contextlib.contextmanager
-def stage_timer(spans):
-    """Bracket the stages of an RLC call with CUDA events: the transcript,
-    ChaCha, each MSM with its table (B10), Horner (B11) and fold, the
-    affine conversions and the check. Wraps the module attributes through
-    which the entry points reach each stage, and restores them."""
+def spans_around(spans, patches):
+    """Bracket every call of each patched module attribute with CUDA events:
+    patches are (module, name, label), label(*args) naming the span. The
+    entry points reach each stage through these attributes; they are
+    restored at the end."""
     import torch
-    from threshold_crypto_tpu_torch.device import chacha
-    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
-    from threshold_crypto_tpu_torch.device import curve as dcv
-    from threshold_crypto_tpu_torch.device import keccak
-    from threshold_crypto_tpu_torch.ops import threshold as tops
-
-    def group(g2):
-        return "G2" if g2 else "G1"
 
     def wrap(label, fn):
         def run(*args, **kw):
@@ -865,6 +1054,30 @@ def stage_timer(spans):
             return out
         return run
 
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    for mod, name, label in patches:
+        setattr(mod, name, wrap(label, getattr(mod, name)))
+    try:
+        yield wrap
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def stage_timer(spans):
+    """Bracket the stages of an RLC call with CUDA events: the transcript,
+    ChaCha, each MSM with its table (B10), Horner (B11) and fold, the
+    affine conversions and the check."""
+    from threshold_crypto_tpu_torch.device import chacha
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import keccak
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    def group(g2):
+        return "G2" if g2 else "G1"
+
     patches = [
         (keccak, "transcript_digests", lambda *a: "transcript"),
         (chacha, "rlc_exponent_limbs", lambda *a: "chacha"),
@@ -875,19 +1088,44 @@ def stage_timer(spans):
         (tops, "jacobian_to_affine", lambda *a: "affine"),
         (tops, "verify_batch_pallas", lambda *a: "check"),
     ]
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-    for mod, name, label in patches:
-        setattr(mod, name, wrap(label, getattr(mod, name)))
-    for curve in (dcv.G1, dcv.G2):
-        g = curve.name
-        curve.fold_sum = wrap(lambda *a, g=g: f"  fold {g}", curve.fold_sum)
-    try:
-        yield
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
+    with spans_around(spans, patches) as wrap:
         for curve in (dcv.G1, dcv.G2):
-            del curve.fold_sum
+            g = curve.name
+            curve.fold_sum = wrap(lambda *a, g=g: f"  fold {g}",
+                                  curve.fold_sum)
+        try:
+            yield
+        finally:
+            for curve in (dcv.G1, dcv.G2):
+                del curve.fold_sum
+
+
+def print_split(what, spans, wall_s):
+    """Sum the spans by label and print them beside the call's wall."""
+    split = {}
+    for label, start, stop in spans:
+        split[label] = split.get(label, 0.0) + start.elapsed_time(stop)
+    top = sum(v for key, v in split.items() if not key.startswith(" "))
+    print(f"{what} stages of one call (CUDA events; wall "
+          f"{wall_s * 1e3:.1f} ms, outside the stages "
+          f"{wall_s * 1e3 - top:.1f} ms):", flush=True)
+    for label, ms in split.items():
+        print(f"  {label}: {ms:.1f} ms", flush=True)
+    return split
+
+
+def kernel_split(what, spans, wall_s):
+    """Sum the kernel spans by kernel and print the kernel share."""
+    per_kernel = {}
+    for name, start, stop in spans:
+        per_kernel[name] = per_kernel.get(name, 0.0) + start.elapsed_time(stop)
+    kernel_s = sum(per_kernel.values()) / 1e3
+    print(f"{what} time split (one call, kernels bracketed by events): wall "
+          f"{wall_s:.3f} s, kernels {kernel_s:.3f} s "
+          f"({100 * kernel_s / wall_s:.1f} %), the rest "
+          f"{wall_s - kernel_s:.3f} s; ms per kernel "
+          f"{ {k: round(v, 3) for k, v in per_kernel.items()} }", flush=True)
+    return kernel_s, per_kernel
 
 
 def run_rlc(dev, results):
@@ -916,7 +1154,7 @@ def run_rlc(dev, results):
     got = {k: launches[k] for k in expect}
     if got != expect:
         fail(f"rlc: launches per call {got}, expected {expect}")
-    if min(launches.values()) < 1:
+    if min(launches[k] for k in expect) < 1:
         fail(f"a kernel of the RLC path was not launched: {launches}")
     if not ok:
         fail("rlc: the valid batch was rejected")
@@ -968,34 +1206,56 @@ def run_rlc(dev, results):
           f"verifications/s (exponent derivation included)", flush=True)
 
     per_a = rlc_accumulator_sweep(pk_aff, sig_aff, h_jac)
+    ladder = rlc_ladder_calls(pk_aff, sig_aff, h_jac)
 
     spans = []
     with kernel_event_timer(spans):
         _, _, kwall = rlc_call(pk_aff, sig_aff, h_jac, b"\x07" * 32)
-    per_kernel = {}
-    for name, start, stop in spans:
-        per_kernel[name] = per_kernel.get(name, 0.0) + start.elapsed_time(stop)
-    kernel_s = sum(per_kernel.values()) / 1e3
-    print(f"rlc time split (one call, kernels bracketed by events): wall "
-          f"{kwall:.3f} s, kernels {kernel_s:.3f} s "
-          f"({100 * kernel_s / kwall:.1f} %), the rest {kwall - kernel_s:.3f}"
-          f" s; ms per kernel "
-          f"{ {k: round(v, 3) for k, v in per_kernel.items()} }", flush=True)
+    kernel_s, per_kernel = kernel_split("rlc", spans, kwall)
 
     stages = []
     with stage_timer(stages):
         _, _, swall = rlc_call(pk_aff, sig_aff, h_jac, b"\x08" * 32)
-    split = {}
-    for label, start, stop in stages:
-        split[label] = split.get(label, 0.0) + start.elapsed_time(stop)
-    top = sum(v for key, v in split.items() if not key.startswith(" "))
-    print(f"rlc stages of one call (CUDA events; wall {swall * 1e3:.1f} ms, "
-          f"outside the stages {swall * 1e3 - top:.1f} ms):", flush=True)
-    for label, ms in split.items():
-        print(f"  {label}: {ms:.1f} ms", flush=True)
+    split = print_split("rlc", stages, swall)
     return dict(launches=launches, wall_s=wall, per_s=RLC_N / wall,
                 kernel_s=kernel_s, timed_wall_s=kwall, split_ms=split,
-                kernel_ms=per_kernel, wall_s_per_accumulators=per_a)
+                kernel_ms=per_kernel, wall_s_per_accumulators=per_a,
+                ladder=ladder)
+
+
+def rlc_ladder_calls(pk_aff, sig_aff, h_jac):
+    """The ladder form (msm="ladder": B10 tables, one B13 launch per group,
+    the fold of N lanes) on the valid batch, in turns with the shared form
+    (shared, ladder, ladder, shared): both accept; and on the batch with
+    one signature replaced, which it rejects. Returns its seconds."""
+    from threshold_crypto_tpu_torch.device import curve as dcv
+
+    reset_counts()
+    turns = []
+    for i, msm in enumerate(("shared", "ladder", "ladder", "shared")):
+        ok, _, s = rlc_call(pk_aff, sig_aff, h_jac, bytes([32 + i]) * 32,
+                            msm=msm)
+        if not ok:
+            fail(f"rlc: the {msm} form rejected the valid batch")
+        turns.append((msm, s))
+    launches = {k: v for k, v in read_counts().items() if "step" in k}
+    if launches != {"g1_step4": 2, "g2_step4": 2, "g1_step": 0,
+                    "g2_step": 0}:
+        fail(f"rlc ladder form: B13/B15 launches {launches}")
+    bad = dcv.tree_map(lambda a: a.clone(), sig_aff)
+    for c in dcv.leaves(bad[:2]):
+        c[7] = c[8]
+    if rlc_call(pk_aff, bad, h_jac, b"\x30" * 32, msm="ladder")[0]:
+        fail("rlc: the ladder form accepted a batch with one sig replaced")
+    shared = [s for m, s in turns if m == "shared"]
+    ladder = [s for m, s in turns if m == "ladder"]
+    print(f"rlc ladder form (msm='ladder') at N={RLC_N}: accepts the valid "
+          f"batch, rejects one sig replaced; in turns (shared, ladder, "
+          f"ladder, shared) {[round(s, 3) for _, s in turns]} s: shared "
+          f"mean {statistics.mean(shared):.3f} s, ladder mean "
+          f"{statistics.mean(ladder):.3f} s", flush=True)
+    return dict(turns=turns, ladder_s=statistics.mean(ladder),
+                shared_s=statistics.mean(shared))
 
 
 def rlc_accumulator_sweep(pk_aff, sig_aff, h_jac):
@@ -1025,6 +1285,374 @@ def rlc_accumulator_sweep(pk_aff, sig_aff, h_jac):
                       f"{[round(t, 4) for t in times[a]]}"
                       for a in RLC_A_SWEEP), flush=True)
     return per_a
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: slice 4, distinct-message verify with the device hash_g2
+# ---------------------------------------------------------------------------
+
+def _pow_products(e):
+    """Fq2 products of ``hash2g2.fq2_pow_fixed``: a square per bit after the
+    first, a multiply per set bit after the first."""
+    return e.bit_length() - 1 + bin(e).count("1") - 1
+
+
+def hash_launches():
+    """Launches of one ``verify_with_hash_batch`` call: the residue test's
+    B2 (one Euler power over the N·A candidates) and its three stacked
+    products (x², x³, the norm), the square root's two fq2_pow_fixed plus
+    three products, the root's order (one), the cofactor ladder (14 B10 for
+    the table, one B13), the affine conversion (one B2, six products) and
+    the megakernel check (B4-B9, one B2, 12 products)."""
+    from threshold_crypto_tpu_torch.host.params import P
+
+    expect = dict(PALLAS_LAUNCHES)
+    expect.update({
+        "mont_pow": 3, "g2_madd": 14, "g2_step4": 1,
+        "mont_mul": (3 + _pow_products((P - 3) // 4) + 2
+                     + _pow_products((P - 1) // 2) + 1 + 1 + 6 + 12)})
+    return expect
+
+
+def encrypt_launches():
+    """Launches of one ``encrypt_batch_pallas`` call: three ladders, each
+    its table (14 B10) and one B13; no product outside the kernels."""
+    return {"g1_madd": 28, "g2_madd": 14, "g1_step4": 2, "g2_step4": 1,
+            "mont_mul": 0, "mont_pow": 0}
+
+
+def fr_limbs(ks, dev):
+    """Host ints < 2^256 -> int32[N, 16] canonical limbs on the card."""
+    import numpy as np
+    import torch
+
+    raw = b"".join(int(k).to_bytes(32, "little") for k in ks)
+    limbs = np.frombuffer(raw, dtype="<u2").astype(np.int32)
+    return torch.from_numpy(limbs.reshape(len(ks), 16)).to(dev)
+
+
+def tile_to(tree, n):
+    """An affine tuple of k lanes tiled to n lanes (k divides n)."""
+    from threshold_crypto_tpu_torch.device import curve as dcv
+
+    return dcv.tree_map(
+        lambda a: a.repeat((n // a.shape[0],) + (1,) * (a.dim() - 1)), tree)
+
+
+def host_walk_ok(msg, attempts, n_words):
+    """The host sampler's walk: does one of its first ``attempts``
+    candidates land within ``n_words`` stream words? (What the device
+    chain's ``ok`` says.)"""
+    from threshold_crypto_tpu_torch import hashing
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.host.chacha import ChaChaRng
+    from threshold_crypto_tpu_torch.host.sampling import fq2_random
+
+    class Counted(ChaChaRng):
+        used = 0
+
+        def next_u32(self):
+            self.used += 1
+            return super().next_u32()
+
+    rng = Counted(hashing.sha3_256(msg))
+    for _ in range(attempts):
+        x = fq2_random(rng)
+        greatest = rng.next_u32() % 2 != 0
+        if rng.used > n_words:
+            return False
+        if hcv.G2.get_point_from_x(x, greatest) is not None:
+            return True
+    return False
+
+
+def g2_host_points(aff, lanes):
+    """The host points of some lanes of a G2 affine tuple on the card."""
+    from threshold_crypto_tpu_torch.device import tower as tw
+
+    idx = list(lanes)
+    x = tw.fq2_to_host((aff[0][0][idx], aff[0][1][idx]))
+    y = tw.fq2_to_host((aff[1][0][idx], aff[1][1][idx]))
+    inf = aff[2][idx].tolist()
+    return [None if i else (a, b) for a, b, i in zip(x, y, inf)]
+
+
+def hash_inputs(dev):
+    """benches/hash_bench.py's inputs: HASH_N messages b"bench-msg-%d", 16
+    keys (seed 0xD15C) tiled, signatures sk·H(m) made on the card with the
+    ladder (``scalar_mul_pallas``, B13) from ``hashing.hash_g2_batch``'s
+    points. Then lanes ≡ 3 (mod 8) take the next lane's signature and the
+    HASH_INF lanes get pk, sig or both at infinity; the mask says which
+    lanes must verify."""
+    import torch
+    from threshold_crypto_tpu_torch import hashing
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import pairing as dpr
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.host.params import R
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    msgs = [b"bench-msg-%d" % i for i in range(HASH_N)]
+    rnd = random.Random(0xD15C)
+    sks = [rnd.randrange(1, R) for _ in range(HASH_KEYS)]
+    t0 = time.time()
+    h_pts = hashing.hash_g2_batch(msgs, attempts=HASH_ATTEMPTS, device=dev)
+    hash_s = time.time() - t0
+    pk_aff = tile_to(dpr.g1_affine_from_host(
+        [hcv.G1.mul(hcv.G1.generator, s) for s in sks], device=dev), HASH_N)
+    sk_limbs = fr_limbs(sks, dev).repeat(HASH_N // HASH_KEYS, 1)
+    sig0 = tops.jacobian_to_affine(dcv.G2, ccv.scalar_mul_pallas(
+        dcv.G2, dpr.g2_affine_from_host(h_pts, device=dev), sk_limbs))
+    src = torch.arange(HASH_N, device=dev)
+    src[3::8] += 1
+    sig_aff = dcv.tree_map(lambda a: a[src].contiguous(), sig0)
+    want = [i % 8 != 3 for i in range(HASH_N)]
+    for lane, kind in HASH_INF:
+        for aff, hit in ((pk_aff, kind in ("pk", "both")),
+                         (sig_aff, kind in ("sig", "both"))):
+            if hit:
+                aff[2][lane] = True
+                for c in dcv.leaves(aff[:2]):
+                    c[lane] = 0
+        want[lane] = kind == "both"
+    return msgs, sks, h_pts, pk_aff, sig0, sig_aff, want, hash_s
+
+
+def hash_call(pk_aff, msgs, sig_aff, want_t):
+    """One synchronised ``verify_with_hash_batch`` call, checked against
+    the mask; returns seconds."""
+    import torch
+    from threshold_crypto_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = ops.verify_with_hash_batch(pk_aff, msgs, sig_aff,
+                                     attempts=HASH_ATTEMPTS)
+    secs = time.time() - t0
+    if out.tolist() != want_t:
+        bad = [i for i, (a, b) in enumerate(zip(out.tolist(), want_t))
+               if a != b][:8]
+        fail(f"verify_with_hash_batch disagrees with the mask at lanes {bad}")
+    return secs
+
+
+def run_hash(dev):
+    """Slice 4: drive ``verify_with_hash_batch`` at HASH_N and check it."""
+    from threshold_crypto_tpu_torch import hashing
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import hash2g2
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    t0 = time.time()
+    msgs, sks, h_pts, pk_aff, sig0, sig_aff, want, hash_s = hash_inputs(dev)
+    print(f"inputs: {HASH_N} distinct messages, {HASH_KEYS} keys tiled, "
+          f"{want.count(False)} lanes expected False; hash_g2_batch "
+          f"{hash_s:.2f} s, built in {time.time() - t0:.1f} s", flush=True)
+
+    # the device chain against the host oracle
+    jac, ok = hash2g2.hash_g2_device(hashing.digest_words(msgs, dev),
+                                     attempts=HASH_ATTEMPTS)
+    h_aff = tops.jacobian_to_affine(dcv.G2, jac)
+    okh = ok.cpu().tolist()
+    not_ok = [i for i, k in enumerate(okh) if not k]
+    print(f"hash_g2_device: {len(not_ok)} of {HASH_N} lanes not ok "
+          f"({100 * len(not_ok) / HASH_N:.2f} %; about 2^-{HASH_ATTEMPTS} "
+          f"expected) -> host oracle", flush=True)
+    if len(not_ok) > HASH_NOT_OK * HASH_N:
+        fail(f"hash_g2_device left {len(not_ok)} lanes to the host, over "
+             f"{100 * HASH_NOT_OK:.0f} %")
+    sample = list(range(0, HASH_N, HASH_N // HASH_SAMPLE))[:HASH_SAMPLE]
+    t0 = time.time()
+    for i, got in zip(sample, g2_host_points(h_aff, sample)):
+        want_pt = hashing.hash_g2(msgs[i])
+        if (okh[i] and got != want_pt) or h_pts[i] != want_pt:
+            fail(f"hash_g2: lane {i} differs from the host oracle")
+    for i in not_ok:
+        if h_pts[i] != hashing.hash_g2(msgs[i]):
+            fail(f"hash_g2_batch: lane {i} (not ok) differs from the host "
+                 f"oracle")
+    for i in sorted(set(not_ok) | set(sample)):
+        if host_walk_ok(msgs[i], HASH_ATTEMPTS,
+                        hash2g2.DEFAULT_WORDS) != okh[i]:
+            fail(f"hash_g2_device: ok of lane {i} is not the host walk's")
+    for i in sample[:SIG_SAMPLE]:
+        if g2_host_points(sig0, [i])[0] != hcv.G2.mul(h_pts[i],
+                                                      sks[i % HASH_KEYS]):
+            fail(f"signature of lane {i} differs from the host oracle")
+    print(f"{len(sample)} sampled hash points and all {len(not_ok)} lanes "
+          f"not ok equal the host oracle, ok equals the host walk on them, "
+          f"{SIG_SAMPLE} sampled signatures equal host mul "
+          f"({time.time() - t0:.1f} s)", flush=True)
+
+    reset_counts()
+    first_s = hash_call(pk_aff, msgs, sig_aff, want)
+    launches = read_counts()
+    print(f"verify_with_hash_batch first call {first_s:.2f} s; launches per "
+          f"call {launches}", flush=True)
+    expect = hash_launches()
+    got = {k: launches[k] for k in expect}
+    if got != expect:
+        fail(f"verify_with_hash_batch: launches per call {got}, expected "
+             f"{expect}")
+    times = [hash_call(pk_aff, msgs, sig_aff, want) for _ in range(3)]
+    wall = statistics.median(times)
+    print(f"verify_with_hash_batch N={HASH_N}: median {wall:.3f} s of "
+          f"{[round(t, 3) for t in times]} -> {HASH_N / wall:.1f} "
+          f"verifications/s (digests, hash, splice and check included)",
+          flush=True)
+
+    spans = []
+    with kernel_event_timer(spans):
+        kwall = hash_call(pk_aff, msgs, sig_aff, want)
+    kernel_s, per_kernel = kernel_split("verify_with_hash_batch", spans, kwall)
+
+    stages = []
+    patches = [
+        (hashing, "digest_words", lambda *a: "host digests"),
+        (hash2g2, "_chacha_words_multikey", lambda *a: "ChaCha streams"),
+        (hash2g2, "extract_candidates", lambda *a: "candidate extraction"),
+        (hash2g2, "residue_test", lambda *a: "residue test (B2)"),
+        (hash2g2, "fq2_sqrt", lambda *a: "Fq2 sqrt (two fq2_pow_fixed)"),
+        (ccv, "scalar_mul_fixed_pallas",
+         lambda *a: "table + cofactor ladder (B10, B13)"),
+        (tops, "splice_host_hashes", lambda *a: "host splice"),
+        (tops, "jacobian_to_affine", lambda *a: "affine"),
+        (tops, "verify_batch_pallas", lambda *a: "check"),
+    ]
+    with spans_around(stages, patches):
+        swall = hash_call(pk_aff, msgs, sig_aff, want)
+    split = print_split("verify_with_hash_batch", stages, swall)
+    return dict(launches=launches, wall_s=wall, per_s=HASH_N / wall,
+                kernel_s=kernel_s, timed_wall_s=kwall, split_ms=split,
+                kernel_ms=per_kernel, not_ok=len(not_ok))
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: slice 5, batched encrypt, and the window-1 MSM
+# ---------------------------------------------------------------------------
+
+def run_encrypt(dev):
+    """Slice 5: ``encrypt_batch_pallas`` at ENC_N lanes, the inputs of
+    benches/encrypt_bench.py (seed 0xE2C: one key, 16 H(u, v) tiled, r in
+    [1, R)); every lane passes the ciphertext check e(u, H) == e(G1, w)
+    (``verify_batch_pallas(u, H, w)``), lanes 0, 1, n − 1 equal host mul."""
+    import torch
+    from threshold_crypto_tpu_torch import ops
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import pairing as dpr
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.host.params import R
+
+    n = ENC_N
+    rnd = random.Random(0xE2C)
+    pk_host = hcv.G1.mul(hcv.G1.generator, rnd.randrange(1, R))
+    huv_hosts = [hcv.G2.mul(hcv.G2.generator, rnd.randrange(1, R))
+                 for _ in range(16)]
+    rs = [rnd.randrange(1, R) for _ in range(n)]
+    pk_aff = dcv.tree_map(lambda a: a.expand((n,) + a.shape[1:]),
+                          dpr.g1_affine_from_host([pk_host], device=dev))
+    huv_aff = tile_to(dpr.g2_affine_from_host(huv_hosts, device=dev), n)
+    r = fr_limbs(rs, dev)
+
+    def call():
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = ops.encrypt_batch_pallas(pk_aff, r, huv_aff)
+        torch.cuda.synchronize()
+        return out, time.time() - t0
+
+    reset_counts()
+    (u, g, w), first_s = call()
+    launches = read_counts()
+    expect = encrypt_launches()
+    if {k: launches[k] for k in expect} != expect:
+        fail(f"encrypt_batch_pallas: launches per call {launches}, expected "
+             f"{expect}")
+    print(f"encrypt_batch_pallas first call {first_s:.3f} s; launches per "
+          f"call {launches}", flush=True)
+    u_aff = ops.jacobian_to_affine(dcv.G1, u)
+    w_aff = ops.jacobian_to_affine(dcv.G2, w)
+    if not bool(ops.verify_batch_pallas(u_aff, huv_aff, w_aff).all()):
+        fail("encrypt: a lane fails e(u, H) == e(G1, w)")
+    for i in (0, 1, n - 1):
+        lane = lambda t: dcv.tree_map(lambda a: a[i:i + 1], t)  # noqa: E731
+        if (dcv.G1.to_host_affine(lane(u))[0],
+                dcv.G1.to_host_affine(lane(g))[0],
+                dcv.G2.to_host_affine(lane(w))[0]) != (
+                hcv.G1.mul(hcv.G1.generator, rs[i]),
+                hcv.G1.mul(pk_host, rs[i]),
+                hcv.G2.mul(huv_hosts[i % 16], rs[i])):
+            fail(f"encrypt: lane {i} differs from the host oracle")
+    times = [call()[1] for _ in range(3)]
+    wall = statistics.median(times)
+    print(f"encrypt_batch_pallas N={n}: every lane passes e(u, H) == "
+          f"e(G1, w), lanes 0, 1, {n - 1} equal host mul; median "
+          f"{wall:.4f} s of {[round(t, 4) for t in times]} -> "
+          f"{n / wall:.1f} encryptions/s", flush=True)
+    spans = []
+    with kernel_event_timer(spans):
+        kwall = call()[1]
+    kernel_s, per_kernel = kernel_split("encrypt_batch_pallas", spans, kwall)
+    return dict(launches=launches, wall_s=wall, per_s=n / wall,
+                kernel_s=kernel_s, timed_wall_s=kwall, kernel_ms=per_kernel)
+
+
+def run_msm1(dev):
+    """``msm_pallas(window=1)`` (one B15 launch per group) at MSM1_N lanes of
+    16 points tiled with 64-bit scalars, G1 and G2: its folded sum equals
+    ``msm_pallas_shared``'s and the host oracle's."""
+    import numpy as np
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import pairing as dpr
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.host.params import R
+
+    rnd = random.Random(0xB15)
+    ks = np.random.default_rng(SEED).integers(0, 1 << 63, MSM1_N,
+                                              dtype=np.uint64) * 2 + 1
+    limbs = np.zeros((MSM1_N, 16), np.int32)
+    for j in range(4):
+        limbs[:, j] = (ks >> np.uint64(16 * j)) & np.uint64(0xFFFF)
+    scalars = torch.from_numpy(limbs).to(dev)
+    sums = [sum(int(v) for v in ks[j::16]) % R for j in range(16)]
+    cases = []
+    for curve, host, from_host in ((dcv.G1, hcv.G1, dpr.g1_affine_from_host),
+                                   (dcv.G2, hcv.G2, dpr.g2_affine_from_host)):
+        pts = [host.mul(host.generator, rnd.randrange(1, R))
+               for _ in range(16)]
+        want = None
+        for p, k in zip(pts, sums):
+            want = host.add(want, host.mul(p, k))
+        cases.append((curve, tile_to(from_host(pts, device=dev), MSM1_N),
+                      want))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    got = [ccv.msm_pallas(c, aff, scalars, nbits=64, window=1)
+           for c, aff, _ in cases]
+    torch.cuda.synchronize()
+    secs = time.time() - t0
+    launches = read_counts()
+    if (launches["g1_step"], launches["g2_step"]) != (1, 1):
+        fail(f"msm_pallas(window=1): launches {launches}")
+    for (curve, aff, want), sum_jac in zip(cases, got):
+        one = dcv.tree_map(lambda a: a[None], sum_jac)
+        shared = dcv.tree_map(lambda a: a[None], ccv.msm_pallas_shared(
+            curve, aff, scalars, nbits=64))
+        if curve.to_host_affine(one) != [want] or \
+                curve.to_host_affine(shared) != [want]:
+            fail(f"msm_pallas(window=1) {curve.name}: the sum differs from "
+                 f"msm_pallas_shared's or the host oracle's")
+    print(f"msm_pallas(window=1) at N={MSM1_N}, 64-bit scalars: G1 and G2 "
+          f"sums equal msm_pallas_shared's and the host oracle's; both "
+          f"groups {secs:.3f} s (B15 and the fold); launches {launches}",
+          flush=True)
+    return dict(launches=launches, wall_s=secs)
 
 
 # ---------------------------------------------------------------------------
@@ -1079,6 +1707,10 @@ def main():
         results["g2_winacc" if g2 else "g1_winacc"] = check_winacc(
             g2, gen, dev, card)
     results["sha3_chunks"] = check_sha3(gen, dev, card)
+    for kind in ("step4", "step"):
+        for g2 in (False, True):
+            results[f"g{1 + g2}_{kind}"] = check_ladder(g2, kind, gen, dev,
+                                                         card)
     torch.cuda.empty_cache()
 
     old, new = run_slices(dev)
@@ -1100,15 +1732,29 @@ def main():
     print(f"the RLC path: kernels {rlc['kernel_s']:.3f} s of "
           f"{rlc['timed_wall_s']:.3f} s; bound of its B10-B12 launches "
           f"{rlc_bound:.3f} ms", flush=True)
+    torch.cuda.empty_cache()
+
+    phase(f"slice 4: ops.verify_with_hash_batch at {HASH_N} distinct "
+          f"messages (device hash_g2: ChaCha, candidates, B2, B10 + B13)")
+    hashed = run_hash(dev)
+    torch.cuda.empty_cache()
+    phase(f"slice 5: ops.encrypt_batch_pallas at {ENC_N} lanes (B10 + B13), "
+          f"and msm_pallas(window=1) at {MSM1_N} (B15)")
+    paths = {"hash": hashed, "encrypt": run_encrypt(dev),
+             "msm1": run_msm1(dev)}
 
     kernels = []
     for mod, k in registry():
         res = results[k.name]
         # B1/B2: launches of slice 1, where they carry the path; B3-B9:
         # of slice 2 (B3 runs inside every B4-B9 launch); B10-B12: of
-        # slice 3. Every kernel's launches on the RLC path beside them.
+        # slice 3; B13: of slice 4 (G2, the cofactor ladder) and 5 (G1);
+        # B15: of the window-1 MSM. Every kernel's launches on the RLC,
+        # hash and encrypt paths beside them.
         path = (old if k.name.startswith("mont_") else
-                rlc if k.name in RLC_KERNELS else new)
+                rlc if k.name in RLC_KERNELS else
+                paths[LADDER_KERNELS[k.name]] if k.name in LADDER_KERNELS
+                else new)
         entry = {
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": path["launches"][k.name],
@@ -1120,6 +1766,10 @@ def main():
         if k.name.startswith("mont_"):
             entry["launches_megakernel_path"] = new["launches"][k.name]
         entry["launches_rlc_path"] = rlc["launches"][k.name]
+        entry["launches_hash_path"] = hashed["launches"][k.name]
+        entry["launches_encrypt_path"] = paths["encrypt"]["launches"][k.name]
+        if "digits" in res:
+            entry["digits"] = res["digits"]
         if "plain_lanes" in res:
             entry["plain_lanes"] = res["plain_lanes"]
         if "accumulators" in res:

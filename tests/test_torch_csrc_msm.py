@@ -1,16 +1,18 @@
-"""The MSM and SHA3 kernels' CUDA sources, compiled for the host, against their
-plain versions and ``hashlib``.
+"""The curve and SHA3 kernels' CUDA sources, compiled for the host, against
+their plain versions and ``hashlib``.
 
-The per-lane bodies of B10 and B11 (``csrc/curve.cuh``: the doubling, the
-complete add, the complete mixed add and the Horner loop of one
-accumulator) and of B12 (``csrc/keccak.cuh``) are plain C++ behind CUDA's
+The per-lane bodies of B10, B11, B13 and B15 (``csrc/curve.cuh``: the
+doubling, the complete add, the complete mixed add, the Horner loop of one
+accumulator, and the two ladders of one lane) and of B12
+(``csrc/keccak.cuh``) are plain C++ behind CUDA's
 function qualifiers. Here g++ compiles them with the qualifiers defined
 away, and a serial loop over the lanes (or accumulators, or chunks) stands
 in for the grid: the same integer arithmetic the kernels run on the card,
 on the packed layout, checked bit-exact against the plain versions
 (``device/curve.py``, ``device/cuda_curve.py``, ``device/keccak.py``) on
 seeded points with the special lanes T == Q, T == −Q and infinity on
-either side, and against ``hashlib.sha3_256``. Without g++ the tests skip
+either side (for the ladders: 16T == ±table[d − 1], 2T == ±Q, T at
+infinity and digit or bit 0), and against ``hashlib.sha3_256``. Without g++ the tests skip
 (the kernels themselves run only on the card, in ``chip_smoke.py``).
 """
 
@@ -75,12 +77,24 @@ void run(int op, int n, int accs, int ndig, int window) {
       }
       tc::store_jac(out.data(), T, n, l);
     }
-  } else {  // winacc
+  } else if (op == 3) {  // winacc
     auto table = rd(((1ul << window) - 1) * P * n), digits = rd(ndig * n);
     out.resize(P * accs);
     for (int j = 0; j < accs; ++j)
       tc::winacc_lane<F>(table.data(), digits.data(), out.data(), n, accs,
                          ndig, window, j);
+  } else if (op == 5) {  // step (B15): acc, q affine, bits
+    auto acc = rd(P * n), q = rd(2 * P / 3 * n), bits = rd(ndig * n);
+    out.resize(P * n);
+    for (int l = 0; l < n; ++l)
+      tc::step_lane<F>(acc.data(), q.data(), bits.data(), out.data(), n,
+                       ndig, l);
+  } else {  // step4 (B13): acc, table of 15, digits
+    auto acc = rd(P * n), table = rd(15 * P * n), digits = rd(ndig * n);
+    out.resize(P * n);
+    for (int l = 0; l < n; ++l)
+      tc::step4_lane<F>(acc.data(), table.data(), digits.data(), out.data(),
+                        n, ndig, l);
   }
   fwrite(out.data(), 4, out.size(), stdout);
 }
@@ -104,7 +118,8 @@ int main() {
 }
 """
 
-OPS = {"madd": 0, "dbl": 1, "add": 2, "winacc": 3, "sha3": 4}
+OPS = {"madd": 0, "dbl": 1, "add": 2, "winacc": 3, "sha3": 4, "step": 5,
+       "step4": 6}
 N = 16
 
 
@@ -235,6 +250,101 @@ def test_winacc_body_matches_plain_version(harness, group, accs):
                (rows, accs), accs=accs, ndig=ndig, window=window)
     want = ccv._winacc_ref(g2, table, digits, accs, window)
     assert torch.equal(got, want)
+
+
+def _affine(curve, pts):
+    """Host affine points (None: the generator's coordinates) -> packed
+    affine [2k·24, n]."""
+    pts = [curve.gen_affine_host if p is None else p for p in pts]
+    return ccv.pack_point(tuple(curve.f.from_host([p[c] for p in pts], "cpu")
+                                for c in range(2)))
+
+
+def _ladder_case(curve, host, kind, rnd):
+    """Inputs of one ladder kernel over N lanes with its special lanes.
+
+    step4: acc, a table of 15 entries, digits [1, N]: lanes 0-3 acc at
+    infinity, 4-7 digit 0, 8-11 table[d − 1] == 16T, 12-15 == −16T.
+    step: acc, q affine, bits [1, N]: lanes 0-3 T at infinity, 4-7 bit 0,
+    8-11 Q == 2T, 12-15 Q == −2T. The other lanes are random points; every
+    point has a random Z."""
+    ts = [host.mul(host.generator, rnd.randrange(1, R)) for _ in range(N)]
+    for i in range(4):
+        ts[i] = None
+    if kind == "step4":
+        entries = [[host.mul(host.generator, rnd.randrange(1, R))
+                    for _ in range(N)] for _ in range(15)]
+        digits = [rnd.randrange(1, 16) for _ in range(N)]
+        for i in range(4, 8):
+            digits[i] = 0
+        for i in range(8, 16):
+            q = host.mul(ts[i], 16)
+            entries[digits[i] - 1][i] = q if i < 12 else host.neg(q)
+        table = torch.cat([ccv.pack_point(_jacobian(curve, host, e, rnd))
+                           for e in entries])
+        return (ccv.pack_point(_jacobian(curve, host, ts, rnd)), table,
+                torch.tensor([digits], dtype=torch.int32))
+    qs = [host.mul(host.generator, rnd.randrange(1, R)) for _ in range(N)]
+    bits = [1] * N
+    for i in range(4, 8):
+        bits[i] = 0
+    for i in range(8, 16):
+        q = host.double(ts[i])
+        qs[i] = q if i < 12 else host.neg(q)
+    return (ccv.pack_point(_jacobian(curve, host, ts, rnd)), _affine(curve, qs),
+            torch.tensor([bits], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("kind", ["step4", "step"])
+def test_ladder_body_matches_plain_version_on_special_lanes(harness, group,
+                                                            kind):
+    """One ladder step (B13, B15) on the special lanes, bit-exact with the
+    plain version; 16T == −table[d − 1] and 2T == −Q give infinity, and an
+    infinite accumulator gives table[d − 1] (or Q) exactly."""
+    curve, host, _, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    rnd = random.Random(0x1AD + g2)
+    acc, other, digits = _ladder_case(curve, host, kind, rnd)
+    got = _run(harness, kind, g2, N, [acc, other.contiguous(), digits],
+               (rows, N), ndig=1)
+    plain = ccv.p_step4 if kind == "step4" else ccv.p_step
+    want = plain(g2, acc, other, digits)
+    assert torch.equal(got, want)
+    pts = curve.to_host_affine(ccv.unpack_jac(want, g2))
+    tin = curve.to_host_affine(ccv.unpack_jac(acc, g2))
+    assert all(p is None for p in pts[12:16])
+    if kind == "step4":
+        entry = [ccv.unpack_jac(other[(d - 1) * rows:d * rows], g2)
+                 for d in range(1, 16)]
+        for i in range(4):
+            d = int(digits[0, i])
+            assert torch.equal(want[:, i], ccv.pack_point(entry[d - 1])[:, i])
+        assert pts[4:8] == [host.mul(t, 16) for t in tin[4:8]]
+        assert pts[8:12] == [host.mul(t, 32) for t in tin[8:12]]
+    else:
+        assert torch.equal(want[:2 * rows // 3, :4], other[:, :4])
+        assert pts[4:8] == [host.double(t) for t in tin[4:8]]
+        assert pts[8:12] == [host.mul(t, 4) for t in tin[8:12]]
+
+
+@pytest.mark.parametrize("kind", ["step4", "step"])
+def test_ladder_loop_matches_plain_version(harness, group, kind):
+    """The digit (bit) loop inside the thread over D = 6 steps with random
+    digits, zeros included, from random accumulators."""
+    curve, host, T, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    rnd = random.Random(0x100 + g2)
+    acc, other, _ = _ladder_case(curve, host, kind, rnd)
+    acc = ccv.pack_point(T)
+    top = 16 if kind == "step4" else 2
+    digits = torch.from_numpy(np.random.default_rng(g2).integers(
+        0, top, (6, N)).astype(np.int32))
+    got = _run(harness, kind, g2, N, [acc, other.contiguous(), digits],
+               (rows, N), ndig=6)
+    plain = ccv.p_step4 if kind == "step4" else ccv.p_step
+    assert torch.equal(got, plain(g2, acc, other, digits))
 
 
 def test_sha3_body_matches_hashlib_and_plain_version(harness):

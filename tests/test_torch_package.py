@@ -24,6 +24,8 @@ MODULES = [
     "threshold_crypto_tpu_torch.host.tower",
     "threshold_crypto_tpu_torch.host.curve",
     "threshold_crypto_tpu_torch.host.chacha",
+    "threshold_crypto_tpu_torch.host.sampling",
+    "threshold_crypto_tpu_torch.hashing",
     "threshold_crypto_tpu_torch.device.mont",
     "threshold_crypto_tpu_torch.device.cuda_mont",
     "threshold_crypto_tpu_torch.device.tower",
@@ -34,6 +36,7 @@ MODULES = [
     "threshold_crypto_tpu_torch.device.cuda_curve",
     "threshold_crypto_tpu_torch.device.keccak",
     "threshold_crypto_tpu_torch.device.chacha",
+    "threshold_crypto_tpu_torch.device.hash2g2",
     "threshold_crypto_tpu_torch.ops",
     "threshold_crypto_tpu_torch.ops.threshold",
 ]
@@ -87,7 +90,8 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
     """Each tower source is one nvcc of its own .cu, finding fq.cuh and
     tower.cuh beside it, and its library name hashes those headers too."""
     srcs = [os.path.basename(s) for s in _build.sources()]
-    assert srcs == ["fq12.cu", "keccak.cu", "miller.cu", "mont.cu", "msm.cu"]
+    assert srcs == ["fq12.cu", "keccak.cu", "ladder.cu", "miller.cu",
+                    "mont.cu", "msm.cu"]
     assert [os.path.basename(h) for h in _build.headers()] == [
         "curve.cuh", "fq.cuh", "keccak.cuh", "tower.cuh"]
     cmd = _build.command(name, "/nonexistent/lib.so")
@@ -103,10 +107,12 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
 
 
 @pytest.mark.parametrize("name,header", [("msm", "curve.cuh"),
-                                         ("keccak", "keccak.cuh")])
+                                         ("keccak", "keccak.cuh"),
+                                         ("ladder", "curve.cuh")])
 def test_msm_and_keccak_sources_build_alone(name, header):
-    """The RLC slice's sources: one nvcc each, their header beside them, no
-    PyTorch headers, and a C launcher for every signature."""
+    """The curve and transcript sources (the RLC slice's msm and keccak, the
+    hash and encrypt slice's ladder): one nvcc each, their header beside
+    them, no PyTorch headers, and a C launcher for every signature."""
     cmd = _build.command(name, "/nonexistent/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
@@ -153,7 +159,7 @@ def test_build_renames_into_place_and_caches(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     logs = _build.build()
     names = sorted(logs)
-    assert names == ["fq12", "keccak", "miller", "mont", "msm"]
+    assert names == ["fq12", "keccak", "ladder", "miller", "mont", "msm"]
     assert all("Used 40 registers" in logs[n] for n in names)
     assert all(re.search(rf"nvcc {n}\.cu: \d+\.\d s", logs[n])
                for n in names)
@@ -172,3 +178,21 @@ def test_failed_build_raises_with_nvcc_output(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="no sm_90a here"):
         _build.build()
     assert os.listdir(tmp_path / "build") == []
+
+
+def test_kernels_list_the_ladder_kernels_in_both_groups():
+    """B13 (step4) and B15 (step) in G1 and G2 forms, each with its source,
+    the TPU kernel it replaces, a plain version and a count."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device.cuda_mont import KernelCount
+
+    ladder = {k.name: k for k in ccv.KERNELS if k.source.endswith(
+        "csrc/ladder.cu")}
+    assert sorted(ladder) == ["g1_step", "g1_step4", "g2_step", "g2_step4"]
+    tpu = "threshold_crypto_tpu/device/pallas_curve.py:"
+    assert {k.replaces for k in ladder.values()} == {tpu + "385",
+                                                     tpu + "373"}
+    for k in ladder.values():
+        assert k.plain.__name__ == k.name + "_ref"
+        assert isinstance(k.count, KernelCount)
+        assert ("tc_" + k.name) in [fn for fn, _ in _build.SIGNATURES["ladder"]]

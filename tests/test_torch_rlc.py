@@ -8,7 +8,9 @@ with the JAX ``rlc_exponents`` on the same bytes), and a small
 ``check_batch`` (the plain check at 512 lanes is slow on a CPU). The batch
 is accepted; a batch with one signature replaced, or one public key
 replaced, is rejected; the aggregate affine points equal the host oracle's
-Σ rᵢ·pkᵢ and Σ rᵢ·sigᵢ. No kernel is launched on the CPU.
+Σ rᵢ·pkᵢ and Σ rᵢ·sigᵢ. No kernel is launched on the CPU. The ladder form
+(``msm="ladder"``: the per-lane window-4 ladder in place of the
+shared-window MSM) gives the same verdicts and the same aggregates.
 """
 
 import random
@@ -54,7 +56,7 @@ def batch():
     return pk, sig, h, sks
 
 
-def _run(pk, sig, h, seed=b"rlc-seed", unbatched_h=False):
+def _run(pk, sig, h, seed=b"rlc-seed", unbatched_h=False, msm="shared"):
     pk_aff = dpr.g1_affine_from_host(pk, device="cpu")
     sig_aff = dpr.g2_affine_from_host(sig, device="cpu")
     h_jac = dcv.G2.from_host_affine([h], device="cpu")
@@ -62,7 +64,7 @@ def _run(pk, sig, h, seed=b"rlc-seed", unbatched_h=False):
         h_jac = dcv.tree_map(lambda a: a[0], h_jac)
     r = ops.rlc_exponents(N, seed, pk_aff=pk_aff, sig_aff=sig_aff)
     ok = ops.verify_sig_shares_rlc_pallas(pk_aff, h_jac, sig_aff, r,
-                                          check_batch=CHECK_BATCH)
+                                          check_batch=CHECK_BATCH, msm=msm)
     return ok, r, pk_aff, sig_aff
 
 
@@ -109,3 +111,24 @@ def test_batch_with_one_public_key_replaced_is_rejected(batch):
     bad[10] = hcv.G1.mul(hcv.G1.generator, sks[10 % KEYS] + 1)
     ok, *_ = _run(bad, sig, h)
     assert not bool(ok)
+
+
+def test_ladder_form_gives_the_shared_forms_verdicts(batch):
+    """msm="ladder" on the valid batch and on one with a signature
+    replaced: the verdicts of msm="shared" (accepted in
+    ``test_valid_batch_is_accepted_and_aggregates_match_host``), and the
+    same aggregates."""
+    pk, sig, h, sks = batch
+    bad = list(sig)
+    bad[3] = hcv.G2.mul(h, sks[3 % KEYS] + 1)
+    ok, r, pk_aff, sig_aff = _run(pk, sig, h, msm="ladder")
+    assert bool(ok)
+    assert [bool(_run(pk, bad, h, msm=m)[0]) for m in ("shared", "ladder")] \
+        == [False, False]
+    for a, b in zip(dcv.leaves(tops.rlc_aggregate_pallas(pk_aff, sig_aff, r,
+                                                         msm="ladder")),
+                    dcv.leaves(tops.rlc_aggregate_pallas(pk_aff, sig_aff,
+                                                         r))):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        tops.rlc_aggregate_pallas(pk_aff, sig_aff, r, msm="scalarwise")

@@ -8,8 +8,8 @@ in their place.
 
 What is ported so far: BLS verification on the BLS12-381 stack of
 :mod:`.device` (Montgomery field arithmetic, the Fq2/Fq6/Fq12 tower, G1/G2
-Jacobian curves, the Miller loop and the final exponentiation), on three
-paths: :func:`threshold_crypto_tpu_torch.ops.verify_batch` (strict per-pair
+Jacobian curves, the Miller loop and the final exponentiation), the hash to
+G2 and batched encryption, on five paths: :func:`threshold_crypto_tpu_torch.ops.verify_batch` (strict per-pair
 verify, the tower as stacked field products, kernels B1 and B2 in
 ``csrc/mont.cu``), :func:`threshold_crypto_tpu_torch.ops.verify_batch_pallas`
 (the megakernel path: whole Miller iterations and Fq12 steps as one launch
@@ -18,5 +18,10 @@ B3 of ``csrc/fq.cuh``), and the RLC batch verification of N shares on one
 message, :func:`threshold_crypto_tpu_torch.ops.rlc_exponents` then
 :func:`threshold_crypto_tpu_torch.ops.verify_sig_shares_rlc_pallas` (the
 transcript hash B12 in ``csrc/keccak.cu``, the shared-window MSMs B10 and
-B11 in ``csrc/msm.cu``, and one check through ``verify_batch_pallas``).
+B11 in ``csrc/msm.cu``, and one check through ``verify_batch_pallas``),
+:func:`threshold_crypto_tpu_torch.ops.verify_with_hash_batch` (N signatures
+on N distinct messages, the hash chain of :mod:`.device.hash2g2` with its
+cofactor on the ladder kernel B13 of ``csrc/ladder.cu``) and
+:func:`threshold_crypto_tpu_torch.ops.encrypt_batch_pallas` (three per-lane
+ladders on B13; B15, the bit ladder, runs ``msm_pallas(window=1)``).
 """

@@ -58,6 +58,12 @@ SIGNATURES = {
     "keccak": [
         ("tc_sha3_chunks", [_VP, _VP, _INT, _VP]),
     ],
+    "ladder": [
+        ("tc_g1_step", [_VP, _VP, _VP, _VP, _INT, _INT, _VP]),
+        ("tc_g2_step", [_VP, _VP, _VP, _VP, _INT, _INT, _VP]),
+        ("tc_g1_step4", [_VP, _VP, _VP, _VP, _INT, _INT, _VP]),
+        ("tc_g2_step4", [_VP, _VP, _VP, _VP, _INT, _INT, _VP]),
+    ],
 }
 
 _lock = threading.Lock()

@@ -11,8 +11,13 @@ carry Fq12 values (the pairing's GT elements) the same way,
 ``g1_jac_from_jax`` / ``g2_jac_from_jax`` Jacobian points (``device/curve.py``
 pytrees), ``fr_from_jax`` / ``fr_to_jax`` Fr limbs (the MSM scalars and RLC
 exponents, ``uint32[..., 16]``), and ``msm_table_from_jax`` /
-``msm_table_to_jax`` the table of an MSM: its 2^w − 1 Jacobian entries
-1P..(2^w−1)P as the port's packed ``int32[(2^w−1)·3k·24, N]``.
+``msm_table_to_jax`` the table of an MSM or a ladder: its Jacobian
+entries 1P..(2^w−1)P (15 for the ladder kernel B13) as the port's packed
+``int32[entries·3k·24, N]``, and ``words_from_jax`` / ``words_to_jax`` the
+u32 words of the hash chain (``uint32[N, 8]`` digests, ``uint32[N, S]``
+ChaCha streams, ``uint32[N, A, 12]`` candidate draws) as the port's int64
+tensors. The chain's ``nvalid`` is int32 in both packages, and its
+``greatest`` flags bool: ``torch.from_numpy`` and ``.numpy()`` carry them.
 """
 
 from __future__ import annotations
@@ -101,6 +106,25 @@ def msm_table_to_jax(table, g2: bool):
               else (c[0], c[1], c[2]))
         out.append(to_jax(pt))
     return out
+
+
+def words_from_jax(words, device="cuda"):
+    """uint32[...] words (digests, ChaCha streams, candidate draws) ->
+    int64 tensor with the same values."""
+    words = np.asarray(words)
+    if words.dtype != np.uint32:
+        raise ValueError(f"expected uint32 words, got {words.dtype}")
+    return torch.from_numpy(words.astype(np.int64)).to(
+        mont.device_of(device))
+
+
+def words_to_jax(words):
+    """int64 word tensor (values < 2³²) -> uint32 numpy, as the JAX package
+    holds them."""
+    arr = words.detach().cpu().numpy()
+    if arr.size and (arr.min() < 0 or arr.max() > 0xFFFFFFFF):
+        raise ValueError("words must lie in [0, 2^32)")
+    return arr.astype(np.uint32)
 
 
 def _flat(tree):

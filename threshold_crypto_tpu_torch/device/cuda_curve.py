@@ -1,5 +1,5 @@
-"""The MSM kernels of ``csrc/msm.cu`` (wrappers, plain versions, dispatch)
-and the shared-window MSM driver that runs them.
+"""The curve kernels of ``csrc/msm.cu`` and ``csrc/ladder.cu`` (wrappers,
+plain versions, dispatch) and the MSM and ladder drivers that run them.
 
 Each kernel is the counterpart of one Pallas kernel of
 ``threshold_crypto_tpu/device/pallas_curve.py``, in a G1 and a G2 form:
@@ -7,7 +7,7 @@ Each kernel is the counterpart of one Pallas kernel of
 * B10 ``g1_madd`` / ``g2_madd`` (``_mk_madd_kernel`` :397, instances
   ``_k_g1_madd``/``_k_g2_madd`` :451-452): per lane acc ← acc + Q, the
   complete mixed add ``curve.jac_madd`` with acc Jacobian and Q affine. It
-  builds the 1P..(2^w−1)P table of the shared MSM.
+  builds the tables of the shared MSM and of the ladders.
 * B11 ``g1_winacc`` / ``g2_winacc`` (``_mk_winacc_kernel`` :534, launched
   by ``_winacc_impl`` :581): the whole shared-window Horner phase in one
   launch. The TPU kernel walked a sequential (window × block) grid with
@@ -17,19 +17,28 @@ Each kernel is the counterpart of one Pallas kernel of
   ``table[digit − 1]`` of each lane it owns, in lane order, with the
   complete add ``curve.jac_add`` (a zero digit adds nothing). It writes A
   partial sums; the TPU form is the case A = 1024.
+* B13 ``g1_step4`` / ``g2_step4`` (``_mk_step4_kernel`` :385, instances
+  ``_k_g1/g2_msm_step4`` :449-450): per lane and base-16 digit d, T ← 16T,
+  then T + table[d − 1] where d ≠ 0 (``curve.msm_step_w4``). The TPU ran
+  one launch per digit from a ``lax.scan``; here the digit loop runs inside
+  the thread, so a whole ladder is one launch.
+* B15 ``g1_step`` / ``g2_step`` (``_mk_step_kernel`` :373, instances
+  ``_k_g1/g2_msm_step`` :447-448): per lane and bit, T ← 2T (+ Q affine)
+  (``curve.msm_step``), the bit loop inside the thread likewise.
 
 Packed layout (``device/packed.py``): a G1 Jacobian point is int32[72, N]
 (X, Y, Z), a G2 one int32[144, N] (X0, X1, Y0, Y1, Z0, Z1); an affine Q
-int32[48, N] or [96, N]; the table the entries 1P..(2^w−1)P one after the
-other, int32[(2^w−1)·72, N] or [(2^w−1)·144, N]; the digits int32[D, N].
+int32[48, N] or [96, N]; a table its entries 1P..(2^w−1)P one after the
+other, int32[(2^w−1)·72, N] or [(2^w−1)·144, N]; digits or bits int32[D, N].
 
 The wrappers check their operands, allocate their outputs with
 ``torch.empty``, launch on the current stream and count their launches.
 The ``*_ref`` functions are the same functions in plain PyTorch (the
 formulas of ``device/curve.py`` on the unpacked components, and the same
-accumulator-to-lane assignment and order as B11), so the kernels agree
-with them bit for bit. ``p_madd`` / ``p_winacc`` send a CUDA tensor to the
-kernel and a CPU tensor to its plain version.
+loops, and for B11 the same accumulator-to-lane assignment and order), so
+the kernels agree with them bit for bit. ``p_madd`` / ``p_winacc`` /
+``p_step4`` / ``p_step`` send a CUDA tensor to the kernel and a CPU tensor
+to its plain version.
 """
 
 from __future__ import annotations
@@ -55,6 +64,12 @@ G1_MADD = KernelCount()
 G2_MADD = KernelCount()
 G1_WINACC = KernelCount()
 G2_WINACC = KernelCount()
+G1_STEP4 = KernelCount()
+G2_STEP4 = KernelCount()
+G1_STEP = KernelCount()
+G2_STEP = KernelCount()
+# Entries of B13's table: 1P..15P.
+STEP4_ENTRIES = 15
 
 
 def _field(g2: bool):
@@ -108,15 +123,19 @@ def g2_madd(acc, q):
     return _madd(True, G2_MADD, acc, q)
 
 
+def _check_digits(digits, n, device):
+    if digits.device != device or digits.dtype != torch.int32 \
+            or digits.dim() != 2 or digits.shape[1] != n \
+            or not digits.is_contiguous():
+        raise ValueError(f"digits must be a contiguous int32[D, {n}] on "
+                         f"{device}, got {digits.dtype}"
+                         f"{tuple(digits.shape)} on {digits.device}")
+
+
 def _winacc(g2, count, table, digits, accumulators, window):
     k = 2 if g2 else 1
     n = _check(("table", table, ((1 << window) - 1) * 3 * k * L))
-    if digits.device != table.device or digits.dtype != torch.int32 \
-            or digits.dim() != 2 or digits.shape[1] != n \
-            or not digits.is_contiguous():
-        raise ValueError(f"digits must be a contiguous int32[D, {n}] on the "
-                         f"table's device, got {digits.dtype}"
-                         f"{tuple(digits.shape)} on {digits.device}")
+    _check_digits(digits, n, table.device)
     if not 1 <= accumulators <= max(n, 1):
         raise ValueError(f"need 1 <= accumulators <= N, got {accumulators}")
     out = torch.empty((3 * k * L, accumulators), dtype=torch.int32,
@@ -135,6 +154,51 @@ def g1_winacc(table, digits, accumulators, window):
 def g2_winacc(table, digits, accumulators, window):
     """Kernel B11, G2: table [(2^w−1)·144, N] -> [144, A]."""
     return _winacc(True, G2_WINACC, table, digits, accumulators, window)
+
+
+def _step4(g2, count, acc, table, digits):
+    k = 2 if g2 else 1
+    n = _check(("acc", acc, 3 * k * L),
+               ("table", table, STEP4_ENTRIES * 3 * k * L))
+    _check_digits(digits, n, acc.device)
+    out = torch.empty_like(acc)
+    if n:
+        launch("ladder", f"tc_g{1 + g2}_step4", count,
+               (acc, table, digits, out), n, digits.shape[0], lanes=n)
+    return out
+
+
+def g1_step4(acc, table, digits):
+    """Kernel B13, G1: acc [72, N] Jacobian, table [15·72, N] (1P..15P),
+    digits [D, N] base 16 MSB first -> the acc after D ladder steps."""
+    return _step4(False, G1_STEP4, acc, table, digits)
+
+
+def g2_step4(acc, table, digits):
+    """Kernel B13, G2: acc [144, N], table [15·144, N], digits [D, N]."""
+    return _step4(True, G2_STEP4, acc, table, digits)
+
+
+def _step(g2, count, acc, q, bits):
+    k = 2 if g2 else 1
+    n = _check(("acc", acc, 3 * k * L), ("q", q, 2 * k * L))
+    _check_digits(bits, n, acc.device)
+    out = torch.empty_like(acc)
+    if n:
+        launch("ladder", f"tc_g{1 + g2}_step", count, (acc, q, bits, out), n,
+               bits.shape[0], lanes=n)
+    return out
+
+
+def g1_step(acc, q, bits):
+    """Kernel B15, G1: acc [72, N] Jacobian, q [48, N] affine, bits [D, N]
+    MSB first -> the acc after D double-and-add steps."""
+    return _step(False, G1_STEP, acc, q, bits)
+
+
+def g2_step(acc, q, bits):
+    """Kernel B15, G2: acc [144, N], q [96, N], bits [D, N]."""
+    return _step(True, G2_STEP, acc, q, bits)
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +251,47 @@ def g2_winacc_ref(table, digits, accumulators, window):
     return _winacc_ref(True, table, digits, accumulators, window)
 
 
+def _step4_ref(g2, acc, table, digits):
+    """B13's digit loop as stacked tensor ops: per digit the lane's one
+    table entry (entry 0 for a digit outside 1..15), then ``msm_step_w4``."""
+    F = _field(g2)
+    rows, n = acc.shape
+    tab = table.reshape(STEP4_ENTRIES, rows, n)
+    lanes = torch.arange(n, device=acc.device)
+    T = unpack_jac(acc, g2)
+    for d in digits:
+        idx = torch.where((d >= 1) & (d <= STEP4_ENTRIES), d - 1,
+                          torch.zeros_like(d)).long()
+        q = unpack_jac(tab[idx, :, lanes].T.contiguous(), g2)
+        T = dcv.msm_step_w4(F, T, q, d)
+    return pack_point(T)
+
+
+def g1_step4_ref(acc, table, digits):
+    return _step4_ref(False, acc, table, digits)
+
+
+def g2_step4_ref(acc, table, digits):
+    return _step4_ref(True, acc, table, digits)
+
+
+def _step_ref(g2, acc, q, bits):
+    """B15's bit loop as stacked tensor ops: ``msm_step`` per bit."""
+    F = _field(g2)
+    T, Q = unpack_jac(acc, g2), unpack_aff(q, g2)
+    for b in bits:
+        T = dcv.msm_step(F, T, Q, b != 0)
+    return pack_point(T)
+
+
+def g1_step_ref(acc, q, bits):
+    return _step_ref(False, acc, q, bits)
+
+
+def g2_step_ref(acc, q, bits):
+    return _step_ref(True, acc, q, bits)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and the driver
 # ---------------------------------------------------------------------------
@@ -203,6 +308,111 @@ def p_winacc(g2, table, digits, accumulators, window):
     else:
         fn = g2_winacc_ref if g2 else g1_winacc_ref
     return fn(table, digits, accumulators, window)
+
+
+def p_step4(g2, acc, table, digits):
+    if mont.on_card(acc):
+        return (g2_step4 if g2 else g1_step4)(acc, table, digits)
+    return (g2_step4_ref if g2 else g1_step4_ref)(acc, table, digits)
+
+
+def p_step(g2, acc, q, bits):
+    if mont.on_card(acc):
+        return (g2_step if g2 else g1_step)(acc, q, bits)
+    return (g2_step_ref if g2 else g1_step_ref)(acc, q, bits)
+
+
+def packed_infinity(g2: bool, n: int, device):
+    """Packed Jacobian infinity over n lanes: X = Y = 1, Z = 0."""
+    k = 2 if g2 else 1
+    one = pk._one_rows(k, n, device)
+    return torch.cat([one, one, torch.zeros_like(one)])
+
+
+def _ladder_table(curve, points_aff):
+    """B13's table 1P..15P of each lane's point: the affine point lifted
+    with Z = ``curve.select_z`` (0 on infinity lanes), then 14 B10 mixed
+    adds of the affine point. The JAX package builds it with XLA complete
+    adds: the same points, in other Jacobian coordinates."""
+    x, y, inf = points_aff
+    g2 = curve is dcv.G2
+    q = pk.pack([*x, *y] if g2 else [x, y])
+    z = dcv.select_z(curve, inf)
+    entries = [torch.cat([q, pk.pack(list(z) if g2 else [z])])]
+    for _ in range(STEP4_ENTRIES - 1):
+        entries.append(p_madd(g2, entries[-1], q))
+    return torch.cat(entries)
+
+
+def msm_pallas(curve, points_aff, scalars, nbits: int = 64, window: int = 1,
+               fold: bool = True):
+    """Σ points_i·scalars_i on the per-lane ladder kernels; the counterpart
+    of ``pallas_curve.msm_pallas`` (:678).
+
+    curve: ``curve.G1`` / ``curve.G2``; points_aff: the affine tuple
+    (x, y, inf); scalars: int32[N, 16] canonical limbs. window=1: one B15
+    launch over the nbits bits (a doubling and a gated mixed add per bit);
+    window=4: the 15-entry table (``_ladder_table``, 14 B10 launches) and
+    one B13 launch over the ⌈nbits/4⌉ base-16 digits. Dead (infinity) lanes
+    get bit or digit 0, so they stay at infinity. Returns the unbatched
+    Jacobian sum (``fold_sum``), or with fold=False the per-lane products
+    as a Jacobian tuple [N].
+    """
+    if window not in (1, 4):
+        raise ValueError(f"msm_pallas takes window 1 or 4, got {window}")
+    x, y, inf = points_aff
+    g2 = curve is dcv.G2
+    n = inf.shape[0]
+    live = (~inf).to(torch.int32)[None]
+    acc0 = packed_infinity(g2, n, inf.device)
+    if window == 4:
+        table = _ladder_table(curve, points_aff)
+        digits = dcv.scalar_digits(scalars, nbits, 4) * live
+        acc = p_step4(g2, acc0, table, digits.contiguous())
+    else:
+        q = pk.pack([*x, *y] if g2 else [x, y])
+        bits = dcv.scalar_bits(scalars, nbits) * live
+        acc = p_step(g2, acc0, q, bits.contiguous())
+    jac = unpack_jac(acc, g2)
+    return curve.fold_sum(jac) if fold else jac
+
+
+def scalar_mul_pallas(curve, points_aff, scalars, nbits: int = 255,
+                      window: int = 4):
+    """Per-lane scalars_i·points_i on the ladder (no fold): the batched
+    encryption's three scalar-muls (``pallas_curve.scalar_mul_pallas``
+    :786). Returns a Jacobian tuple [N]."""
+    return msm_pallas(curve, points_aff, scalars, nbits=nbits, window=window,
+                      fold=False)
+
+
+def fixed_digits(k: int, window: int = 4):
+    """The static base-16 digits of k, MSB first, leading zeros dropped
+    (one digit 0 for k = 0)."""
+    nd = max(1, -(-max(k.bit_length(), 1) // window))
+    return [(k >> (window * i)) & ((1 << window) - 1)
+            for i in range(nd - 1, -1, -1)]
+
+
+def scalar_mul_fixed_pallas(curve, points_aff, k: int, window: int = 4):
+    """Per-lane k·P_i for one public scalar k of any width
+    (``pallas_curve.scalar_mul_fixed_pallas`` :796): one table and one B13
+    launch over k's static digits (127 for hash_g2's 507-bit cofactor H2),
+    every live lane reading the same table row per digit. Infinity lanes,
+    and every lane for k = 0, give infinity. Returns a Jacobian tuple [N].
+    """
+    if window != 4 or k < 0:
+        raise ValueError("scalar_mul_fixed_pallas takes window 4 and k >= 0")
+    inf = points_aff[2]
+    g2 = curve is dcv.G2
+    n = inf.shape[0]
+    table = _ladder_table(curve, points_aff)
+    digs = torch.tensor(fixed_digits(k, window), dtype=torch.int32,
+                        device=inf.device)
+    digits = digs[:, None] * (~inf).to(torch.int32)[None]
+    acc = p_step4(g2, packed_infinity(g2, n, inf.device), table,
+                  digits.contiguous())
+    return unpack_jac(acc, g2)
 
 
 def msm_pallas_shared(curve, points_aff, scalars, nbits: int = 64,
@@ -238,6 +448,7 @@ def msm_pallas_shared(curve, points_aff, scalars, nbits: int = 64,
 
 
 _SRC = "threshold_crypto_tpu_torch/csrc/msm.cu"
+_LADDER = "threshold_crypto_tpu_torch/csrc/ladder.cu"
 _TPU = "threshold_crypto_tpu/device/pallas_curve.py:"
 KERNELS = (
     Kernel("g1_madd", g1_madd, g1_madd_ref, G1_MADD, _SRC, _TPU + "397"),
@@ -246,4 +457,10 @@ KERNELS = (
            _TPU + "534"),
     Kernel("g2_winacc", g2_winacc, g2_winacc_ref, G2_WINACC, _SRC,
            _TPU + "534"),
+    Kernel("g1_step4", g1_step4, g1_step4_ref, G1_STEP4, _LADDER,
+           _TPU + "385"),
+    Kernel("g2_step4", g2_step4, g2_step4_ref, G2_STEP4, _LADDER,
+           _TPU + "385"),
+    Kernel("g1_step", g1_step, g1_step_ref, G1_STEP, _LADDER, _TPU + "373"),
+    Kernel("g2_step", g2_step, g2_step_ref, G2_STEP, _LADDER, _TPU + "373"),
 )

@@ -1,11 +1,12 @@
 """Batched, branch-free G1/G2 curve operations on torch tensors.
 
 The counterpart of ``threshold_crypto_tpu/device/curve.py`` (``DeviceCurve``:
-``infinity``, ``from_host_affine``, ``to_host_affine``, ``double``, ``add``;
-``scalar_digits``, ``fold_sum``) and of the point formulas
-of ``threshold_crypto_tpu/device/pallas_curve.py:234-353`` (``_jac_dbl``,
-``_jac_add``, ``_jac_madd``), which are the plain versions of the MSM
-kernels B10 and B11 (``device/cuda_curve.py``, ``csrc/curve.cuh``).
+``infinity``, ``from_host_affine``, ``to_host_affine``, ``double``, ``add``,
+``is_infinity``; ``scalar_bits``, ``scalar_digits``, ``fold_sum``) and of the
+point formulas of ``threshold_crypto_tpu/device/pallas_curve.py:143-370``
+(``_msm_step``, ``_jac_dbl``, ``_jac_add``, ``_jac_madd``, ``_msm_step_w4``)
+and its ``dcv_select_z``, which are the plain versions of the curve kernels
+B10, B11, B13 and B15 (``device/cuda_curve.py``, ``csrc/curve.cuh``).
 
 Points are Jacobian tuples ``(X, Y, Z)`` (infinity ⇔ Z == 0) of batched field
 values: int32[..., 24] Montgomery limb tensors for G1 (Fq), pairs of them
@@ -151,6 +152,55 @@ def _sel3(F, c, a, b):
     return tuple(F.select(c, a[i], b[i]) for i in range(3))
 
 
+def msm_step(F, T, Q, do_add):
+    """One bit of the per-lane ladder (B15): 2T, then + Q (affine) where
+    ``do_add``; complete: T at infinity, 2T == Q (a second doubling) and
+    2T == −Q (infinity) by selects. 25 products in 6 layers, the doubling
+    of T and of 2T interleaved with the mixed add as in the JAX body."""
+    X, Y, Z = T
+    x2, y2 = Q
+    # L1: doubling squares and products
+    A, B, S = F.mul_many([(X, X), (Y, Y), (Y, Z)])
+    XpB = F.add(X, B)
+    E = F.small(A, 3)
+    # L2: finish the doubling, start the add's Z chain: Zd² = 4S²
+    C, XB2, E2, SS = F.mul_many([(B, B), (XpB, XpB), (E, E), (S, S)])
+    D = F.small(F.sub(F.sub(XB2, A), C), 2)
+    Xd = F.sub(E2, F.small(D, 2))
+    z1z = F.small(SS, 4)
+    Zd = F.small(S, 2)
+    # L3: the doubling's Y, the add's u2 and Zd³
+    EDX, u2, z1cu = F.mul_many([(E, F.sub(D, Xd)), (x2, z1z), (z1z, Zd)])
+    Yd = F.sub(EDX, F.small(C, 8))
+    h = F.sub(u2, Xd)
+    # L4: s2, h², and the doubling of 2T for the 2T == Q case
+    s2, hh, A2, B2, S2 = F.mul_many([(y2, z1cu), (h, h), (Xd, Xd),
+                                     (Yd, Yd), (Yd, Zd)])
+    r = F.sub(s2, Yd)
+    XpB2 = F.add(Xd, B2)
+    E2_ = F.small(A2, 3)
+    # L5
+    hhh, v, rr, C2, XB2b, E2sq = F.mul_many(
+        [(h, hh), (Xd, hh), (r, r), (B2, B2), (XpB2, XpB2), (E2_, E2_)])
+    Xn = F.sub(F.sub(rr, hhh), F.small(v, 2))
+    D2 = F.small(F.sub(F.sub(XB2b, A2), C2), 2)
+    Xdd = F.sub(E2sq, F.small(D2, 2))
+    # L6
+    rvx, Yhhh, Zn, EDX2 = F.mul_many(
+        [(r, F.sub(v, Xn)), (Yd, hhh), (Zd, h), (E2_, F.sub(D2, Xdd))])
+    Yn = F.sub(rvx, Yhhh)
+    Ydd = F.sub(EDX2, F.small(C2, 8))
+    Zdd = F.small(S2, 2)
+
+    one, zero = F.one_like(X), F.zero_like(X)
+    h0, r0, t_inf = F.is_zero(h), F.is_zero(r), F.is_zero(Zd)
+    out = (Xn, Yn, Zn)
+    out = _sel3(F, h0 & r0, (Xdd, Ydd, Zdd), out)     # 2T == Q  -> 4T
+    out = _sel3(F, h0 & ~r0, (one, one, zero), out)   # 2T == -Q -> infinity
+    out = _sel3(F, t_inf, (x2, y2, one), out)         # T at infinity -> Q
+    return _sel3(F, do_add, out, (Xd, Yd, Zd))        # bit clear -> 2T
+
+
 def jac_dbl(F, T):
     """Jacobian doubling (a = 0): 7 products in 3 layers; Z = 0 stays 0."""
     X, Y, Z = T
@@ -234,6 +284,16 @@ def jac_madd(F, T, Q):
     return out
 
 
+def msm_step_w4(F, T, Q, digit):
+    """One base-16 digit of the per-lane ladder (B13): 16T, then + Q with
+    the complete add where ``digit`` ≠ 0. Q is table[digit − 1], the one
+    entry the lane needs (the JAX body selects it over all 15 entries; the
+    value is the same)."""
+    for _ in range(4):
+        T = jac_dbl(F, T)
+    return _sel3(F, digit != 0, jac_add(F, T, Q), T)
+
+
 # ---------------------------------------------------------------------------
 # The curve groups
 # ---------------------------------------------------------------------------
@@ -270,6 +330,9 @@ class DeviceCurve:
         cols = [f.to_host(c) for c in pt]
         return [self.host._to_affine(j) for j in zip(*cols)]
 
+    def is_infinity(self, p):
+        return self.f.is_zero(p[2])
+
     def double(self, p):
         return jac_dbl(self.f, p)
 
@@ -295,6 +358,20 @@ class DeviceCurve:
 
 G1 = DeviceCurve(FqOps, G1_GEN, hcv.G1, "G1")
 G2 = DeviceCurve(Fq2Ops, G2_GEN, hcv.G2, "G2")
+
+
+def select_z(curve, inf):
+    """Z ∈ {0, 1} of an affine tuple's lift to Jacobian: 0 on the infinity
+    lanes (``pallas_curve.dcv_select_z``)."""
+    f = curve.f
+    shape, dev = inf.shape, inf.device
+    return f.select(inf, f.zero(shape, dev), f.one(shape, dev))
+
+
+def scalar_bits(k_limbs, nbits: int):
+    """int32[..., L] canonical limbs -> int32[nbits, ...] bits, MSB first."""
+    return torch.stack([(k_limbs[..., k // 16] >> (k % 16)) & 1
+                        for k in range(nbits - 1, -1, -1)])
 
 
 def scalar_digits(k_limbs, nbits: int, window: int):

@@ -139,6 +139,10 @@ def fq2_select(cond, a, b):
     return (mont.select(cond, a[0], b[0]), mont.select(cond, a[1], b[1]))
 
 
+def fq2_eq(a, b):
+    return mont.eq(FQ, a[0], b[0]) & mont.eq(FQ, a[1], b[1])
+
+
 def mul_by_xi(a):
     """Multiply by ξ = 1 + u: (c0 - c1, c0 + c1)."""
     return mul_by_xi_many([a])[0]

@@ -1,16 +1,17 @@
 """Host-side G1/G2 group operations (Python ints).
 
 The parts of ``threshold_crypto_tpu/host/curve.py`` that the port uses: the
-generators, and affine add / neg / double / scalar multiplication with a
-Jacobian core. Points are affine tuples ``(x, y)``; ``None`` is the point at
-infinity. The input builders of the tests and of ``chip_smoke.py`` make their
-points here.
+generators and cofactors, affine add / neg / double / scalar multiplication
+with a Jacobian core, and ``get_point_from_x`` with its root order ``_cmp``
+(the sampling chain of ``host/sampling.py``). Points are affine tuples
+``(x, y)``; ``None`` is the point at infinity. The input builders of the
+tests and of ``chip_smoke.py`` make their points here.
 """
 
 from __future__ import annotations
 
 from . import tower as tw
-from .params import B_G1, B_G2, G1_GEN, G2_GEN, P
+from .params import B_G1, B_G2, G1_GEN, G2_GEN, H1, H2, P
 
 
 class _FqOps:
@@ -21,6 +22,7 @@ class _FqOps:
     mul = staticmethod(tw.fq_mul)
     neg = staticmethod(tw.fq_neg)
     inv = staticmethod(tw.fq_inv)
+    sqrt = staticmethod(tw.fq_sqrt)
 
     @staticmethod
     def sqr(a):
@@ -43,6 +45,7 @@ class _Fq2Ops:
     mul = staticmethod(tw.fq2_mul)
     neg = staticmethod(tw.fq2_neg)
     inv = staticmethod(tw.fq2_inv)
+    sqrt = staticmethod(tw.fq2_sqrt)
     sqr = staticmethod(tw.fq2_sqr)
     is_zero = staticmethod(tw.fq2_is_zero)
     scale = staticmethod(tw.fq2_scale)
@@ -51,10 +54,11 @@ class _Fq2Ops:
 class CurveGroup:
     """One curve group (E(Fq) or E'(Fq2)) with affine API, Jacobian core."""
 
-    def __init__(self, ops, b, generator, name):
+    def __init__(self, ops, b, generator, cofactor, name):
         self.f = ops
         self.b = b
         self.generator = generator
+        self.cofactor = cofactor
         self.name = name
 
     def is_on_curve(self, pt) -> bool:
@@ -152,6 +156,23 @@ class CurveGroup:
                 acc = self._jac_add(acc, base)
         return self._to_affine(acc)
 
+    def get_point_from_x(self, x, greatest: bool):
+        """pairing 0.16 semantics: y = sqrt(x³+b), pick the lexicographically
+        greatest root iff ``greatest``; None if x³+b is a non-residue."""
+        f = self.f
+        rhs = f.add(f.mul(f.sqr(x), x), self.b)
+        y = f.sqrt(rhs)
+        if y is None:
+            return None
+        ny = f.neg(y)
+        y_is_greatest = self._cmp(y, ny) > 0
+        return (x, y if y_is_greatest == greatest else ny)
 
-G1 = CurveGroup(_FqOps, B_G1, G1_GEN, "G1")
-G2 = CurveGroup(_Fq2Ops, B_G2, G2_GEN, "G2")
+    def _cmp(self, a, b):
+        if self.f is G1.f:
+            return -1 if a < b else (0 if a == b else 1)
+        return tw.fq2_cmp(a, b)
+
+
+G1 = CurveGroup(_FqOps, B_G1, G1_GEN, H1, "G1")
+G2 = CurveGroup(_Fq2Ops, B_G2, G2_GEN, H2, "G2")

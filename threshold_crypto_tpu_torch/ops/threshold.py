@@ -9,8 +9,13 @@ The counterpart of ``threshold_crypto_tpu/ops/threshold.py``; so far:
   the megakernel path;
 * the RLC batch verification of N shares on one message, the system's main
   path: ``rlc_exponents`` (transcript SHA3, then ChaCha20), then
-  ``verify_sig_shares_rlc_pallas`` (two 64-bit shared-window MSMs and one
-  2-pair check through ``verify_batch_pallas``).
+  ``verify_sig_shares_rlc_pallas`` (two 64-bit MSMs, shared-window or
+  ladder, and one 2-pair check through ``verify_batch_pallas``);
+* ``verify_with_hash_batch``, N signatures on N distinct messages with the
+  message hash on the device (``device/hash2g2.py``), the reference's
+  per-share ``verify``;
+* ``encrypt_batch_pallas``, the three per-lane scalar-muls of batched
+  Baek–Zhang encryption on the ladder kernel.
 
 The JAX package's jit and AOT-cache wrappers (``verify_batch_pallas_jit``,
 the jitted aggregate of ``verify_sig_shares_rlc_pallas``) have no
@@ -24,9 +29,11 @@ import hashlib
 import numpy as np
 import torch
 
+from .. import hashing
 from ..device import chacha as dchacha
 from ..device import cuda_curve as ccv
 from ..device import curve as dcv
+from ..device import hash2g2
 from ..device import keccak as dkeccak
 from ..device import mont
 from ..device import pairing as dpr
@@ -110,16 +117,24 @@ def _pair2(a_aff, b_aff):
     return stack(a_aff, b_aff)
 
 
-def _neg_gen_g1(shape, device):
-    """−G1 in affine form, broadcast to ``shape``."""
-    gx, gy = G1_GEN
-
+def _g1_const(x, y, shape, device):
+    """The affine G1 point (x, y), broadcast to ``shape``."""
     def limbs(v):  # Montgomery form v·R mod p, broadcast
         return mont.const_limbs(FQ, v * FQ.r_mont % FQ.p, device).expand(
             tuple(shape) + (FQ.L,))
 
-    return (limbs(gx), limbs(P - gy),
+    return (limbs(x), limbs(y),
             torch.zeros(shape, dtype=torch.bool, device=device))
+
+
+def _gen_g1(shape, device):
+    """G1's generator in affine form, broadcast to ``shape``."""
+    return _g1_const(G1_GEN[0], G1_GEN[1], shape, device)
+
+
+def _neg_gen_g1(shape, device):
+    """−G1 in affine form, broadcast to ``shape``."""
+    return _g1_const(G1_GEN[0], P - G1_GEN[1], shape, device)
 
 
 def verify_batch(pk_aff, h_aff, sig_aff):
@@ -148,24 +163,91 @@ def verify_batch_pallas(pk_aff, h_aff, sig_aff):
                                     _pair2(h_aff, sig_aff))
 
 
+def verify_with_hash_batch(pk_aff, msgs, sig_aff, attempts: int = 8):
+    """N signatures over N distinct messages, the message hash included:
+    e(pk_i, H(m_i)) == e(G1, sig_i) per lane, the reference's per-share
+    ``verify`` (``src/lib.rs:177-179`` → ``:691-694``).
+
+    pk_aff: G1 affine tuple [N]; msgs: N byte strings; sig_aff: G2 affine
+    tuple [N]. The digests are taken on the host, the hash chain runs on
+    the points' device (``hash2g2.hash_g2_device``), the lanes it leaves
+    unresolved (≈2⁻ᴬ) get the host oracle's point, and the check runs
+    through ``verify_batch_pallas``. Returns bool[N] as a numpy array.
+    """
+    n = len(msgs)
+    if not pk_aff[2].shape[0] == n == sig_aff[2].shape[0]:
+        raise ValueError("pk_aff, msgs and sig_aff need one length")
+    dev = pk_aff[2].device
+    jac, ok = hash2g2.hash_g2_device(hashing.digest_words(msgs, dev),
+                                     attempts=attempts)
+    h_aff = splice_host_hashes(jacobian_to_affine(dcv.G2, jac), ok, msgs)
+    return verify_batch_pallas(pk_aff, h_aff, sig_aff).cpu().numpy()
+
+
+def splice_host_hashes(h_aff, ok, msgs):
+    """The G2 affine tuple h_aff with each lane that is not ``ok`` replaced
+    by the host oracle's ``hash_g2`` of its message."""
+    okh = ok.cpu().numpy()
+    if okh.all():
+        return h_aff
+    bad = np.nonzero(~okh)[0]
+    dev = ok.device
+    fb = dpr.g2_affine_from_host([hashing.hash_g2(msgs[i]) for i in bad],
+                                 device=dev)
+    idx = torch.from_numpy(bad).to(dev)
+    return tree_map(lambda a, b: a.index_put((idx,), b), h_aff, fb)
+
+
+# ---------------------------------------------------------------------------
+# Encrypt (batched Baek–Zhang)
+# ---------------------------------------------------------------------------
+
+def encrypt_batch_pallas(pk_aff, r_plain, huv_aff):
+    """The three scalar-muls of batched encryption (``src/lib.rs:128-137``)
+    on the per-lane ladder (``cuda_curve.scalar_mul_pallas``: B10 tables,
+    one B13 launch each, 64 base-16 digits of the 255-bit r): u = r·G1,
+    g = r·pk and w = r·H(u, v).
+
+    pk_aff / huv_aff: G1 / G2 affine tuples [N] (a shared key broadcast to
+    the batch); r_plain: int32[N, 16] canonical Fr limbs. Returns the
+    Jacobian tuples (u [N], g [N], w [N]).
+    """
+    n = r_plain.shape[0]
+    gen = _gen_g1((n,), r_plain.device)
+    u = ccv.scalar_mul_pallas(dcv.G1, gen, r_plain)
+    g = ccv.scalar_mul_pallas(dcv.G1, pk_aff, r_plain)
+    w = ccv.scalar_mul_pallas(dcv.G2, huv_aff, r_plain)
+    return u, g, w
+
+
 # ---------------------------------------------------------------------------
 # RLC batch verification: N shares on one message
 # ---------------------------------------------------------------------------
 
-def rlc_aggregate_pallas(pk_aff, sig_aff, r_plain, nbits: int = 64):
-    """(Σ rᵢ·pkᵢ, Σ rᵢ·sigᵢ) as affine tuples batched [1]: the two
-    shared-window MSMs (B10, B11, the fold) and ``jacobian_to_affine``."""
+def rlc_aggregate_pallas(pk_aff, sig_aff, r_plain, nbits: int = 64,
+                         msm: str = "shared"):
+    """(Σ rᵢ·pkᵢ, Σ rᵢ·sigᵢ) as affine tuples batched [1]: the two MSMs and
+    ``jacobian_to_affine``. msm="shared": ``msm_pallas_shared`` (B10, B11,
+    the fold); msm="ladder": the per-lane ladder ``msm_pallas`` at window 4
+    (B10 tables, B13, the fold)."""
     def one(p):
         return tree_map(lambda a: a[None], p)
 
-    apk = ccv.msm_pallas_shared(dcv.G1, pk_aff, r_plain, nbits=nbits)
-    asg = ccv.msm_pallas_shared(dcv.G2, sig_aff, r_plain, nbits=nbits)
+    if msm == "shared":
+        apk = ccv.msm_pallas_shared(dcv.G1, pk_aff, r_plain, nbits=nbits)
+        asg = ccv.msm_pallas_shared(dcv.G2, sig_aff, r_plain, nbits=nbits)
+    elif msm == "ladder":
+        apk = ccv.msm_pallas(dcv.G1, pk_aff, r_plain, nbits=nbits, window=4)
+        asg = ccv.msm_pallas(dcv.G2, sig_aff, r_plain, nbits=nbits, window=4)
+    else:
+        raise ValueError(f"msm must be 'shared' or 'ladder', got {msm!r}")
     return (jacobian_to_affine(dcv.G1, one(apk)),
             jacobian_to_affine(dcv.G2, one(asg)))
 
 
 def verify_sig_shares_rlc_pallas(pk_aff, h_jac, sig_aff, r_plain,
-                                 check_batch: int = 512):
+                                 check_batch: int = 512,
+                                 msm: str = "shared"):
     """Probabilistic batch verification of N signature shares on ONE
     message: e(Σ rᵢ·pkᵢ, H) == e(G1, Σ rᵢ·sigᵢ) with 64-bit exponents rᵢ.
 
@@ -173,12 +255,13 @@ def verify_sig_shares_rlc_pallas(pk_aff, h_jac, sig_aff, r_plain,
     Jacobian tuple (leaves [24] or [1, 24]); sig_aff: G2 affine tuple [N];
     r_plain: int32[N, 16] canonical Fr limbs, low 64 bits set (from
     ``rlc_exponents``). Both MSMs run as ``cuda_curve.msm_pallas_shared``
-    (the JAX ``msm="shared"``); the one aggregate check runs through
+    (msm="shared", the default) or as the ladder ``cuda_curve.msm_pallas``
+    at window 4 (msm="ladder"); the one aggregate check runs through
     ``verify_batch_pallas`` on ``check_batch`` replicated lanes, the per-pair
     path's own shape. Returns a bool scalar tensor: True iff the check
     passes.
     """
-    pk_a, sg_a = rlc_aggregate_pallas(pk_aff, sig_aff, r_plain)
+    pk_a, sg_a = rlc_aggregate_pallas(pk_aff, sig_aff, r_plain, msm=msm)
     h1 = tree_map(lambda a: a if a.dim() == 2 else a[None], h_jac)
     h_a = jacobian_to_affine(dcv.G2, h1)
 
