@@ -21,6 +21,16 @@ its loop runs until the slowest lane is done. The host splice issues no
 torch ops; the line gives the host oracle's seconds per message on this
 CPU instead (no lane of the counted call is spliced).
 
+The combine line runs ``ops.combine_batch`` in G2 on each of its three
+paths at COMBINE_T1 shares, with ``batch_inv_field`` as the card runs it
+(one ``f.inv``, one B2), so that its launches equal
+``chip_smoke.combine_launches``, which the line checks; at that size λ
+takes the N×N matrix form, and once more with the matrix bound lowered
+below N, B14's route. It splits the ops by stage, and gives the fold's
+levels at 4096 shares and its ops extrapolated there (levels × the
+counted ops of one level; the rest of the call is counted at
+COMBINE_T1).
+
 The per-pair counts depend on the code path only, not on the lane count.
 The RLC path's run at RLC_N shares differs from one at 262,144 in what
 depends on N and the accumulators A = min(``cuda_curve.ACCUMULATORS``, N):
@@ -49,6 +59,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from threshold_crypto_tpu_torch import ops  # noqa: E402
 from threshold_crypto_tpu_torch.device import cuda_curve  # noqa: E402
+from threshold_crypto_tpu_torch.device import cuda_fr  # noqa: E402
 from threshold_crypto_tpu_torch.device import cuda_mont  # noqa: E402
 from threshold_crypto_tpu_torch.device import cuda_tower  # noqa: E402
 from threshold_crypto_tpu_torch.device import curve as dcv  # noqa: E402
@@ -61,6 +72,8 @@ LANES = 2
 # The RLC call: shares (16 keys tiled) and check lanes. The check's counts
 # do not depend on its lanes; 2 keep the CPU run short.
 RLC_N, RLC_CHECK = 256, 2
+# The combine call's shares on the CPU, and the share count of slice 6.
+COMBINE_T1, COMBINE_FULL = 16, 4096
 
 
 class _Counter(TorchDispatchMode):
@@ -112,7 +125,7 @@ def count(fn, args, stages=()):
                 counter.paused = False
         return run
 
-    for mod in (cuda_mont, cuda_tower, cuda_curve, keccak):
+    for mod in (cuda_mont, cuda_tower, cuda_curve, keccak, cuda_fr):
         for k in mod.KERNELS:
             saved.append((mod, k.plain.__name__, k.plain))
             setattr(mod, k.plain.__name__, as_kernel(k.name, k.plain))
@@ -180,6 +193,7 @@ def main():
                           262144)}))
     hash_line()
     encrypt_line()
+    combine_line()
 
 
 def hash_line():
@@ -255,3 +269,68 @@ def encrypt_line():
 
 if __name__ == "__main__":
     main()
+
+
+def combine_line():
+    """``combine_batch`` in G2 on each path, by stage."""
+    from threshold_crypto_tpu_torch.ops import fr as frops
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    rnd = random.Random(0xC0B1)
+    n = COMBINE_T1
+    shares = dcv.G2.from_host_affine(
+        [hcv.G2.mul(hcv.G2.generator, rnd.randrange(1, R))
+         for _ in range(n)], device="cpu")
+    xs = frops.fr_to_device(range(1, n + 1), "cpu")
+    stages = [
+        (frops, "lagrange_coeffs_at_zero", "lambda"),
+        (frops, "fr_to_plain", "canonical lambda"),
+        (tops, "jacobian_to_affine", "affine"),
+        (cuda_curve, "p_madd", "table (B10)"),
+        (cuda_curve, "p_winacc", "Horner (B11)"),
+        (cuda_curve, "p_step", "bit ladders (B15)"),
+        (cuda_curve, "p_dblw", "dblw (B16)"),
+        (cuda_curve, "p_selmadd", "selmadd (B16)"),
+        (dcv.G2, "fold_sum", "fold"),
+    ]
+    saved_inv = tops.batch_inv_field
+    tops.batch_inv_field = lambda f, a: f.inv(a)   # the card's one B2
+    saved_max = frops._LAGRANGE_MATRIX_MAX
+    out = {}
+    try:
+        for path, matrix_max in (("pallas", saved_max),
+                                 ("scalarwise", saved_max),
+                                 ("bitscan", saved_max),
+                                 ("pallas", n // 2)):
+            frops._LAGRANGE_MATRIX_MAX = matrix_max
+            n_ops, launches, per_stage = count(
+                lambda *a: ops.combine_batch(*a, path=path)[1],
+                (dcv.G2, shares, xs), stages)
+            expect = chip_smoke.combine_launches(n, path, True)
+            if {k: launches.get(k, 0) for k in expect} != expect:
+                raise SystemExit(f"combine {path} launches {launches}, "
+                                 f"expected {expect}")
+            key = path if matrix_max >= n else f"{path} (lambda on B14)"
+            out[key] = {"torch_ops": n_ops, "kernel_launches": launches,
+                        "torch_ops_by_stage": per_stage}
+    finally:
+        tops.batch_inv_field = saved_inv
+        frops._LAGRANGE_MATRIX_MAX = saved_max
+        if "fold_sum" in vars(dcv.G2):
+            del dcv.G2.fold_sum
+    level_ops = count(lambda p: (dcv.G2.add(p, p), torch.ones(()))[1],
+                      (dcv.G2.from_host_affine([dcv.G2.gen_affine_host] * 2,
+                                               device="cpu"),))[0]
+    full = {"pallas": min(cuda_curve.ACCUMULATORS, COMBINE_FULL),
+            "scalarwise": COMBINE_FULL,
+            "bitscan": min(cuda_curve.SHARED_BLOCK, COMBINE_FULL)}
+    print(json.dumps({
+        "path": "combine_batch (G2)", "shares": n, "paths": out,
+        "torch_ops_per_fold_level": level_ops,
+        f"fold_levels_at_{COMBINE_FULL}": {
+            p: (m - 1).bit_length() for p, m in full.items()},
+        f"fold_torch_ops_at_{COMBINE_FULL}_extrapolated": {
+            p: (m - 1).bit_length() * level_ops for p, m in full.items()},
+        f"kernel_launches_at_{COMBINE_FULL}": {
+            p: chip_smoke.combine_launches(COMBINE_FULL, p, True)
+            for p in full}}))

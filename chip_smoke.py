@@ -11,8 +11,10 @@ Phases, each announced on a flushed line before it starts:
    registers, stack frame and spills that ptxas reports;
 3. kernels: each kernel on the card against its plain PyTorch version on the
    same inputs, bit-exact, at the shapes of the main paths (the tower
-   kernels also on zero lanes and infinity points), timed with CUDA events
-   beside the plain version and the kernel's bound;
+   kernels also on zero lanes and infinity points; B14 at 4096 lanes with a
+   duplicate pair and a zero lane; B16 at window 1 and 3 on its special
+   lanes), timed with CUDA events beside the plain version and the
+   kernel's bound;
 4. slice 1: ``ops.verify_batch`` on 8192 lanes (16,384 pairs) of keys,
    messages and signatures made on the host from a seed; the result must
    equal the mask known from construction lane for lane, and a 256-lane
@@ -46,7 +48,19 @@ Phases, each announced on a flushed line before it starts:
    launches and the median of 3 calls; then ``msm_pallas(window=1)`` (B15)
    at N = 65,536 with 64-bit scalars in G1 and G2, equal to
    ``msm_pallas_shared`` and the host oracle;
-9. one JSON line of kernel numbers, then the device line, last.
+9. slice 6: the two threshold flows at t + 1 = 4096 shares of a
+   degree-4095 polynomial made from a seed: ``derive_shares``,
+   ``sign_batch``, the RLC check of the signature shares, then
+   ``ops.combine_batch`` on its three paths ("pallas": B11; "scalarwise":
+   B15; "bitscan": B16; λ on B14), each equal to the host's H·f(0), with its
+   launches against ``combine_launches``, the median of 3 calls, the
+   kernel share and a stage split; the combined signature accepted by
+   ``verify_batch_pallas``; ok False with one x duplicated and with one x
+   zero; ``encrypt_begin_batch`` / ``encrypt_finish_batch``,
+   ``ciphertext_verify_batch`` (true, and false on a lane with w replaced),
+   ``decrypt_share_batch``, ``verify_dec_share_batch`` (true, and false on
+   a replaced share) and the G1 combine on each path equal to r·pk;
+10. one JSON line of kernel numbers, then the device line, last.
 
 Any mismatch or exception ends the run with a non-zero exit and no result
 line. Without a CUDA card, or without the package beside this file, it exits
@@ -129,6 +143,21 @@ MSM1_N = 65536
 LADDER_CHECK_LANES = 1024
 LADDER_KERNELS = {"g1_step4": "encrypt", "g2_step4": "hash",
                   "g1_step": "msm1", "g2_step": "msm1"}
+# Slice 6, the threshold flows at t + 1 = 4096 shares, the north-star size of
+# benches/combine_large.py: a degree-4095 secret polynomial from the seed,
+# x_i = i + 1, one message hashed on the host.
+COMBINE_N = 4096
+COMBINE_SEED = 0xC0B1
+COMBINE_MSG = b"chip_smoke combine"
+# 32-bit IMAD results of one 8-word CIOS Montgomery product (Fr, csrc/fr.cuh).
+FR_PRODUCT_IMADS = 4 * 8 * 8 + 8
+# B16's table lanes in its check: not a multiple of the 1024-lane block, so
+# the last block is ragged.
+B16_TABLE_N = COMBINE_N - 100
+# The combine call whose launches each of B14 and B16 reports.
+COMBINE_KERNELS = {"lagrange_rowprod": "G2 pallas",
+                   "g1_selmadd": "G1 bitscan", "g2_selmadd": "G2 bitscan",
+                   "g1_dblw": "G1 bitscan", "g2_dblw": "G2 bitscan"}
 
 
 def phase(msg):
@@ -176,11 +205,13 @@ def bound_ms(bytes_moved, imads, card):
 
 def registry():
     """(module, kernel) for every kernel of the port, module by module:
-    B1-B2, B3-B9, B10, B11, B13, B15, B12."""
-    from threshold_crypto_tpu_torch.device import (cuda_curve, cuda_mont,
-                                                   cuda_tower, keccak)
+    B1-B2, B3-B9, B10, B11, B13, B15, B16, B12, B14."""
+    from threshold_crypto_tpu_torch.device import (cuda_curve, cuda_fr,
+                                                   cuda_mont, cuda_tower,
+                                                   keccak)
 
-    return [(mod, k) for mod in (cuda_mont, cuda_tower, cuda_curve, keccak)
+    return [(mod, k) for mod in (cuda_mont, cuda_tower, cuda_curve, keccak,
+                                 cuda_fr)
             for k in mod.KERNELS]
 
 
@@ -1332,7 +1363,7 @@ def fr_limbs(ks, dev):
 
 
 def tile_to(tree, n):
-    """An affine tuple of k lanes tiled to n lanes (k divides n)."""
+    """A point tuple of k lanes tiled to n lanes (k divides n)."""
     from threshold_crypto_tpu_torch.device import curve as dcv
 
     return dcv.tree_map(
@@ -1656,6 +1687,489 @@ def run_msm1(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 3, continued: the combine's kernels B14 and B16
+# ---------------------------------------------------------------------------
+
+def rowprod_inputs(dev):
+    """COMBINE_N distinct random Fr values (Montgomery limbs on the card),
+    with lane n − 1 a copy of lane 17 (a duplicate pair) and lane 100
+    zero, and the host ints."""
+    from threshold_crypto_tpu_torch.host.params import R
+    from threshold_crypto_tpu_torch.ops import fr as frops
+
+    rnd = random.Random(0x14)
+    vals = [rnd.randrange(1, R) for _ in range(COMBINE_N)]
+    vals[-1] = vals[17]
+    vals[100] = 0
+    return vals, frops.fr_to_device(vals, dev)
+
+
+def check_rowprod(dev, card):
+    """B14 at the combine's N = 4096 with a duplicate pair and a zero lane:
+    its partial products and counts bit-exact against its plain version,
+    the folded row products and counts against the plain version's single
+    sweep, one lane against Python ints; timed beside its bound."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_fr
+    from threshold_crypto_tpu_torch.device import mont
+    from threshold_crypto_tpu_torch.device.mont import FR
+
+    kernel = {k.name: k for _, k in registry()}["lagrange_rowprod"]
+    vals, xs = rowprod_inputs(dev)
+    n = len(vals)
+    got = kernel.launch(xs)
+    torch.cuda.synchronize()
+    with plain_versions():
+        want, plain_ms = timed_once(kernel.plain, xs)
+        whole = cuda_fr.lagrange_rowprod_ref(xs)
+    err = compare("lagrange_rowprod", got, want,
+                  f"at N = {n} ({got[0].shape[0]} chunks)")
+    folded = (cuda_fr.fold_products(got[0]), got[1].sum(0, dtype=torch.int32))
+    err = max(err, compare("lagrange_rowprod", folded, whole,
+                           f"folded, at N = {n}"))
+    zc = folded[1].tolist()
+    if (zc[17], zc[-1], zc[100]) != (2, 2, 1) or \
+            sum(zc) != n + 2:
+        fail(f"lagrange_rowprod: zero counts {zc[17]}, {zc[-1]}, {zc[100]} "
+             f"(sum {sum(zc)}) on the duplicate pair and the zero lane")
+    d = 1
+    for v in vals:
+        if v != vals[5]:
+            d = d * (v - vals[5]) % FR.p
+    if mont.unstack_mont(FR, folded[0][5:6]) != [d]:
+        fail("lagrange_rowprod: lane 5 differs from Python ints")
+    ms = cuda_time_ms(lambda: kernel.launch(xs), 10)
+    wrapper_ms = cuda_time_ms(lambda: cuda_fr.lagrange_rowprod(xs), 10)
+    products = n * n - sum(zc)
+    bytes_moved = n * FR.L * 4 + got[0].numel() * 4 + got[1].numel() * 4
+    bound, by = bound_ms(bytes_moved, products * FR_PRODUCT_IMADS, card)
+    print(f"lagrange_rowprod xs [{n}, 16] -> {list(got[0].shape)}: bit-exact "
+          f"(partials, and folded against one sweep; a duplicate pair and a "
+          f"zero lane; lane 5 equals Python ints); kernel {ms:.4f} ms, with "
+          f"its fold (B1) {wrapper_ms:.4f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {bound:.4f} ms ({by}, {products} Fr products), "
+          f"{ms / bound:.1f}x the bound", flush=True)
+    return dict(lanes=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, ms_with_fold=wrapper_ms)
+
+
+def b16_inputs(g2, window, n, gen, dev):
+    """B16's operands: acc [3k·24, A] (A = ``SHARED_BLOCK``), a table of
+    2^w − 1 random entries over n lanes, one window's digits [n]. In every
+    block of A lanes, lanes 0-3 have the accumulator at infinity, 4-7 the
+    selected entry equal to the accumulator (T == Q), 8-11 its negative
+    (T == −Q), 12-15 the selected entry at infinity, 16-19 digit 0."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import mont
+    from threshold_crypto_tpu_torch.device import packed as pk
+    from threshold_crypto_tpu_torch.device.mont import FQ
+
+    k = 2 if g2 else 1
+    rows, A, nent = k * FQ.L, ccv.SHARED_BLOCK, (1 << window) - 1
+    acc = random_packed(3 * k, A, gen, dev)
+    acc[2 * rows:, 0:4] = 0
+    neg_y = pk.pack(list(mont.neg(FQ, torch.stack(pk.unpack(
+        acc[rows:2 * rows, 8:12].contiguous(), k)))))
+    table = random_packed(nent * 3 * k, n, gen, dev)
+    digits = torch.randint(0, nent + 1, (n,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    for start in range(0, n, A):
+        m = min(20, n - start)
+        d = torch.randint(1, nent + 1, (m,), generator=gen, device=dev,
+                          dtype=torch.int32)
+        d[16:] = 0
+        digits[start:start + m] = d
+        for j in range(min(16, m)):
+            e = int(d[j]) - 1
+            col = table[e * 3 * rows:(e + 1) * 3 * rows, start + j]
+            if 4 <= j < 12:
+                col[:] = acc[:, j]
+            if 8 <= j < 12:
+                col[rows:2 * rows] = neg_y[:, j - 8]
+            if 12 <= j < 16:
+                col[2 * rows:] = 0
+    return acc, table, digits
+
+
+def check_b16(g2, gen, dev, card):
+    """B16 selmadd and dblw against their plain versions at window 1 and 3
+    on the special lanes of ``b16_inputs``, every block of a ragged table
+    of B16_TABLE_N lanes (the last block's padding has digit 0); timed at
+    the bitscan path's shape (window 1, A = 1024, table 4096 lanes)."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
+    k = 2 if g2 else 1
+    reg = {kk.name: kk for _, kk in registry()}
+    sel, dbl = reg[f"g{1 + g2}_selmadd"], reg[f"g{1 + g2}_dblw"]
+    A, rows = ccv.SHARED_BLOCK, 3 * k * 24
+    err = {"selmadd": 0, "dblw": 0}
+    for window in (1, 3):
+        acc, table, digits = b16_inputs(g2, window, B16_TABLE_N, gen, dev)
+        for start in range(0, B16_TABLE_N, A):
+            got = sel.launch(acc, table, digits, start)
+            torch.cuda.synchronize()
+            with plain_versions():
+                want = sel.plain(acc, table, digits, start)
+            err["selmadd"] = max(err["selmadd"], compare(
+                sel.name, got, want, f"at window {window}, block {start}"))
+            z = got[2 * rows // 3:]
+            live = min(A, B16_TABLE_N - start)
+            if bool(z[:, 8:12].any()) or not torch.equal(
+                    got[:, 16:20], acc[:, 16:20]) or not torch.equal(
+                    got[:, live:], acc[:, live:]):
+                fail(f"{sel.name}: T == -Q lanes are not at infinity, or "
+                     f"digit-0 or padding lanes changed")
+        got = dbl.launch(acc, window)
+        torch.cuda.synchronize()
+        with plain_versions():
+            want = dbl.plain(acc, window)
+        err["dblw"] = max(err["dblw"], compare(dbl.name, got, want,
+                                               f"at window {window}"))
+    acc, table, digits = b16_inputs(g2, 1, COMBINE_N, gen, dev)
+    with plain_versions():
+        _, sel_plain_ms = timed_once(sel.plain, acc, table, digits, 0)
+        _, dbl_plain_ms = timed_once(dbl.plain, acc, 1)
+    sel_ms = cuda_time_ms(lambda: sel.launch(acc, table, digits, 0), 20)
+    dbl_ms = cuda_time_ms(lambda: dbl.launch(acc, 1), 20)
+    nonzero = int((digits[:A] != 0).sum().item())
+    sel_bound = bound_ms(2 * rows * 4 * A + 4 * A + rows * 4 * nonzero,
+                         nonzero * ADD_FQ_PRODUCTS[k - 1] * FQ_PRODUCT_IMADS,
+                         card)
+    dbl_bound = bound_ms(2 * rows * 4 * A,
+                         A * DBL_FQ_PRODUCTS[k - 1] * FQ_PRODUCT_IMADS, card)
+    print(f"{sel.name} / {dbl.name} acc [{rows}, {A}]: bit-exact at window 1 "
+          f"and 3 on every block of a {B16_TABLE_N}-lane table (infinity, "
+          f"T == Q, T == -Q, Q at infinity, digit 0 and padding lanes); at "
+          f"window 1 selmadd {sel_ms:.4f} ms (plain {sel_plain_ms:.1f} ms, "
+          f"bound {sel_bound[0]:.4f} ms, {sel_bound[1]}, {nonzero} nonzero "
+          f"digits, {sel_ms / sel_bound[0]:.1f}x), dblw {dbl_ms:.4f} ms "
+          f"(plain {dbl_plain_ms:.1f} ms, bound {dbl_bound[0]:.4f} ms, "
+          f"{dbl_bound[1]}, {dbl_ms / dbl_bound[0]:.1f}x)", flush=True)
+    return {sel.name: dict(lanes=A, max_abs_err=err["selmadd"], ms=sel_ms,
+                           plain_ms=sel_plain_ms, bound_ms=sel_bound[0],
+                           bound_by=sel_bound[1], window=1),
+            dbl.name: dict(lanes=A, max_abs_err=err["dblw"], ms=dbl_ms,
+                           plain_ms=dbl_plain_ms, bound_ms=dbl_bound[0],
+                           bound_by=dbl_bound[1], window=1)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 9: slice 6, the threshold flows at t + 1 = COMBINE_N
+# ---------------------------------------------------------------------------
+
+def _levels(m):
+    """⌈log₂ m⌉: the levels of a pairwise tree over m entries."""
+    return (max(m, 1) - 1).bit_length()
+
+
+def combine_launches(n, path, g2):
+    """Launches of one ``combine_batch`` call of n shares: λ (the product
+    tree of the x, ⌈log₂ n⌉ B1; for n ≤ 1024 the matrix's row products,
+    ⌈log₂ n⌉ B1, above it one B14 and ⌈log₂ S⌉ B1 over its S chunks; the
+    denominators, λ and the canonical form, 3 B1; one B2), the shares'
+    affine form (one B2, 4 B1 in G1 and 6 in G2), then the path's MSM and
+    its fold of ⌈log₂ m⌉ levels, 5 B1 each: "pallas" 6 B10 and one B11
+    (m = min(A, n)), "scalarwise" one B15 (m = n), "bitscan" 255 B16 dblw
+    and 255 selmadd per block of min(1024, n) lanes (m = that block)."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import cuda_fr
+    from threshold_crypto_tpu_torch.ops import fr as frops
+
+    g = "g2" if g2 else "g1"
+    expect = {"lagrange_rowprod": 0, "mont_pow": 2, f"{g}_madd": 0,
+              f"{g}_winacc": 0, f"{g}_step": 0, f"{g}_selmadd": 0,
+              f"{g}_dblw": 0}
+    mul = _levels(n) + 3 + (6 if g2 else 4)
+    if n <= frops._LAGRANGE_MATRIX_MAX:
+        mul += _levels(n)
+    else:
+        expect["lagrange_rowprod"] = 1
+        mul += _levels(-(-n // cuda_fr._chunk(n)))
+    if path == "pallas":
+        expect.update({f"{g}_madd": 6, f"{g}_winacc": 1})
+        m = min(ccv.ACCUMULATORS, n)
+    elif path == "scalarwise":
+        expect[f"{g}_step"] = 1
+        m = n
+    else:
+        m = min(ccv.SHARED_BLOCK, n)
+        expect.update({f"{g}_dblw": 255,
+                       f"{g}_selmadd": 255 * -(-n // m)})
+    expect["mont_mul"] = mul + 5 * _levels(m)
+    return expect
+
+
+def horner_host(coeffs, x):
+    """f(x) mod r on the host (Horner over Python ints)."""
+    from threshold_crypto_tpu_torch.host.params import R
+
+    acc = 0
+    for c in reversed(coeffs):
+        acc = (acc * x + c) % R
+    return acc
+
+
+def host_points(curve, jac, lanes):
+    """Host affine points of some lanes of a Jacobian tuple on the card."""
+    from threshold_crypto_tpu_torch.device import curve as dcv
+
+    idx = list(lanes)
+    return curve.to_host_affine(dcv.tree_map(lambda a: a[idx], jac))
+
+
+def one_point(curve, pt):
+    """An unbatched Jacobian point on the card -> its host affine point."""
+    from threshold_crypto_tpu_torch.device import curve as dcv
+
+    return curve.to_host_affine(dcv.tree_map(lambda a: a[None], pt))[0]
+
+
+def combine_call(curve, shares, xs, path):
+    """One synchronised ``combine_batch`` call: (point, ok, seconds)."""
+    import torch
+    from threshold_crypto_tpu_torch import ops
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pt, ok = ops.combine_batch(curve, shares, xs, path=path)
+    torch.cuda.synchronize()
+    return pt, bool(ok), time.time() - t0
+
+
+@contextlib.contextmanager
+def combine_stage_timer(spans):
+    """Bracket the stages of a combine call with CUDA events: the product
+    tree of the x, B14 (with its fold), the inversion, the canonical form,
+    the shares' affine form, the table (B10), B11 / B15 / B16 and the
+    fold."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import cuda_fr
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.ops import fr as frops
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    patches = [
+        (frops, "_prod_leading", lambda *a: "product tree of the x (B1)"),
+        (cuda_fr, "lagrange_rowprod", lambda *a: "B14 and its fold"),
+        (frops, "batch_inv", lambda *a: "inverse (B2)"),
+        (frops, "fr_to_plain", lambda *a: "canonical lambda (B1)"),
+        (tops, "jacobian_to_affine", lambda *a: "affine (B2, B1)"),
+        (ccv, "p_madd", lambda *a: "table (B10)"),
+        (ccv, "p_winacc", lambda *a: "Horner (B11)"),
+        (ccv, "p_step", lambda *a: "bit ladders (B15)"),
+        (ccv, "p_dblw", lambda *a: "dblw (B16)"),
+        (ccv, "p_selmadd", lambda *a: "selmadd (B16)"),
+    ]
+    with spans_around(spans, patches) as wrap:
+        for curve in (dcv.G1, dcv.G2):
+            curve.fold_sum = wrap(lambda *a: "fold", curve.fold_sum)
+        try:
+            yield
+        finally:
+            for curve in (dcv.G1, dcv.G2):
+                del curve.fold_sum
+
+
+def run_combine_path(curve, shares, xs, path, want):
+    """One path of the combine: its counted call (launches against
+    ``combine_launches``), the median of 3 calls, the kernel share and the
+    stage split of one call each; every call must give ``want``."""
+    what = f"combine_batch({curve.name}, {path})"
+    reset_counts()
+    pt, ok, first_s = combine_call(curve, shares, xs, path)
+    launches = read_counts()
+    expect = combine_launches(xs.shape[0], path, curve.name == "G2")
+    got = {k: launches[k] for k in expect}
+    if got != expect:
+        fail(f"{what}: launches per call {got}, expected {expect}")
+    if not ok or one_point(curve, pt) != want:
+        fail(f"{what}: not ok, or the point differs from the host's")
+    times = []
+    for _ in range(3):
+        pt, ok, s = combine_call(curve, shares, xs, path)
+        if not ok or one_point(curve, pt) != want:
+            fail(f"{what}: a timed call gave another point")
+        times.append(s)
+    wall = statistics.median(times)
+    spans = []
+    with kernel_event_timer(spans):
+        _, _, kwall = combine_call(curve, shares, xs, path)
+    kernel_s, per_kernel = kernel_split(what, spans, kwall)
+    stages = []
+    with combine_stage_timer(stages):
+        _, _, swall = combine_call(curve, shares, xs, path)
+    split = print_split(what, stages, swall)
+    print(f"{what} at t+1 = {xs.shape[0]}: equals the host's point; first "
+          f"call {first_s:.3f} s; median {wall:.4f} s of "
+          f"{[round(t, 4) for t in times]}; launches per call "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return dict(launches=launches, wall_s=wall, times_s=times,
+                kernel_s=kernel_s, timed_wall_s=kwall, kernel_ms=per_kernel,
+                split_ms=split)
+
+
+def run_combine(dev):
+    """Slice 6: both threshold flows at t + 1 = COMBINE_N shares from one
+    degree-(COMBINE_N − 1) secret polynomial made from a seed, x_i = i + 1.
+
+    Signatures: shares by ``derive_shares`` on the card, pk shares G1·skᵢ,
+    signature shares ``sign_batch`` of the host's hash_g2 of one message;
+    the RLC share check accepts them; ``combine_batch`` on each path gives
+    the host's H·f(0), which ``verify_batch_pallas`` accepts against
+    G1·f(0); ok is False with one x duplicated and with one x zero.
+    Decryption: one key G1·f(0) broadcast, ``encrypt_begin_batch`` /
+    ``encrypt_finish_batch`` with a host G2 point standing in for H(u, v);
+    ``ciphertext_verify_batch`` true on every lane and false on the lane
+    whose w is replaced; the decryption shares of lane 0's u pass
+    ``verify_dec_share_batch`` but for the one replaced; their combine on
+    each path equals g = r·pk of lane 0."""
+    import torch
+    from threshold_crypto_tpu_torch import hashing, ops
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.host.params import R
+    from threshold_crypto_tpu_torch.ops import fr as frops
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    n = COMBINE_N
+    rnd = random.Random(COMBINE_SEED)
+    coeffs = [rnd.randrange(R) for _ in range(n)]
+    secret = coeffs[0]
+    xs = frops.fr_to_device(range(1, n + 1), dev)
+    probe = (0, 1, n // 3, n - 1)
+    timings = {}
+
+    def timed(label, fn, *args):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        timings[label] = time.time() - t0
+        return out
+
+    # keys and signature shares
+    sk_mont = timed("derive_shares", ops.derive_shares,
+                    frops.fr_to_device(coeffs, dev), xs)
+    sk_host = [horner_host(coeffs, x + 1) for x in probe]
+    if frops.fr_from_device(sk_mont[list(probe)]) != sk_host:
+        fail("derive_shares: shares differ from host Horner")
+    sk = frops.fr_to_plain(sk_mont)
+    pk_jac = timed("pk shares (ladder)", ccv.scalar_mul_pallas, dcv.G1,
+                   tops._gen_g1((n,), dev), sk)
+    pk_aff = ops.jacobian_to_affine(dcv.G1, pk_jac)
+    h_host = hashing.hash_g2(COMBINE_MSG)
+    h_jac = dcv.G2.from_host_affine([h_host], device=dev)
+    sig = timed("sign_batch", ops.sign_batch, tile_to(h_jac, n), sk)
+    sig_aff = ops.jacobian_to_affine(dcv.G2, sig)
+    if host_points(dcv.G1, pk_jac, probe) != [
+            hcv.G1.mul(hcv.G1.generator, s) for s in sk_host] or \
+            host_points(dcv.G2, sig, probe) != [hcv.G2.mul(h_host, s)
+                                                for s in sk_host]:
+        fail("pk or signature shares differ from host mul")
+    r = ops.rlc_exponents(n, b"combine", pk_aff=pk_aff, sig_aff=sig_aff)
+    if not bool(ops.verify_sig_shares_rlc_pallas(pk_aff, h_jac, sig_aff, r)):
+        fail("the RLC check rejected the signature shares")
+    print(f"keys: {n} shares of a degree-{n - 1} polynomial "
+          f"(derive_shares {timings['derive_shares']:.2f} s), pk and "
+          f"signature shares equal host mul on lanes {list(probe)}, the RLC "
+          f"check accepts the {n} signature shares", flush=True)
+
+    want_sig = hcv.G2.mul(h_host, secret)
+    paths = {}
+    for path in tops.COMBINE_PATHS:
+        paths[f"G2 {path}"] = run_combine_path(dcv.G2, sig, xs, path,
+                                               want_sig)
+    pt, _, _ = combine_call(dcv.G2, sig, xs, "pallas")
+    master = dcv.G1.from_host_affine([hcv.G1.mul(hcv.G1.generator, secret)],
+                                     device=dev)
+    if not bool(ops.verify_batch_pallas(
+            ops.jacobian_to_affine(dcv.G1, master), ops.jacobian_to_affine(
+                dcv.G2, h_jac), ops.jacobian_to_affine(
+                dcv.G2, dcv.tree_map(lambda a: a[None], pt)))[0]):
+        fail("verify_batch_pallas rejects the combined signature")
+    for what, lane, value in (("duplicated", n - 1, 17), ("zero", 100, -1)):
+        bad = xs.clone()
+        bad[lane] = 0 if value < 0 else xs[value]
+        if combine_call(dcv.G2, sig, bad, "pallas")[1]:
+            fail(f"combine_batch: ok with one x {what}")
+    print(f"the three paths give the host's H*f(0); verify_batch_pallas "
+          f"accepts it against G1*f(0); ok is False with one x duplicated "
+          f"and with one x zero", flush=True)
+
+    # decryption
+    pk_host = hcv.G1.mul(hcv.G1.generator, secret)
+    huv_host = hcv.G2.mul(hcv.G2.generator, rnd.randrange(1, R))
+    rs = [rnd.randrange(1, R) for _ in range(n)]
+    r_plain = fr_limbs(rs, dev)
+    u, g = timed("encrypt_begin_batch", ops.encrypt_begin_batch, tile_to(
+        dcv.G1.from_host_affine([pk_host], device=dev), n), r_plain)
+    huv_jac = tile_to(dcv.G2.from_host_affine([huv_host], device=dev), n)
+    w = timed("encrypt_finish_batch", ops.encrypt_finish_batch, huv_jac,
+              r_plain)
+    if (host_points(dcv.G1, u, probe), host_points(dcv.G1, g, probe),
+            host_points(dcv.G2, w, probe)) != (
+            [hcv.G1.mul(hcv.G1.generator, rs[i]) for i in probe],
+            [hcv.G1.mul(pk_host, rs[i]) for i in probe],
+            [hcv.G2.mul(huv_host, rs[i]) for i in probe]):
+        fail("encrypt: u, g or w differ from host mul")
+    u_aff = ops.jacobian_to_affine(dcv.G1, u)
+    w_aff = ops.jacobian_to_affine(dcv.G2, w)
+    huv_aff = ops.jacobian_to_affine(dcv.G2, huv_jac)
+    ct_ok = timed("ciphertext_verify_batch", ops.ciphertext_verify_batch,
+                  u_aff, w_aff, huv_aff)
+    w_bad = dcv.tree_map(lambda a: a.clone(), w_aff)
+    for c in dcv.leaves(w_bad[:2]):
+        c[5] = c[6]
+    ct_bad = ops.ciphertext_verify_batch(u_aff, w_bad, huv_aff)
+    if not bool(ct_ok.all()) or ct_bad.nonzero().numel() != n - 1 \
+            or bool(ct_bad[5]):
+        fail("ciphertext_verify_batch: a valid lane failed, or the lane "
+             "with w replaced passed")
+    lane0 = lambda t: dcv.tree_map(lambda a: a[:1], t)  # noqa: E731
+    d = timed("decrypt_share_batch", ops.decrypt_share_batch,
+              tile_to(lane0(u), n), sk)
+    d_aff = ops.jacobian_to_affine(dcv.G1, d)
+    w0 = tile_to(lane0(w_aff), n)
+    ds_ok = timed("verify_dec_share_batch", ops.verify_dec_share_batch,
+                  d_aff, huv_aff, pk_aff, w0)
+    d_bad = dcv.tree_map(lambda a: a.clone(), d_aff)
+    for c in dcv.leaves(d_bad[:2]):
+        c[9] = c[10]
+    ds_bad = ops.verify_dec_share_batch(d_bad, huv_aff, pk_aff, w0)
+    if not bool(ds_ok.all()) or ds_bad.nonzero().numel() != n - 1 \
+            or bool(ds_bad[9]):
+        fail("verify_dec_share_batch: a valid share failed, or the replaced "
+             "share passed")
+    want_g = hcv.G1.mul(pk_host, rs[0])
+    if host_points(dcv.G1, g, [0]) != [want_g]:
+        fail("encrypt: g of lane 0 differs from r*pk")
+    for path in tops.COMBINE_PATHS:
+        reset_counts()
+        pt, ok, s = combine_call(dcv.G1, d, xs, path)
+        launches = read_counts()
+        expect = combine_launches(n, path, False)
+        if {k: launches[k] for k in expect} != expect:
+            fail(f"combine_batch(G1, {path}): launches {launches}, expected "
+                 f"{expect}")
+        if not ok or one_point(dcv.G1, pt) != want_g:
+            fail(f"combine_batch(G1, {path}) differs from g = r*pk")
+        paths[f"G1 {path}"] = dict(launches=launches, wall_s=s)
+    print(f"decryption: ciphertext_verify_batch true on all {n} lanes and "
+          f"false on the lane with w replaced; verify_dec_share_batch true "
+          f"on all {n} shares and false on the one replaced; combine_batch "
+          f"(G1) on each path equals g = r*pk ("
+          + ", ".join(f"{p} {paths['G1 ' + p]['wall_s']:.3f} s"
+                      for p in tops.COMBINE_PATHS) + ")", flush=True)
+    print("threshold batch ops, one call each: "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()),
+          flush=True)
+    return dict(paths=paths, timings=timings)
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import numpy as np
@@ -1711,6 +2225,9 @@ def main():
         for g2 in (False, True):
             results[f"g{1 + g2}_{kind}"] = check_ladder(g2, kind, gen, dev,
                                                          card)
+    results["lagrange_rowprod"] = check_rowprod(dev, card)
+    for g2 in (False, True):
+        results.update(check_b16(g2, gen, dev, card))
     torch.cuda.empty_cache()
 
     old, new = run_slices(dev)
@@ -1742,6 +2259,11 @@ def main():
           f"and msm_pallas(window=1) at {MSM1_N} (B15)")
     paths = {"hash": hashed, "encrypt": run_encrypt(dev),
              "msm1": run_msm1(dev)}
+    torch.cuda.empty_cache()
+    phase(f"slice 6: the threshold flows at t+1 = {COMBINE_N} "
+          f"(ops.combine_batch on B14 and B11 / B15 / B16, sign, encrypt, "
+          f"decrypt shares and their checks)")
+    combined = run_combine(dev)
 
     kernels = []
     for mod, k in registry():
@@ -1749,12 +2271,14 @@ def main():
         # B1/B2: launches of slice 1, where they carry the path; B3-B9:
         # of slice 2 (B3 runs inside every B4-B9 launch); B10-B12: of
         # slice 3; B13: of slice 4 (G2, the cofactor ladder) and 5 (G1);
-        # B15: of the window-1 MSM. Every kernel's launches on the RLC,
-        # hash and encrypt paths beside them.
+        # B15: of the window-1 MSM; B14: of slice 6's G2 combine; B16: of
+        # its bitscan combines. Every kernel's launches on the RLC, hash,
+        # encrypt and combine paths beside them.
         path = (old if k.name.startswith("mont_") else
                 rlc if k.name in RLC_KERNELS else
                 paths[LADDER_KERNELS[k.name]] if k.name in LADDER_KERNELS
-                else new)
+                else combined["paths"][COMBINE_KERNELS[k.name]]
+                if k.name in COMBINE_KERNELS else new)
         entry = {
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": path["launches"][k.name],
@@ -1768,6 +2292,10 @@ def main():
         entry["launches_rlc_path"] = rlc["launches"][k.name]
         entry["launches_hash_path"] = hashed["launches"][k.name]
         entry["launches_encrypt_path"] = paths["encrypt"]["launches"][k.name]
+        entry["launches_combine_paths"] = {
+            p: c["launches"][k.name] for p, c in combined["paths"].items()}
+        if "ms_with_fold" in res:
+            entry["ms_with_fold"] = res["ms_with_fold"]
         if "digits" in res:
             entry["digits"] = res["digits"]
         if "plain_lanes" in res:

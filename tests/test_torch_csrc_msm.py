@@ -1,9 +1,10 @@
 """The curve and SHA3 kernels' CUDA sources, compiled for the host, against
 their plain versions and ``hashlib``.
 
-The per-lane bodies of B10, B11, B13 and B15 (``csrc/curve.cuh``: the
+The per-lane bodies of B10, B11, B13, B15 and B16 (``csrc/curve.cuh``: the
 doubling, the complete add, the complete mixed add, the Horner loop of one
-accumulator, and the two ladders of one lane) and of B12
+accumulator, the two ladders of one lane, and the gated table add and the
+w doublings of one accumulator lane) and of B12
 (``csrc/keccak.cuh``) are plain C++ behind CUDA's
 function qualifiers. Here g++ compiles them with the qualifiers defined
 away, and a serial loop over the lanes (or accumulators, or chunks) stands
@@ -12,7 +13,9 @@ on the packed layout, checked bit-exact against the plain versions
 (``device/curve.py``, ``device/cuda_curve.py``, ``device/keccak.py``) on
 seeded points with the special lanes T == Q, T == −Q and infinity on
 either side (for the ladders: 16T == ±table[d − 1], 2T == ±Q, T at
-infinity and digit or bit 0), and against ``hashlib.sha3_256``. Without g++ the tests skip
+infinity and digit or bit 0; for B16 the block's first lane and a
+ragged last block whose padding has digit 0), and against
+``hashlib.sha3_256``. Without g++ the tests skip
 (the kernels themselves run only on the card, in ``chip_smoke.py``).
 """
 
@@ -46,7 +49,8 @@ HARNESS = r"""
 #include "curve.cuh"
 #include "keccak.cuh"
 
-// stdin: int32 op, n, accs, ndig, window, then the inputs; stdout: output.
+// stdin: int32 op, g2, n, accs, ndig, window, start, then the inputs;
+// stdout: the output.
 static std::vector<int32_t> rd(size_t count) {
   std::vector<int32_t> v(count);
   if (fread(v.data(), 4, count, stdin) != count) exit(3);
@@ -54,7 +58,7 @@ static std::vector<int32_t> rd(size_t count) {
 }
 
 template <class F>
-void run(int op, int n, int accs, int ndig, int window) {
+void run(int op, int n, int accs, int ndig, int window, int start) {
   const size_t P = 3ul * tc::Comps<F>::k * 24;  // Jacobian rows
   std::vector<int32_t> out;
   if (op == 0) {  // madd
@@ -83,6 +87,17 @@ void run(int op, int n, int accs, int ndig, int window) {
     for (int j = 0; j < accs; ++j)
       tc::winacc_lane<F>(table.data(), digits.data(), out.data(), n, accs,
                          ndig, window, j);
+  } else if (op == 7) {  // selmadd (B16): acc [P, accs], table, digits
+    auto acc = rd(P * accs), table = rd(window * P * n), digits = rd(n);
+    out.resize(P * accs);
+    for (int j = 0; j < accs; ++j)
+      tc::selmadd_lane<F>(acc.data(), table.data(), digits.data(),
+                          out.data(), accs, n, window, start, j);
+  } else if (op == 8) {  // dblw (B16)
+    auto acc = rd(P * n);
+    out.resize(P * n);
+    for (int l = 0; l < n; ++l)
+      tc::dblw_lane<F>(acc.data(), out.data(), n, window, l);
   } else if (op == 5) {  // step (B15): acc, q affine, bits
     auto acc = rd(P * n), q = rd(2 * P / 3 * n), bits = rd(ndig * n);
     out.resize(P * n);
@@ -100,8 +115,8 @@ void run(int op, int n, int accs, int ndig, int window) {
 }
 
 int main() {
-  int32_t h[6];
-  if (fread(h, 4, 6, stdin) != 6) return 2;
+  int32_t h[7];
+  if (fread(h, 4, 7, stdin) != 7) return 2;
   const int op = h[0], g2 = h[1], n = h[2];
   if (op == 4) {  // sha3 chunks
     auto words = rd(544ul * n);
@@ -110,16 +125,16 @@ int main() {
       tc::sha3_chunk_lane(words.data(), out.data(), c);
     fwrite(out.data(), 4, out.size(), stdout);
   } else if (g2) {
-    run<tc::Fq2>(op, n, h[3], h[4], h[5]);
+    run<tc::Fq2>(op, n, h[3], h[4], h[5], h[6]);
   } else {
-    run<tc::Fq>(op, n, h[3], h[4], h[5]);
+    run<tc::Fq>(op, n, h[3], h[4], h[5], h[6]);
   }
   return 0;
 }
 """
 
 OPS = {"madd": 0, "dbl": 1, "add": 2, "winacc": 3, "sha3": 4, "step": 5,
-       "step4": 6}
+       "step4": 6, "selmadd": 7, "dblw": 8}
 N = 16
 
 
@@ -145,8 +160,9 @@ def harness(tmp_path_factory):
     return exe
 
 
-def _run(exe, op, g2, n, ins, out_shape, accs=0, ndig=0, window=0):
-    blob = np.array([OPS[op], int(g2), n, accs, ndig, window],
+def _run(exe, op, g2, n, ins, out_shape, accs=0, ndig=0, window=0,
+         start=0):
+    blob = np.array([OPS[op], int(g2), n, accs, ndig, window, start],
                     np.int32).tobytes()
     blob += b"".join(t.numpy().tobytes() for t in ins)
     proc = subprocess.run([exe], input=blob, capture_output=True,
@@ -345,6 +361,60 @@ def test_ladder_loop_matches_plain_version(harness, group, kind):
                (rows, N), ndig=6)
     plain = ccv.p_step4 if kind == "step4" else ccv.p_step
     assert torch.equal(got, plain(g2, acc, other, digits))
+
+
+@pytest.mark.parametrize("nent", [1, 7])
+def test_selmadd_body_matches_plain_version(harness, group, nent):
+    """B16's gated table add over the blocks of A = 6 accumulator lanes of
+    N = 14 table lanes (the last block ragged: its padding has digit 0),
+    with window 1's one entry and window 3's seven: lanes 0-4 of each block
+    hold T at infinity, Q at infinity, T == Q, T == −Q and both at infinity
+    (Q the entry the lane's digit selects), lane 5 digit 0."""
+    curve, host, T, Q = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    A, n = 6, 14
+    rng = np.random.default_rng(nent)
+    tp, qp = ccv.pack_point(T), ccv.pack_point(Q)
+    acc = tp[:, :A].contiguous()
+    for start in range(0, n, A):
+        digits = torch.from_numpy(
+            rng.integers(1, nent + 1, n).astype(np.int32))
+        entries = [qp[:, torch.from_numpy(rng.integers(5, N, n))]
+                   for _ in range(nent)]
+        for j in range(min(A, n - start)):
+            if j == 5:
+                digits[start + j] = 0
+            else:
+                entries[int(digits[start + j]) - 1][:, start + j] = qp[:, j]
+        table = torch.cat(entries).contiguous()
+        got = _run(harness, "selmadd", g2, n, [acc, table, digits],
+                   (rows, A), accs=A, window=nent, start=start)
+        want = ccv._selmadd_ref(g2, acc, table, digits, start)
+        assert torch.equal(got, want)
+        pts = curve.to_host_affine(ccv.unpack_jac(want, g2))
+        tin = curve.to_host_affine(ccv.unpack_jac(acc, g2))
+        live = min(A, n - start)
+        assert torch.equal(want[:, live:], acc[:, live:])   # padding
+        if live == A:
+            assert pts[3] is None and pts[4] is None
+            assert pts[2] == host.double(tin[2])
+            assert torch.equal(want[:, 5], acc[:, 5])       # digit 0
+
+
+@pytest.mark.parametrize("window", [1, 3])
+def test_dblw_body_matches_plain_version(harness, group, window):
+    """B16's w doublings per lane, infinity lanes included."""
+    curve, host, T, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    got = _run(harness, "dblw", g2, N, [ccv.pack_point(T)], (rows, N),
+               window=window)
+    want = ccv._dblw_ref(g2, ccv.pack_point(T), window)
+    assert torch.equal(got, want)
+    assert curve.to_host_affine(ccv.unpack_jac(want, g2)) == [
+        None if t is None else host.mul(t, 1 << window)
+        for t in curve.to_host_affine(T)]
 
 
 def test_sha3_body_matches_hashlib_and_plain_version(harness):

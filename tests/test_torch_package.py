@@ -37,8 +37,10 @@ MODULES = [
     "threshold_crypto_tpu_torch.device.keccak",
     "threshold_crypto_tpu_torch.device.chacha",
     "threshold_crypto_tpu_torch.device.hash2g2",
+    "threshold_crypto_tpu_torch.device.cuda_fr",
     "threshold_crypto_tpu_torch.ops",
     "threshold_crypto_tpu_torch.ops.threshold",
+    "threshold_crypto_tpu_torch.ops.fr",
 ]
 
 
@@ -90,10 +92,10 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
     """Each tower source is one nvcc of its own .cu, finding fq.cuh and
     tower.cuh beside it, and its library name hashes those headers too."""
     srcs = [os.path.basename(s) for s in _build.sources()]
-    assert srcs == ["fq12.cu", "keccak.cu", "ladder.cu", "miller.cu",
-                    "mont.cu", "msm.cu"]
+    assert srcs == ["fq12.cu", "fr.cu", "keccak.cu", "ladder.cu",
+                    "miller.cu", "mont.cu", "msm.cu", "shared.cu"]
     assert [os.path.basename(h) for h in _build.headers()] == [
-        "curve.cuh", "fq.cuh", "keccak.cuh", "tower.cuh"]
+        "curve.cuh", "fq.cuh", "fr.cuh", "keccak.cuh", "tower.cuh"]
     cmd = _build.command(name, "/nonexistent/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-Xptxas" in cmd
     inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
@@ -108,11 +110,14 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
 
 @pytest.mark.parametrize("name,header", [("msm", "curve.cuh"),
                                          ("keccak", "keccak.cuh"),
-                                         ("ladder", "curve.cuh")])
+                                         ("ladder", "curve.cuh"),
+                                         ("fr", "fr.cuh"),
+                                         ("shared", "curve.cuh")])
 def test_msm_and_keccak_sources_build_alone(name, header):
-    """The curve and transcript sources (the RLC slice's msm and keccak, the
-    hash and encrypt slice's ladder): one nvcc each, their header beside
-    them, no PyTorch headers, and a C launcher for every signature."""
+    """The curve, transcript and Fr sources (the RLC slice's msm and
+    keccak, the hash and encrypt slice's ladder, the combine slice's fr and
+    shared): one nvcc each, their header beside them, no PyTorch headers,
+    and a C launcher for every signature."""
     cmd = _build.command(name, "/nonexistent/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
@@ -159,7 +164,8 @@ def test_build_renames_into_place_and_caches(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     logs = _build.build()
     names = sorted(logs)
-    assert names == ["fq12", "keccak", "ladder", "miller", "mont", "msm"]
+    assert names == ["fq12", "fr", "keccak", "ladder", "miller", "mont",
+                     "msm", "shared"]
     assert all("Used 40 registers" in logs[n] for n in names)
     assert all(re.search(rf"nvcc {n}\.cu: \d+\.\d s", logs[n])
                for n in names)
@@ -196,3 +202,26 @@ def test_kernels_list_the_ladder_kernels_in_both_groups():
         assert k.plain.__name__ == k.name + "_ref"
         assert isinstance(k.count, KernelCount)
         assert ("tc_" + k.name) in [fn for fn, _ in _build.SIGNATURES["ladder"]]
+
+
+def test_kernels_list_b14_and_b16():
+    """B14 (lagrange_rowprod, ``csrc/fr.cu``) and B16 (selmadd and dblw in
+    G1 and G2, ``csrc/shared.cu``), each with its source, the TPU kernel it
+    replaces, a plain version, a count and a launcher."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import cuda_fr
+    from threshold_crypto_tpu_torch.device.cuda_mont import KernelCount
+
+    (b14,) = cuda_fr.KERNELS
+    assert b14.name == "lagrange_rowprod"
+    assert b14.source == "threshold_crypto_tpu_torch/csrc/fr.cu"
+    assert b14.replaces == "threshold_crypto_tpu/device/pallas_fr.py:244"
+    b16 = {k.name: k for k in ccv.KERNELS
+           if k.source.endswith("csrc/shared.cu")}
+    assert sorted(b16) == ["g1_dblw", "g1_selmadd", "g2_dblw", "g2_selmadd"]
+    tpu = "threshold_crypto_tpu/device/pallas_curve.py:"
+    assert {k.replaces for k in b16.values()} == {tpu + "410", tpu + "433"}
+    for k, lib in [(b14, "fr")] + [(k, "shared") for k in b16.values()]:
+        assert k.plain.__name__ == k.launch.__name__ + "_ref"
+        assert isinstance(k.count, KernelCount)
+        assert ("tc_" + k.name) in [fn for fn, _ in _build.SIGNATURES[lib]]

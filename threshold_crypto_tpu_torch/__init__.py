@@ -9,7 +9,8 @@ in their place.
 What is ported so far: BLS verification on the BLS12-381 stack of
 :mod:`.device` (Montgomery field arithmetic, the Fq2/Fq6/Fq12 tower, G1/G2
 Jacobian curves, the Miller loop and the final exponentiation), the hash to
-G2 and batched encryption, on five paths: :func:`threshold_crypto_tpu_torch.ops.verify_batch` (strict per-pair
+G2, batched encryption and the threshold combine, on these paths:
+:func:`threshold_crypto_tpu_torch.ops.verify_batch` (strict per-pair
 verify, the tower as stacked field products, kernels B1 and B2 in
 ``csrc/mont.cu``), :func:`threshold_crypto_tpu_torch.ops.verify_batch_pallas`
 (the megakernel path: whole Miller iterations and Fq12 steps as one launch
@@ -23,5 +24,9 @@ B11 in ``csrc/msm.cu``, and one check through ``verify_batch_pallas``),
 on N distinct messages, the hash chain of :mod:`.device.hash2g2` with its
 cofactor on the ladder kernel B13 of ``csrc/ladder.cu``) and
 :func:`threshold_crypto_tpu_torch.ops.encrypt_batch_pallas` (three per-lane
-ladders on B13; B15, the bit ladder, runs ``msm_pallas(window=1)``).
+ladders on B13; B15, the bit ladder, runs ``msm_pallas(window=1)``), and
+:func:`threshold_crypto_tpu_torch.ops.combine_batch` (λ from
+:mod:`.ops.fr`, above 1024 shares on the all-pairs kernel B14 of
+``csrc/fr.cu``; the 255-bit MSM on B11, B15 or B16 of ``csrc/shared.cu``)
+with the sign, encrypt, decryption-share and check batch ops around it.
 """

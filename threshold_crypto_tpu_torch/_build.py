@@ -64,6 +64,15 @@ SIGNATURES = {
         ("tc_g1_step4", [_VP, _VP, _VP, _VP, _INT, _INT, _VP]),
         ("tc_g2_step4", [_VP, _VP, _VP, _VP, _INT, _INT, _VP]),
     ],
+    "fr": [
+        ("tc_lagrange_rowprod", [_VP, _VP, _VP, _INT, _INT, _VP]),
+    ],
+    "shared": [
+        ("tc_g1_selmadd", [_VP] * 4 + [_INT] * 4 + [_VP]),
+        ("tc_g2_selmadd", [_VP] * 4 + [_INT] * 4 + [_VP]),
+        ("tc_g1_dblw", [_VP, _VP, _INT, _INT, _VP]),
+        ("tc_g2_dblw", [_VP, _VP, _INT, _INT, _VP]),
+    ],
 }
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 // Jacobian G1/G2 point formulas of the curve kernels as per-lane device
 // functions, and the per-lane bodies of B10 (madd), B11 (winacc), B13
-// (step4) and B15 (step).
+// (step4), B15 (step) and B16 (selmadd, dblw).
 //
 // Replaces the in-kernel formulas of threshold_crypto_tpu/device/
 // pallas_curve.py (:143-370): `_jac_dbl` (7 products), `_jac_add` (the
@@ -492,6 +492,43 @@ __device__ __forceinline__ void step4_lane(const int32_t* acc_in,
       jac_add(T, T, Q);
     }
   }
+  store_jac(out, T, n, lane);
+}
+
+// B16 selmadd (`_mk_selmadd_kernel`), one accumulator lane j of `accs`:
+// acc + table[d − 1] of lane start + j of the n, with the complete add,
+// where d = digits[start + j] is not 0; the accumulator unchanged where it
+// is. A lane start + j ≥ n (the padding of the last block) has digit 0.
+// table: entries 1P..(nent)P of 3k components each, [nent·3k·24, n];
+// digits [n] (one window); acc and out [3k·24, accs]. A digit outside
+// 1..nent reads entry 0, as the TPU's select chain does.
+template <class F>
+__device__ __forceinline__ void selmadd_lane(const int32_t* acc_in,
+                                             const int32_t* table,
+                                             const int32_t* digits,
+                                             int32_t* out, int accs, int n,
+                                             int nent, int start, int j) {
+  Jac<F> T, Q;
+  load_jac(T, acc_in, 0, accs, j);
+  const int lane = start + j;
+  const int d = lane < n ? digits[lane] : 0;
+  if (d != 0) {
+    const int e = (d >= 1 && d <= nent) ? d - 1 : 0;
+    load_jac(Q, table, e * 3 * Comps<F>::k, n, lane);
+    jac_add(T, T, Q);
+  }
+  store_jac(out, T, accs, j);
+}
+
+// B16 dblw (`_mk_dblw_kernel`): acc <- 2^window·acc, `window` doublings of
+// each lane of acc [3k·24, n].
+template <class F>
+__device__ __forceinline__ void dblw_lane(const int32_t* acc_in,
+                                          int32_t* out, int n, int window,
+                                          int lane) {
+  Jac<F> T;
+  load_jac(T, acc_in, 0, n, lane);
+  for (int i = 0; i < window; ++i) jac_dbl(T, T);
   store_jac(out, T, n, lane);
 }
 

@@ -1,5 +1,6 @@
-"""The curve kernels of ``csrc/msm.cu`` and ``csrc/ladder.cu`` (wrappers,
-plain versions, dispatch) and the MSM and ladder drivers that run them.
+"""The curve kernels of ``csrc/msm.cu``, ``csrc/ladder.cu`` and
+``csrc/shared.cu`` (wrappers, plain versions, dispatch) and the MSM and
+ladder drivers that run them.
 
 Each kernel is the counterpart of one Pallas kernel of
 ``threshold_crypto_tpu/device/pallas_curve.py``, in a G1 and a G2 form:
@@ -25,11 +26,18 @@ Each kernel is the counterpart of one Pallas kernel of
 * B15 ``g1_step`` / ``g2_step`` (``_mk_step_kernel`` :373, instances
   ``_k_g1/g2_msm_step`` :447-448): per lane and bit, T ← 2T (+ Q affine)
   (``curve.msm_step``), the bit loop inside the thread likewise.
+* B16 ``g1_selmadd`` / ``g2_selmadd`` (``_mk_selmadd_kernel`` :410) and
+  ``g1_dblw`` / ``g2_dblw`` (``_mk_dblw_kernel`` :433), in ``csrc/shared.cu``:
+  the two halves of B11 as separate launches, acc + table[d − 1] per
+  accumulator lane for one block of lanes and one window (the complete add
+  where d ≠ 0), and acc ← 2^w·acc. ``msm_pallas_shared(fused=False)`` runs
+  them as the JAX package's DIRECT branch does (:970-983).
 
 Packed layout (``device/packed.py``): a G1 Jacobian point is int32[72, N]
 (X, Y, Z), a G2 one int32[144, N] (X0, X1, Y0, Y1, Z0, Z1); an affine Q
 int32[48, N] or [96, N]; a table its entries 1P..(2^w−1)P one after the
-other, int32[(2^w−1)·72, N] or [(2^w−1)·144, N]; digits or bits int32[D, N].
+other, int32[(2^w−1)·72, N] or [(2^w−1)·144, N]; digits or bits int32[D, N]
+(B16: one window's digits, int32[N]).
 
 The wrappers check their operands, allocate their outputs with
 ``torch.empty``, launch on the current stream and count their launches.
@@ -37,8 +45,8 @@ The ``*_ref`` functions are the same functions in plain PyTorch (the
 formulas of ``device/curve.py`` on the unpacked components, and the same
 loops, and for B11 the same accumulator-to-lane assignment and order), so
 the kernels agree with them bit for bit. ``p_madd`` / ``p_winacc`` /
-``p_step4`` / ``p_step`` send a CUDA tensor to the kernel and a CPU tensor
-to its plain version.
+``p_step4`` / ``p_step`` / ``p_selmadd`` / ``p_dblw`` send a CUDA tensor to
+the kernel and a CPU tensor to its plain version.
 """
 
 from __future__ import annotations
@@ -59,6 +67,10 @@ L = FQ.L
 # the torch fold (``fold_sum``), which costs more than B11 gains from the
 # second block per SM that A = 32,768 gives it.
 ACCUMULATORS = 16384
+# The accumulators of the unfused form (B16): the one 1024-lane block of
+# the JAX package's DIRECT branch (8 × 128 lanes, ``pallas_tower.py``'s
+# TILE_ROWS × LANES).
+SHARED_BLOCK = 1024
 
 G1_MADD = KernelCount()
 G2_MADD = KernelCount()
@@ -68,6 +80,10 @@ G1_STEP4 = KernelCount()
 G2_STEP4 = KernelCount()
 G1_STEP = KernelCount()
 G2_STEP = KernelCount()
+G1_SELMADD = KernelCount()
+G2_SELMADD = KernelCount()
+G1_DBLW = KernelCount()
+G2_DBLW = KernelCount()
 # Entries of B13's table: 1P..15P.
 STEP4_ENTRIES = 15
 
@@ -201,6 +217,70 @@ def g2_step(acc, q, bits):
     return _step(True, G2_STEP, acc, q, bits)
 
 
+def _table_entries(g2, table):
+    rows = (6 if g2 else 3) * L
+    nent = table.shape[0] // rows
+    if nent < 1 or table.shape[0] != nent * rows:
+        raise ValueError(f"table must hold whole Jacobian entries of {rows} "
+                         f"rows, got {tuple(table.shape)}")
+    return nent
+
+
+def _selmadd(g2, count, acc, table, digits, start):
+    k = 2 if g2 else 1
+    a = _check(("acc", acc, 3 * k * L))
+    n = _check(("table", table, None))
+    nent = _table_entries(g2, table)
+    if table.device != acc.device:
+        raise ValueError("acc and table must be on one device")
+    if digits.device != acc.device or digits.dtype != torch.int32 \
+            or digits.shape != (n,) or not digits.is_contiguous():
+        raise ValueError(f"digits must be a contiguous int32[{n}] on "
+                         f"{acc.device}, got {digits.dtype}"
+                         f"{tuple(digits.shape)} on {digits.device}")
+    if not 0 <= start < max(n, 1):
+        raise ValueError(f"start must lie in [0, {n}), got {start}")
+    out = torch.empty_like(acc)
+    if a:
+        launch("shared", f"tc_g{1 + g2}_selmadd", count,
+               (acc, table, digits, out), a, n, nent, start, lanes=a)
+    return out
+
+
+def g1_selmadd(acc, table, digits, start):
+    """Kernel B16, G1: acc [72, A] + table[d − 1] of lanes start..start+A−1
+    (table [nent·72, N], one window's digits [N]; lanes past N add
+    nothing) -> the new acc [72, A]."""
+    return _selmadd(False, G1_SELMADD, acc, table, digits, start)
+
+
+def g2_selmadd(acc, table, digits, start):
+    """Kernel B16, G2: acc [144, A], table [nent·144, N], digits [N]."""
+    return _selmadd(True, G2_SELMADD, acc, table, digits, start)
+
+
+def _dblw(g2, count, acc, window):
+    k = 2 if g2 else 1
+    a = _check(("acc", acc, 3 * k * L))
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    out = torch.empty_like(acc)
+    if a:
+        launch("shared", f"tc_g{1 + g2}_dblw", count, (acc, out), a, window,
+               lanes=a)
+    return out
+
+
+def g1_dblw(acc, window):
+    """Kernel B16, G1: acc [72, A] -> 2^window·acc."""
+    return _dblw(False, G1_DBLW, acc, window)
+
+
+def g2_dblw(acc, window):
+    """Kernel B16, G2: acc [144, A] -> 2^window·acc."""
+    return _dblw(True, G2_DBLW, acc, window)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -292,6 +372,50 @@ def g2_step_ref(acc, q, bits):
     return _step_ref(True, acc, q, bits)
 
 
+def _selmadd_ref(g2, acc, table, digits, start):
+    """B16's selmadd as stacked tensor ops: each accumulator lane's digit
+    (0 past the last lane), its one table entry (entry 0 for a digit
+    outside 1..nent), one complete add, and the select on d ≠ 0."""
+    F = _field(g2)
+    rows = (6 if g2 else 3) * L
+    a, n = acc.shape[1], table.shape[1]
+    nent = table.shape[0] // rows
+    m = max(0, min(a, n - start))
+    d = torch.zeros(a, dtype=torch.int32, device=acc.device)
+    d[:m] = digits[start:start + m]
+    idx = torch.where((d >= 1) & (d <= nent), d - 1,
+                      torch.zeros_like(d)).long()
+    lanes = (start + torch.arange(a, device=acc.device)).clamp(max=n - 1)
+    q = table.reshape(nent, rows, n)[idx, :, lanes].T.contiguous()
+    T = unpack_jac(acc, g2)
+    s = dcv.jac_add(F, T, unpack_jac(q, g2))
+    return pack_point(dcv.tree_map(lambda x, y: mont.select(d != 0, x, y),
+                                   s, T))
+
+
+def g1_selmadd_ref(acc, table, digits, start):
+    return _selmadd_ref(False, acc, table, digits, start)
+
+
+def g2_selmadd_ref(acc, table, digits, start):
+    return _selmadd_ref(True, acc, table, digits, start)
+
+
+def _dblw_ref(g2, acc, window):
+    T = unpack_jac(acc, g2)
+    for _ in range(window):
+        T = dcv.jac_dbl(_field(g2), T)
+    return pack_point(T)
+
+
+def g1_dblw_ref(acc, window):
+    return _dblw_ref(False, acc, window)
+
+
+def g2_dblw_ref(acc, window):
+    return _dblw_ref(True, acc, window)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and the driver
 # ---------------------------------------------------------------------------
@@ -320,6 +444,19 @@ def p_step(g2, acc, q, bits):
     if mont.on_card(acc):
         return (g2_step if g2 else g1_step)(acc, q, bits)
     return (g2_step_ref if g2 else g1_step_ref)(acc, q, bits)
+
+
+def p_selmadd(g2, acc, table, digits, start):
+    if mont.on_card(acc):
+        return (g2_selmadd if g2 else g1_selmadd)(acc, table, digits, start)
+    return (g2_selmadd_ref if g2 else g1_selmadd_ref)(acc, table, digits,
+                                                      start)
+
+
+def p_dblw(g2, acc, window):
+    if mont.on_card(acc):
+        return (g2_dblw if g2 else g1_dblw)(acc, window)
+    return (g2_dblw_ref if g2 else g1_dblw_ref)(acc, window)
 
 
 def packed_infinity(g2: bool, n: int, device):
@@ -416,7 +553,8 @@ def scalar_mul_fixed_pallas(curve, points_aff, k: int, window: int = 4):
 
 
 def msm_pallas_shared(curve, points_aff, scalars, nbits: int = 64,
-                      window: int = 3, accumulators=None):
+                      window: int = 3, accumulators=None,
+                      fused: bool = True):
     """Σ points_i·scalars_i by shared-window Horner accumulation; the
     counterpart of ``pallas_curve.msm_pallas_shared`` (:887).
 
@@ -424,12 +562,16 @@ def msm_pallas_shared(curve, points_aff, scalars, nbits: int = 64,
     (x, y, inf) of ``pairing.g1/g2_affine_from_host``; scalars: int32[N, 16]
     canonical limbs. Dead (infinity) lanes get digit 0 and are never
     selected; the affine base lifted to Z = 1 and 2^w − 2 B10 launches make
-    the table 1P..(2^w−1)P; one B11 launch makes min(A, N) partial sums
-    (A = ``accumulators``, by default ``ACCUMULATORS``); ``fold_sum`` adds
-    them up. Returns an unbatched Jacobian point (leaves [24]).
+    the table 1P..(2^w−1)P. fused=True: one B11 launch makes min(A, N)
+    partial sums (A = ``accumulators``, by default ``ACCUMULATORS``).
+    fused=False, the JAX package's DIRECT branch: min(A, N) accumulators
+    (by default ``SHARED_BLOCK``), and per window one B16 dblw launch, then
+    one B16 selmadd launch per block of A lanes, the last block's padding
+    with digit 0. ``fold_sum`` adds the partial sums up; both forms give
+    the same point. Returns an unbatched Jacobian point (leaves [24]).
     """
     if accumulators is None:
-        accumulators = ACCUMULATORS
+        accumulators = ACCUMULATORS if fused else SHARED_BLOCK
     x, y, inf = points_aff
     g2 = curve is dcv.G2
     n = inf.shape[0]
@@ -442,13 +584,22 @@ def msm_pallas_shared(curve, points_aff, scalars, nbits: int = 64,
     for _ in range((1 << window) - 2):
         entries.append(p_madd(g2, entries[-1], q))
     table = torch.cat(entries)
-    acc = p_winacc(g2, table, digits.contiguous(),
-                   min(accumulators, max(n, 1)), window)
+    digits = digits.contiguous()
+    A = min(accumulators, max(n, 1))
+    if fused:
+        acc = p_winacc(g2, table, digits, A, window)
+    else:
+        acc = packed_infinity(g2, A, q.device)
+        for row in digits:
+            acc = p_dblw(g2, acc, window)
+            for start in range(0, n, A):
+                acc = p_selmadd(g2, acc, table, row, start)
     return curve.fold_sum(unpack_jac(acc, g2))
 
 
 _SRC = "threshold_crypto_tpu_torch/csrc/msm.cu"
 _LADDER = "threshold_crypto_tpu_torch/csrc/ladder.cu"
+_SHARED = "threshold_crypto_tpu_torch/csrc/shared.cu"
 _TPU = "threshold_crypto_tpu/device/pallas_curve.py:"
 KERNELS = (
     Kernel("g1_madd", g1_madd, g1_madd_ref, G1_MADD, _SRC, _TPU + "397"),
@@ -463,4 +614,10 @@ KERNELS = (
            _TPU + "385"),
     Kernel("g1_step", g1_step, g1_step_ref, G1_STEP, _LADDER, _TPU + "373"),
     Kernel("g2_step", g2_step, g2_step_ref, G2_STEP, _LADDER, _TPU + "373"),
+    Kernel("g1_selmadd", g1_selmadd, g1_selmadd_ref, G1_SELMADD, _SHARED,
+           _TPU + "410"),
+    Kernel("g2_selmadd", g2_selmadd, g2_selmadd_ref, G2_SELMADD, _SHARED,
+           _TPU + "410"),
+    Kernel("g1_dblw", g1_dblw, g1_dblw_ref, G1_DBLW, _SHARED, _TPU + "433"),
+    Kernel("g2_dblw", g2_dblw, g2_dblw_ref, G2_DBLW, _SHARED, _TPU + "433"),
 )

@@ -67,6 +67,10 @@ class FqOps:
         return mont.sub(FQ, a, b)
 
     @staticmethod
+    def neg(a):
+        return mont.neg(FQ, a)
+
+    @staticmethod
     def small(a, k):
         return mont.mul_small(FQ, a, k)
 
@@ -119,6 +123,7 @@ class Fq2Ops:
     sqr = staticmethod(tw.fq2_sqr)
     add = staticmethod(tw.fq2_add)
     sub = staticmethod(tw.fq2_sub)
+    neg = staticmethod(tw.fq2_neg)
     small = staticmethod(tw.fq2_mul_small)
     inv = staticmethod(tw.fq2_inv)
     select = staticmethod(tw.fq2_select)

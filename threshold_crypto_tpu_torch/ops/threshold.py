@@ -15,11 +15,21 @@ The counterpart of ``threshold_crypto_tpu/ops/threshold.py``; so far:
   message hash on the device (``device/hash2g2.py``), the reference's
   per-share ``verify``;
 * ``encrypt_batch_pallas``, the three per-lane scalar-muls of batched
-  Baek–Zhang encryption on the ladder kernel.
+  Baek–Zhang encryption on the ladder kernel, and the batch ops of the two
+  threshold flows around it: ``sign_batch``, ``decrypt_share_batch``,
+  ``encrypt_begin_batch`` / ``encrypt_finish_batch`` / ``encrypt_batch``
+  (per-lane ladders, B10 tables and B13), ``verify_dec_share_batch`` and
+  ``ciphertext_verify_batch`` (2-pair checks on the megakernel pairing);
+* ``combine_batch``, the threshold combine: λ from the shares' x
+  (``ops.fr.lagrange_coeffs_at_zero``, B14 above 1024 shares), then one
+  255-bit MSM on one of three paths (B11, B15 or B16);
+* ``derive_shares``, the keygen's share derivation (``ops.fr.poly_eval``).
 
 The JAX package's jit and AOT-cache wrappers (``verify_batch_pallas_jit``,
 the jitted aggregate of ``verify_sig_shares_rlc_pallas``) have no
-counterpart: PyTorch runs eagerly.
+counterpart: PyTorch runs eagerly. Nor has ``combine_batch_stepwise``, which
+drives the combine's MSM bit by bit over a small jitted step only to escape
+XLA's compile latency.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from ..device.curve import leaves, tree_map
 from ..device.mont import FQ
 from ..host import chacha as hchacha
 from ..host.params import G1_GEN, P
+from . import fr as frops
 
 
 # ---------------------------------------------------------------------------
@@ -137,6 +148,12 @@ def _neg_gen_g1(shape, device):
     return _g1_const(G1_GEN[0], P - G1_GEN[1], shape, device)
 
 
+def _neg_aff(curve, aff):
+    """−P of an affine tuple (x, y, inf): (x, −y, inf)."""
+    x, y, inf = aff
+    return (x, curve.f.neg(y), inf)
+
+
 def verify_batch(pk_aff, h_aff, sig_aff):
     """bool[N]: e(pk_i, H_i) == e(G1, sig_i) per lane.
 
@@ -198,9 +215,74 @@ def splice_host_hashes(h_aff, ok, msgs):
     return tree_map(lambda a, b: a.index_put((idx,), b), h_aff, fb)
 
 
+def verify_dec_share_batch(share_aff, huv_aff, pk_aff, w_aff):
+    """bool[N]: e(share_i, H(u, v)_i) == e(pk_i, w_i) per lane
+    (``src/lib.rs:182-186``), as e(share, H)·e(−pk, w) == 1 through
+    ``pairing_check_pallas``. share_aff / pk_aff: G1 affine tuples [N],
+    huv_aff / w_aff: G2 affine tuples [N]."""
+    return dpr.pairing_check_pallas(
+        _pair2(share_aff, _neg_aff(dcv.G1, pk_aff)), _pair2(huv_aff, w_aff))
+
+
+def ciphertext_verify_batch(u_aff, w_aff, huv_aff):
+    """bool[N]: e(G1, w_i) == e(u_i, H(u, v)_i) per lane, the ciphertext
+    check (``src/lib.rs:508-513``), as e(G1, w)·e(−u, H) == 1 through
+    ``pairing_check_pallas``."""
+    n = u_aff[2].shape[0]
+    gen = _gen_g1((n,), u_aff[2].device)
+    return dpr.pairing_check_pallas(
+        _pair2(gen, _neg_aff(dcv.G1, u_aff)), _pair2(w_aff, huv_aff))
+
+
 # ---------------------------------------------------------------------------
-# Encrypt (batched Baek–Zhang)
+# Sign, decrypt share, encrypt: per-lane scalar-muls on the ladder
 # ---------------------------------------------------------------------------
+
+def sign_batch(h_jac, sk_plain):
+    """sig_i = H_i·sk_i (``src/lib.rs:372-374``): h_jac a G2 Jacobian tuple
+    [N] (a shared hash point broadcast to the batch), sk_plain int32[N, 16]
+    canonical Fr limbs. The points are lifted to affine
+    (``jacobian_to_affine``), then ``cuda_curve.scalar_mul_pallas`` runs the
+    ladder (B10 table, one B13 launch). Returns a G2 Jacobian tuple [N]."""
+    return ccv.scalar_mul_pallas(dcv.G2, jacobian_to_affine(dcv.G2, h_jac),
+                                 sk_plain)
+
+
+def decrypt_share_batch(u_jac, sk_plain):
+    """d_i = u_i·sk_i (G1), the decryption share (``src/lib.rs:460-462``),
+    as ``sign_batch`` is in G2. Returns a G1 Jacobian tuple [N]."""
+    return ccv.scalar_mul_pallas(dcv.G1, jacobian_to_affine(dcv.G1, u_jac),
+                                 sk_plain)
+
+
+def _encrypt_begin(pk_aff, r_plain):
+    gen = _gen_g1((r_plain.shape[0],), r_plain.device)
+    return (ccv.scalar_mul_pallas(dcv.G1, gen, r_plain),
+            ccv.scalar_mul_pallas(dcv.G1, pk_aff, r_plain))
+
+
+def encrypt_begin_batch(pk_jac, r_plain):
+    """The first half of batched encryption (``src/lib.rs:128-137``):
+    u_i = r_i·G1 and g_i = r_i·pk_i. pk_jac: a G1 Jacobian tuple [N] (a
+    shared key broadcast to the batch); r_plain: int32[N, 16] canonical Fr
+    limbs. The host derives v and H(u, v) from them; returns (u [N],
+    g [N]) as Jacobian tuples."""
+    return _encrypt_begin(jacobian_to_affine(dcv.G1, pk_jac), r_plain)
+
+
+def encrypt_finish_batch(huv_jac, r_plain):
+    """The second half: w_i = r_i·H(u_i, v_i) (G2). Returns a G2 Jacobian
+    tuple [N]."""
+    return ccv.scalar_mul_pallas(
+        dcv.G2, jacobian_to_affine(dcv.G2, huv_jac), r_plain)
+
+
+def encrypt_batch(pk_jac, r_plain, huv_jac):
+    """The three scalar-muls of batched encryption in one call, for callers
+    that hold the H(u, v) points already: (u [N], g [N], w [N])."""
+    u, g = encrypt_begin_batch(pk_jac, r_plain)
+    return u, g, encrypt_finish_batch(huv_jac, r_plain)
+
 
 def encrypt_batch_pallas(pk_aff, r_plain, huv_aff):
     """The three scalar-muls of batched encryption (``src/lib.rs:128-137``)
@@ -212,12 +294,59 @@ def encrypt_batch_pallas(pk_aff, r_plain, huv_aff):
     the batch); r_plain: int32[N, 16] canonical Fr limbs. Returns the
     Jacobian tuples (u [N], g [N], w [N]).
     """
-    n = r_plain.shape[0]
-    gen = _gen_g1((n,), r_plain.device)
-    u = ccv.scalar_mul_pallas(dcv.G1, gen, r_plain)
-    g = ccv.scalar_mul_pallas(dcv.G1, pk_aff, r_plain)
-    w = ccv.scalar_mul_pallas(dcv.G2, huv_aff, r_plain)
-    return u, g, w
+    u, g = _encrypt_begin(pk_aff, r_plain)
+    return u, g, ccv.scalar_mul_pallas(dcv.G2, huv_aff, r_plain)
+
+
+# ---------------------------------------------------------------------------
+# Combine (in-exponent Lagrange at x = 0) and share derivation
+# ---------------------------------------------------------------------------
+
+COMBINE_PATHS = ("pallas", "scalarwise", "bitscan")
+
+
+def combine_batch(curve, shares_jac, xs_mont, path: str = "scalarwise"):
+    """Σᵢ λᵢ·shareᵢ with λ from the batch's x (``src/lib.rs:719-767``).
+
+    curve: ``curve.G2`` for signature shares, ``curve.G1`` for decryption
+    shares; shares_jac: a Jacobian tuple [N]; xs_mont: int32[N, 16]
+    Montgomery Fr limbs (the reference's x = i + 1). λ comes from
+    ``ops.fr.lagrange_coeffs_at_zero`` (B14 above 1024 shares) in canonical
+    form (one B1); the shares are lifted to affine (``jacobian_to_affine``)
+    and the 255-bit MSM runs on the path named:
+
+    * "pallas": ``msm_pallas_shared`` at window 3 (85 windows; B10 table,
+      one B11 launch, the fold);
+    * "scalarwise" (the JAX default): N bit ladders, one B15 launch
+      (``msm_pallas(window=1)``), and one fold of N lanes;
+    * "bitscan": one shared accumulator block over the bits,
+      ``msm_pallas_shared(window=1, fused=False)``: per bit one B16 dblw
+      and one B16 selmadd per 1024 lanes, then the fold.
+
+    Returns (unbatched Jacobian point, ok bool[]): ok is False on a
+    duplicate or a zero x, the reference's DuplicateEntry.
+    """
+    if path not in COMBINE_PATHS:
+        raise ValueError(f"unknown combine path {path!r}")
+    lam_mont, ok = frops.lagrange_coeffs_at_zero(xs_mont)
+    lam_plain = frops.fr_to_plain(lam_mont)
+    aff = jacobian_to_affine(curve, shares_jac)
+    if path == "pallas":
+        out = ccv.msm_pallas_shared(curve, aff, lam_plain, nbits=255,
+                                    window=3)
+    elif path == "scalarwise":
+        out = ccv.msm_pallas(curve, aff, lam_plain, nbits=255, window=1)
+    else:
+        out = ccv.msm_pallas_shared(curve, aff, lam_plain, nbits=255,
+                                    window=1, fused=False)
+    return out, ok
+
+
+def derive_shares(coeffs_mont, xs_mont):
+    """Keygen: f(x_i) for the whole share batch, one batched Horner
+    (``src/lib.rs:670-673``). coeffs_mont: int32[D+1, 16], xs_mont:
+    int32[N, 16], both Montgomery Fr limbs; returns int32[N, 16]."""
+    return frops.poly_eval(coeffs_mont, xs_mont)
 
 
 # ---------------------------------------------------------------------------
