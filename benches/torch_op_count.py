@@ -5,9 +5,10 @@
 Runs ``threshold_crypto_tpu_torch.ops.verify_batch``,
 ``ops.verify_batch_pallas`` (the megakernel path), the RLC path
 (``ops.rlc_exponents`` then ``ops.verify_sig_shares_rlc_pallas``),
-``ops.verify_with_hash_batch`` and ``ops.encrypt_batch_pallas`` on the
-CPU, where the kernels' plain versions stand in for them, under a dispatch
-counter, and prints one JSON line per path: the torch ops the call issues
+``ops.verify_with_hash_batch``, ``ops.encrypt_batch_pallas``,
+``ops.combine_batch`` and the DKG batch ops on the CPU, where the kernels'
+plain versions stand in for them, under a dispatch counter, and prints one
+JSON line per path: the torch ops the call issues
 outside the kernels' plain versions (on the card each is one launch of a
 PyTorch kernel, the host overhead that sets the pace of a host-bound call),
 and the launches each kernel would get.
@@ -30,6 +31,14 @@ below N, B14's route. It splits the ops by stage, and gives the fold's
 levels at 4096 shares and its ops extrapolated there (levels × the
 counted ops of one level; the rest of the call is counted at
 COMBINE_T1).
+
+The DKG line runs ``chip_smoke.dkg_call``, one dealing dealt and checked
+(``bivar_commit_batch``, ``bivar_row_batch``, ``bivar_commit_row_batch``,
+``bivar_commit_eval_batch`` and the nodes' row and value checks), at
+N = 3t + 1 nodes for t = 2 and t = DKG_MID, by stage, with
+``batch_inv_field`` as the card runs it; its launches are checked against
+``chip_smoke.dkg_launches``, and its torch ops extrapolated to slice 7's
+t = 85 (see ``dkg_line``).
 
 The per-pair counts depend on the code path only, not on the lane count.
 The RLC path's run at RLC_N shares differs from one at 262,144 in what
@@ -74,6 +83,8 @@ LANES = 2
 RLC_N, RLC_CHECK = 256, 2
 # The combine call's shares on the CPU, and the share count of slice 6.
 COMBINE_T1, COMBINE_FULL = 16, 4096
+# The middle degree of the DKG line (N = 3t + 1 nodes).
+DKG_MID = 8
 
 
 class _Counter(TorchDispatchMode):
@@ -194,6 +205,7 @@ def main():
     hash_line()
     encrypt_line()
     combine_line()
+    dkg_line()
 
 
 def hash_line():
@@ -250,8 +262,8 @@ def encrypt_line():
     pk_pt = hcv.G1.mul(hcv.G1.generator, rnd.randrange(1, R))
     huv = [hcv.G2.mul(hcv.G2.generator, rnd.randrange(1, R))
            for _ in range(LANES)]
-    r = chip_smoke.fr_limbs([rnd.randrange(1, R) for _ in range(LANES)],
-                            "cpu")
+    r = dcv.fr_limbs_from_ints(
+        [rnd.randrange(1, R) for _ in range(LANES)], "cpu")
 
     def call(pk_aff, r, huv_aff):
         ops.encrypt_batch_pallas(pk_aff, r, huv_aff)
@@ -265,10 +277,6 @@ def encrypt_line():
         raise SystemExit(f"encrypt launches {launches}, expected {expect}")
     print(json.dumps({"path": "encrypt_batch_pallas", "lanes": LANES,
                       "torch_ops": n_ops, "kernel_launches": launches}))
-
-
-if __name__ == "__main__":
-    main()
 
 
 def combine_line():
@@ -334,3 +342,79 @@ def combine_line():
         f"kernel_launches_at_{COMBINE_FULL}": {
             p: chip_smoke.combine_launches(COMBINE_FULL, p, True)
             for p in full}}))
+
+
+def dkg_line():
+    """One dealing call of ``chip_smoke.dkg_call`` (the four DKG ops and the
+    nodes' checks) at N = 3t + 1 nodes for t = 2 and t = DKG_MID, with
+    ``batch_inv_field`` as the card runs it (one B2); launches per stage
+    checked against ``chip_smoke.dkg_launches``. The torch ops are
+    extrapolated to t = 85: the count less its fold levels is fitted
+    linearly in t between the two points (the powers are t sequential
+    products), and the folds' ⌈log₂(t+1)⌉ + ⌈log₂ npos⌉ levels at t = 85
+    are added at the counted ops of one G1 complete add."""
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    def levels(m):
+        return (m - 1).bit_length()
+
+    def fold_levels(t):
+        return levels(t + 1) + levels((t + 1) * (t + 2) // 2)
+
+    level_ops = count(lambda p: (dcv.G1.add(p, p), torch.ones(()))[1],
+                      (dcv.G1.from_host_affine([dcv.G1.gen_affine_host] * 2,
+                                               device="cpu"),))[0]
+    saved_inv, saved_sync = tops.batch_inv_field, torch.cuda.synchronize
+    tops.batch_inv_field = lambda f, a: f.inv(a)   # the card's one B2
+    torch.cuda.synchronize = lambda *a, **k: None  # no card to wait for
+    out = {}
+    try:
+        for t in (2, DKG_MID):
+            n = 3 * t + 1
+            inp = chip_smoke.dkg_inputs("cpu", n=n, t=t, zero_pos=1)
+            per_stage = {}
+
+            def call(inp):
+                o, _ = chip_smoke.dkg_call(inp)
+                return o["row_ok"].all() & o["val_ok"].all()
+
+            stages = [(tops, name, label) for name, label in (
+                ("bivar_commit_batch", "commit"),
+                ("bivar_row_batch", "rows"),
+                ("bivar_commit_row_batch", "row commitments"),
+                ("bivar_commit_eval_batch", "value commitments"))] + [
+                (chip_smoke, "dkg_row_check", "row check"),
+                (chip_smoke, "dkg_value_check", "value check"),
+                (dcv.G1, "fold_axis", "folds")]
+            n_ops, launches, per_stage = count(call, (inp,), stages)
+            expect = chip_smoke.dkg_launches(n, t)
+            total = {}
+            for want in expect.values():
+                for k, v in want.items():
+                    total[k] = total.get(k, 0) + v
+            if {k: launches.get(k, 0) for k in total} != total:
+                raise SystemExit(f"dkg t={t} launches {launches}, expected "
+                                 f"{total}")
+            out[t] = {"nodes": n, "torch_ops": n_ops,
+                      "kernel_launches": launches,
+                      "torch_ops_by_stage": per_stage}
+    finally:
+        tops.batch_inv_field = saved_inv
+        torch.cuda.synchronize = saved_sync
+        if "fold_axis" in vars(dcv.G1):
+            del dcv.G1.fold_axis
+    rest = {t: out[t]["torch_ops"] - fold_levels(t) * level_ops for t in out}
+    per_t = (rest[DKG_MID] - rest[2]) / (DKG_MID - 2)
+    full = chip_smoke.DKG_T
+    print(json.dumps({
+        "path": "dkg dealing call (chip_smoke.dkg_call)", "by_degree": out,
+        "torch_ops_per_fold_level": level_ops,
+        f"torch_ops_at_t{full}_extrapolated": round(
+            rest[2] + per_t * (full - 2) + fold_levels(full) * level_ops),
+        f"fold_levels_at_t{full}": fold_levels(full),
+        f"kernel_launches_at_t{full}": chip_smoke.dkg_launches(
+            chip_smoke.DKG_N, full)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -11,10 +11,10 @@ Phases, each announced on a flushed line before it starts:
    registers, stack frame and spills that ptxas reports;
 3. kernels: each kernel on the card against its plain PyTorch version on the
    same inputs, bit-exact, at the shapes of the main paths (the tower
-   kernels also on zero lanes and infinity points; B14 at 4096 lanes with a
-   duplicate pair and a zero lane; B16 at window 1 and 3 on its special
-   lanes), timed with CUDA events beside the plain version and the
-   kernel's bound;
+   kernels, B17 included, also on zero lanes and infinity points; B14 at
+   4096 lanes with a duplicate pair and a zero lane; B16 at window 1 and 3
+   on its special lanes), timed with CUDA events beside the plain version
+   and the kernel's bound;
 4. slice 1: ``ops.verify_batch`` on 8192 lanes (16,384 pairs) of keys,
    messages and signatures made on the host from a seed; the result must
    equal the mask known from construction lane for lane, and a 256-lane
@@ -23,7 +23,10 @@ Phases, each announced on a flushed line before it starts:
    lanes: equal to the mask and to slice 1 lane for lane, with its launches
    per call (63 / 5 / 290 / 25 / 8 / 1 of B4-B9 and one B2), its time and
    kernel share, and both paths timed in turns in this one run (slice 1,
-   slice 2, slice 2, slice 1);
+   slice 2, slice 2, slice 1); then B17 composed: one whole Miller loop
+   over slice 2's pairs through the unfused pieces (63 dbl_step and
+   f_sqr_fold, 5 add_step and f_fold launches), its f and T equal to the
+   B4/B5 loop's bit for bit, both loops timed in turns;
 6. slice 3: the RLC path, the system's main path, ``ops.rlc_exponents`` then
    ``ops.verify_sig_shares_rlc_pallas``, at N = 262,144 shares of 16 keys on
    one message (the inputs of ``bench.py``'s ``_make_rlc_batch``, four lanes
@@ -60,7 +63,20 @@ Phases, each announced on a flushed line before it starts:
    ``ciphertext_verify_batch`` (true, and false on a lane with w replaced),
    ``decrypt_share_batch``, ``verify_dec_share_batch`` (true, and false on
    a replaced share) and the G1 combine on each path equal to r·pk;
-10. one JSON line of kernel numbers, then the device line, last.
+10. slice 7: the DKG at N = 256 nodes, t = 85 (N = 3t + 1), one dealer's
+   bivariate polynomial from a seed with one zero coefficient:
+   ``bivar_commit_batch`` (3,741 lanes), ``bivar_row_batch`` and
+   ``bivar_commit_row_batch`` for x = 1..256, ``bivar_commit_eval_batch``
+   for the pairs (m, 1), then the nodes' checks: the commitment equals the
+   host's at 64 sampled coefficients and the zero one (infinity), four
+   rows equal host Horner, every row commitment equals its row's
+   commitment (two nodes' the host's), every value commitment equals
+   f(m, 1)·G1 and a tampered value is rejected on its lane only; launches
+   per stage against ``dkg_launches``, the median of 3 dealing calls, the
+   kernel share and a stage split; then ``ops.verify_sig_shares_rlc`` (B15
+   and the fold) on slice 3's batch, accepting it and rejecting it with one
+   signature replaced;
+11. one JSON line of kernel numbers (B1-B17), then the device line, last.
 
 Any mismatch or exception ends the run with a non-zero exit and no result
 line. Without a CUDA card, or without the package beside this file, it exits
@@ -158,6 +174,21 @@ B16_TABLE_N = COMBINE_N - 100
 COMBINE_KERNELS = {"lagrange_rowprod": "G2 pallas",
                    "g1_selmadd": "G1 bitscan", "g2_selmadd": "G2 bitscan",
                    "g1_dblw": "G1 bitscan", "g2_dblw": "G2 bitscan"}
+# Slice 7, the DKG at the committee size of a large threshold-BLS validator
+# set: N = 3t + 1 nodes, one dealer's symmetric bivariate polynomial of
+# degree t from a seed (one coefficient zero: it commits to infinity);
+# node 1 checks the values all N nodes sent it. The commitment is checked
+# on the host at DKG_SAMPLE coefficients, the rows of DKG_ROWS_SAMPLE, the
+# row commitments of DKG_HOST_NODES; lane DKG_TAMPERED's value is tampered
+# with once.
+DKG_N = 256
+DKG_T = 85
+DKG_SEED = 0xD6C
+DKG_ZERO_POS = 17
+DKG_SAMPLE = 64
+DKG_ROWS_SAMPLE = (0, 1, 128, 255)
+DKG_HOST_NODES = (0, 255)
+DKG_TAMPERED = 100
 
 
 def phase(msg):
@@ -422,7 +453,9 @@ def random_packed(k, n, gen, dev):
 # of its outputs, and its Fq products per lane as csrc/tower.cuh runs them
 # (B4: 36 for f², 47 for the doubling and its line, 39 for the fold; B5:
 # 41 + 39; B6: 9 Fq2 squares of 2; B7: 18 + 54; B8: 18 Fq2 products of 3;
-# B9: 12 of 3). fq_engine: 12 components, one product each.
+# B9: 12 of 3; B17: B4 and B5 cut at the line, dbl_step 47, f_sqr_fold
+# 36 + 39, add_step 41, f_fold 39). fq_engine: 12 components, one product
+# each. The Miller kernels run at slice 2's pair width.
 TOWER_CHECKS = {
     "fq_engine": ((12, 12), 5 * 12, 12, 16384),
     "dbl_fold": ((12, 6, 2), 12 + 6, 122, 2 * LANES),
@@ -431,20 +464,28 @@ TOWER_CHECKS = {
     "cyclo_sqr_mul": ((12, 12), 12, 72, LANES),
     "fq12_mul": ((12, 12), 12, 54, LANES),
     "fq12_sqr": ((12,), 12, 36, LANES),
+    "dbl_step": ((6, 2), 6 + 6, 47, 2 * LANES),
+    "add_step": ((6, 4, 2), 6 + 6, 41, 2 * LANES),
+    "f_sqr_fold": ((12, 6), 12, 75, 2 * LANES),
+    "f_fold": ((12, 6), 12, 39, 2 * LANES),
 }
+# B17, the unfused Miller pieces: on no path of the JAX package or the
+# port; the composition check drives one whole Miller loop through them.
+B17_KERNELS = ("dbl_step", "add_step", "f_sqr_fold", "f_fold")
 
 
 def tower_inputs(name, gen, dev):
     """The kernel's operands at the path's width, with special lanes: 0-3
-    all zero (f = 0, T = 0, P = (0, 0) the infinity point), 4-7 an infinity
-    P only, 8-11 a zero T only."""
+    all zero (f = 0, T = 0, P = (0, 0) the infinity point, line 0), and
+    for the kernels that take T and P, 4-7 an infinity P only and 8-11 a
+    zero T only."""
     comps, _, _, n = TOWER_CHECKS[name]
     ins = [random_packed(k, n, gen, dev) for k in comps]
     for x in ins:
         x[:, 0:4] = 0
-    if name in ("dbl_fold", "add_fold"):
+    if name in ("dbl_fold", "add_fold", "dbl_step", "add_step"):
         ins[-1][:, 4:8] = 0
-        ins[1][:, 8:12] = 0
+        ins[0 if name.endswith("step") else 1][:, 8:12] = 0
     return ins
 
 
@@ -630,7 +671,7 @@ def run_slices(dev):
           f"{statistics.mean(new_s):.3f} s, "
           f"{statistics.mean(old_s) / statistics.mean(new_s):.1f}x",
           flush=True)
-    return old, new
+    return old, new, args
 
 
 # ---------------------------------------------------------------------------
@@ -1269,7 +1310,8 @@ def rlc_ladder_calls(pk_aff, sig_aff, h_jac):
         if not ok:
             fail(f"rlc: the {msm} form rejected the valid batch")
         turns.append((msm, s))
-    launches = {k: v for k, v in read_counts().items() if "step" in k}
+    launches = {k: v for k, v in read_counts().items()
+                if k.startswith(("g1_step", "g2_step"))}
     if launches != {"g1_step4": 2, "g2_step4": 2, "g1_step": 0,
                     "g2_step": 0}:
         fail(f"rlc ladder form: B13/B15 launches {launches}")
@@ -1352,16 +1394,6 @@ def encrypt_launches():
             "mont_mul": 0, "mont_pow": 0}
 
 
-def fr_limbs(ks, dev):
-    """Host ints < 2^256 -> int32[N, 16] canonical limbs on the card."""
-    import numpy as np
-    import torch
-
-    raw = b"".join(int(k).to_bytes(32, "little") for k in ks)
-    limbs = np.frombuffer(raw, dtype="<u2").astype(np.int32)
-    return torch.from_numpy(limbs.reshape(len(ks), 16)).to(dev)
-
-
 def tile_to(tree, n):
     """A point tuple of k lanes tiled to n lanes (k divides n)."""
     from threshold_crypto_tpu_torch.device import curve as dcv
@@ -1432,7 +1464,7 @@ def hash_inputs(dev):
     hash_s = time.time() - t0
     pk_aff = tile_to(dpr.g1_affine_from_host(
         [hcv.G1.mul(hcv.G1.generator, s) for s in sks], device=dev), HASH_N)
-    sk_limbs = fr_limbs(sks, dev).repeat(HASH_N // HASH_KEYS, 1)
+    sk_limbs = dcv.fr_limbs_from_ints(sks, dev).repeat(HASH_N // HASH_KEYS, 1)
     sig0 = tops.jacobian_to_affine(dcv.G2, ccv.scalar_mul_pallas(
         dcv.G2, dpr.g2_affine_from_host(h_pts, device=dev), sk_limbs))
     src = torch.arange(HASH_N, device=dev)
@@ -1586,7 +1618,7 @@ def run_encrypt(dev):
     pk_aff = dcv.tree_map(lambda a: a.expand((n,) + a.shape[1:]),
                           dpr.g1_affine_from_host([pk_host], device=dev))
     huv_aff = tile_to(dpr.g2_affine_from_host(huv_hosts, device=dev), n)
-    r = fr_limbs(rs, dev)
+    r = dcv.fr_limbs_from_ints(rs, dev)
 
     def call():
         torch.cuda.synchronize()
@@ -2103,7 +2135,7 @@ def run_combine(dev):
     pk_host = hcv.G1.mul(hcv.G1.generator, secret)
     huv_host = hcv.G2.mul(hcv.G2.generator, rnd.randrange(1, R))
     rs = [rnd.randrange(1, R) for _ in range(n)]
-    r_plain = fr_limbs(rs, dev)
+    r_plain = dcv.fr_limbs_from_ints(rs, dev)
     u, g = timed("encrypt_begin_batch", ops.encrypt_begin_batch, tile_to(
         dcv.G1.from_host_affine([pk_host], device=dev), n), r_plain)
     huv_jac = tile_to(dcv.G2.from_host_affine([huv_host], device=dev), n)
@@ -2170,6 +2202,439 @@ def run_combine(dev):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5, continued: B17 composed into a whole Miller loop
+# ---------------------------------------------------------------------------
+
+def run_b17_composition(args, dev):
+    """One whole packed Miller loop over slice 2's pairs (2·LANES lanes: the
+    (pk, H) and (−G1, sig) pairs of ``verify_batch_pallas``) through B17:
+    on each of the 63 bits of |x| after the first ``p_dbl_step`` then
+    ``p_f_sqr_fold``, on its five 1-bits ``p_add_step`` then ``p_f_fold``
+    (136 launches, counted). f and T equal the B4/B5 loop's bit for bit,
+    and f equals ``miller_loop_packed``'s; both loops timed in turns
+    (fused, split, split, fused) with CUDA events."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_tower as ctw
+    from threshold_crypto_tpu_torch.device import packed as pk
+    from threshold_crypto_tpu_torch.device import pairing as dpr
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    pk_aff, h_aff, sig_aff = args
+    neg_gen = tops._neg_gen_g1((pk_aff[2].shape[0],), dev)
+    P = pk.pack(dpr._flatten_aff(tops._pair2(pk_aff, neg_gen))[0])
+    Q = pk.pack(dpr._flatten_aff(tops._pair2(h_aff, sig_aff))[0])
+    n = P.shape[1]
+
+    def start():
+        return pk.packed_one12(n, dev), torch.cat([Q, pk.packed_one2(n, dev)])
+
+    def fused():
+        f, T = start()
+        for bit in dpr.X_BITS[1:]:
+            f, T = ctw.p_dbl_fold(f, T, P)
+            if bit:
+                f, T = ctw.p_add_fold(f, T, Q, P)
+        return f, T
+
+    def split():
+        f, T = start()
+        for bit in dpr.X_BITS[1:]:
+            T, line = ctw.p_dbl_step(T, P)
+            f = ctw.p_f_sqr_fold(f, line)
+            if bit:
+                T, line = ctw.p_add_step(T, Q, P)
+                f = ctw.p_f_fold(f, line)
+        return f, T
+
+    reset_counts()
+    f_split, T_split = split()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    bits = dpr.X_BITS[1:]
+    expect = {"dbl_step": len(bits), "f_sqr_fold": len(bits),
+              "add_step": sum(bits), "f_fold": sum(bits)}
+    if {k: v for k, v in launches.items() if v and k != "fq_engine"} \
+            != expect:
+        fail(f"B17 composition: launches {launches}, expected {expect}")
+    f_fused, T_fused = fused()
+    if not (torch.equal(f_split, f_fused) and torch.equal(T_split, T_fused)
+            and torch.equal(f_split, dpr.miller_loop_packed(P, Q))):
+        fail("B17 composition: f or T differs from the B4/B5 Miller loop")
+    turns = [(what, timed_once(fn)[1]) for what, fn in (
+        ("fused", fused), ("split", split), ("split", split),
+        ("fused", fused))]
+    ms = {w: statistics.mean(t for v, t in turns if v == w)
+          for w in ("fused", "split")}
+    print(f"B17 composition at {n} lanes: 63 x (dbl_step, f_sqr_fold) and "
+          f"5 x (add_step, f_fold), {sum(expect.values())} launches; f and "
+          f"T equal the B4/B5 loop's bit for bit, f equals "
+          f"miller_loop_packed's; in turns (fused, split, split, fused) "
+          f"{[round(t, 3) for _, t in turns]} ms: split {ms['split']:.3f} ms "
+          f"against fused {ms['fused']:.3f} ms "
+          f"({ms['split'] / ms['fused']:.2f}x)", flush=True)
+    return dict(launches=launches, lanes=n, split_ms=ms["split"],
+                fused_ms=ms["fused"], turns_ms=turns)
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: slice 7, the DKG at a 256-node committee
+# ---------------------------------------------------------------------------
+
+def dkg_launches(n, t):
+    """Launches per stage of one ``dkg_call`` for n nodes at threshold t:
+    every ladder over affine points lifted with one B2 and 4 B1, its
+    1P..15P table (14 B10) and one B13 per ``LADDER_CHUNK`` lanes; each
+    fold level one complete add (5 B1); ``G1.eq`` 3 B1.
+
+    commit: the npos fixed-base ladders; rows: t products for the powers
+    and one for the coefficient × power grid; row commitments: the powers,
+    their canonical form, n(t+1)² ladders over the commitment and a fold
+    of ⌈log₂(t+1)⌉ levels; value commitments: the powers of x and y (2t),
+    the stacked scalars and their canonical form (2), n·npos ladders and a
+    fold of ⌈log₂ npos⌉ levels; row check: the rows' canonical form, their
+    n(t+1) commitments and the comparison; value check: the powers of y,
+    the row sums' product, their canonical form, n commitments and the
+    comparison."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
+    npos = (t + 1) * (t + 2) // 2
+
+    def ladders(lanes, muls, chunked=True):
+        steps = -(-lanes // ccv.LADDER_CHUNK) if chunked else 1
+        return {"mont_mul": muls + 4, "mont_pow": 1, "g1_madd": 14,
+                "g1_step4": steps}
+
+    return {
+        "commit": ladders(npos, 0, chunked=False),
+        "rows": {"mont_mul": t + 1, "mont_pow": 0, "g1_madd": 0,
+                 "g1_step4": 0},
+        "row commitments": ladders(n * (t + 1) ** 2,
+                                   t + 1 + 5 * _levels(t + 1)),
+        "value commitments": ladders(n * npos, 2 * t + 2
+                                     + 5 * _levels(npos)),
+        "row check": ladders(n * (t + 1), 1 + 3, chunked=False),
+        "value check": ladders(n, t + 2 + 3, chunked=False),
+    }
+
+
+def dkg_inputs(dev, n=None, t=None, zero_pos=None):
+    """One dealer's symmetric bivariate polynomial of degree t from
+    DKG_SEED (coefficient zero_pos, by default DKG_ZERO_POS, set to 0), as
+    canonical and Montgomery limbs; nodes x = 1..n; node 1 the checker
+    (y = 1)."""
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.host.params import R
+    from threshold_crypto_tpu_torch.ops import fr as frops
+
+    n, t = n or DKG_N, t or DKG_T
+    zero_pos = DKG_ZERO_POS if zero_pos is None else zero_pos
+    rnd = random.Random(DKG_SEED)
+    coeffs = [rnd.randrange(R) for _ in range((t + 1) * (t + 2) // 2)]
+    coeffs[zero_pos] = 0
+    return dict(coeffs=coeffs, t=t, n=n, zero_pos=zero_pos,
+                plain=dcv.fr_limbs_from_ints(coeffs, dev),
+                mont=frops.fr_to_device(coeffs, dev),
+                xs=frops.fr_to_device(range(1, n + 1), dev),
+                ys=frops.fr_to_device([1] * n, dev))
+
+
+def dkg_row_check(rows, rowc, t):
+    """bool[n, t+1]: every node's row commitments equal the commitments of
+    its own row (the protocol's ``commit.row(m) == row.commitment()``)."""
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.ops import fr as frops
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    own = tops.commit_batch(frops.fr_to_plain(rows).reshape(
+        -1, rows.shape[-1]))
+    return dcv.G1.eq(rowc, dcv.tree_map(
+        lambda a: a.reshape(rows.shape[0], t + 1, a.shape[-1]), own))
+
+
+def dkg_value_check(rows, ev, ys, t, tamper=None):
+    """bool[n]: each value f(x_m, y_m) (node m's row at y_m; with
+    ``tamper`` = lane, that lane's value plus one) commits to the
+    commitment's C(x_m, y_m) (``commit.evaluate(m, s) == val·G1``)."""
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import mont
+    from threshold_crypto_tpu_torch.ops import fr as frops
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    spow = tops.powers_batch(ys, t)                          # [n, t+1]
+    vals = frops.sum_leading(mont.mul(mont.FR, rows, spow).movedim(1, 0))
+    if tamper is not None:
+        vals[tamper] = mont.add(mont.FR, vals[tamper],
+                                mont.one(mont.FR, (), vals.device))
+    return dcv.G1.eq(ev, tops.commit_batch(frops.fr_to_plain(vals)))
+
+
+def dkg_call(inp, after=None):
+    """One dealing, dealt and checked: the four DKG ops, then the nodes'
+    row and value checks, synchronised. ``after(stage)`` runs after each
+    of the six stages (``dkg_launches``' keys). Returns (outputs,
+    seconds)."""
+    import torch
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    t, xs, ys = inp["t"], inp["xs"], inp["ys"]
+    done = after or (lambda stage: None)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    commit = tops.bivar_commit_batch(inp["plain"])
+    done("commit")
+    rows = tops.bivar_row_batch(inp["mont"], xs, t)
+    done("rows")
+    rowc = tops.bivar_commit_row_batch(commit, xs, t)
+    done("row commitments")
+    ev = tops.bivar_commit_eval_batch(commit, xs, ys, t)
+    done("value commitments")
+    row_ok = dkg_row_check(rows, rowc, t)
+    done("row check")
+    val_ok = dkg_value_check(rows, ev, ys, t)
+    done("value check")
+    torch.cuda.synchronize()
+    return (dict(commit=commit, rows=rows, rowc=rowc, ev=ev, row_ok=row_ok,
+                 val_ok=val_ok), time.time() - t0)
+
+
+def bivar_host(coeffs, t, x, y):
+    """f(x, y) mod r on the host."""
+    from threshold_crypto_tpu_torch.host.params import R
+    from threshold_crypto_tpu_torch.poly import coeff_pos
+
+    return sum(coeffs[coeff_pos(i, j)] * pow(x, i, R) * pow(y, j, R)
+               for i in range(t + 1) for j in range(t + 1)) % R
+
+
+def row_host(coeffs, t, x):
+    """Node x's row on the host: Σ_j c[pos(i, j)]·x^j mod r, per i."""
+    from threshold_crypto_tpu_torch.host.params import R
+    from threshold_crypto_tpu_torch.poly import coeff_pos
+
+    return [sum(coeffs[coeff_pos(i, j)] * pow(x, j, R)
+                for j in range(t + 1)) % R for i in range(t + 1)]
+
+
+@contextlib.contextmanager
+def dkg_stage_timer(spans):
+    """Bracket the inner stages of a dealing call with CUDA events: the
+    powers (B1), the affine lifts (B2, B1), the ladder tables (B10), the
+    ladders (B13) and the folds."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    patches = [
+        (tops, "powers_batch", lambda *a: "  powers (B1)"),
+        (tops, "jacobian_to_affine", lambda *a: "  affine lifts (B2, B1)"),
+        (ccv, "p_madd", lambda *a: "  tables (B10)"),
+        (ccv, "p_step4", lambda *a: "  ladders (B13)"),
+    ]
+    with spans_around(spans, patches) as wrap:
+        dcv.G1.fold_axis = wrap(lambda *a: "  folds", dcv.G1.fold_axis)
+        try:
+            yield
+        finally:
+            del dcv.G1.fold_axis
+
+
+def run_dkg(dev, card):
+    """Slice 7: one dealer's part of the DKG at DKG_N nodes, threshold
+    DKG_T (N = 3t + 1): ``bivar_commit_batch`` (npos = (t+1)(t+2)/2
+    lanes), ``bivar_row_batch`` and ``bivar_commit_row_batch`` for x =
+    1..N, ``bivar_commit_eval_batch`` for the pairs (m, 1) (node 1 checking
+    the values the N nodes sent it), then the nodes' checks on the card.
+
+    Checks: the commitment equals host mul on DKG_SAMPLE sampled
+    coefficients and on the zero one (infinity); four sampled rows equal
+    Python-int Horner mod r; every row commitment equals the commitment
+    of its node's row, and two nodes' equal the host's G1·row; every value
+    commitment equals f(m, 1)·G1, three of them the host's, and a value
+    tampered with is rejected on its lane only; launches per stage equal
+    ``dkg_launches``. Then the median of 3 whole calls, the kernel share,
+    a stage split, and the B13 launches of one call each timed beside its
+    bound (``ladder_bound`` on its digits)."""
+    import torch
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.ops import fr as frops
+
+    t0 = time.time()
+    inp = dkg_inputs(dev)
+    n, t, coeffs = inp["n"], inp["t"], inp["coeffs"]
+    npos = len(coeffs)
+    print(f"inputs: degree {t}, {npos} coefficients (coefficient "
+          f"{DKG_ZERO_POS} zero), {n} nodes, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    per_stage = {}
+
+    def count(stage):
+        per_stage[stage] = read_counts()
+        reset_counts()
+
+    reset_counts()
+    out, first_s = dkg_call(inp, after=count)
+    expect = dkg_launches(n, t)
+    for stage, want in expect.items():
+        got = {k: v for k, v in per_stage[stage].items() if v}
+        if got != {k: v for k, v in want.items() if v}:
+            fail(f"dkg {stage}: launches {got}, expected {want}")
+    launches = {k: sum(c[k] for c in per_stage.values())
+                for k in per_stage["commit"]}
+    print(f"dkg first call {first_s:.2f} s; launches per stage "
+          f"{ {st: {k: v for k, v in c.items() if v} for st, c in per_stage.items()} }",
+          flush=True)
+
+    # 1. the commitment against the host oracle
+    rnd = random.Random(DKG_SEED + 1)
+    sample = sorted(set(rnd.sample(range(npos), DKG_SAMPLE))
+                    | {DKG_ZERO_POS})
+    if host_points(dcv.G1, out["commit"], sample) != [
+            hcv.G1.mul(hcv.G1.generator, coeffs[i]) for i in sample] or \
+            host_points(dcv.G1, out["commit"], [DKG_ZERO_POS]) != [None]:
+        fail("dkg: the commitment differs from host mul")
+    # 2. sampled rows against Python-int Horner
+    rows_host = {m: row_host(coeffs, t, m + 1) for m in DKG_ROWS_SAMPLE}
+    for m, want in rows_host.items():
+        if frops.fr_from_device(out["rows"][m]) != want:
+            fail(f"dkg: node {m + 1}'s row differs from the host's")
+    # 3. row commitments: every lane against the node's own row, two nodes
+    #    against the host
+    if not bool(out["row_ok"].all()):
+        bad = (~out["row_ok"]).nonzero()[:4].tolist()
+        fail(f"dkg: row commitments differ from the rows' at {bad}")
+    for m in DKG_HOST_NODES:
+        node = dcv.tree_map(lambda a: a[m], out["rowc"])
+        if host_points(dcv.G1, node, range(t + 1)) != [
+                hcv.G1.mul(hcv.G1.generator, c) for c in rows_host[m]]:
+            fail(f"dkg: node {m + 1}'s row commitments differ from the "
+                 f"host's")
+    # 4. value commitments: every lane, three against the host, one
+    #    tampered value rejected on its lane only
+    if not bool(out["val_ok"].all()):
+        fail("dkg: a value commitment differs from f(m, 1)*G1")
+    lanes = (0, DKG_TAMPERED, n - 1)
+    if host_points(dcv.G1, out["ev"], lanes) != [
+            hcv.G1.mul(hcv.G1.generator, bivar_host(coeffs, t, m + 1, 1))
+            for m in lanes]:
+        fail("dkg: value commitments differ from the host's")
+    bad = dkg_value_check(out["rows"], out["ev"], inp["ys"], t,
+                          tamper=DKG_TAMPERED)
+    if (~bad).nonzero().flatten().tolist() != [DKG_TAMPERED]:
+        fail("dkg: the tampered value was not rejected on its lane alone")
+    print(f"dkg checks: the commitment equals host mul on {len(sample)} "
+          f"sampled coefficients (the zero one at infinity); rows of nodes "
+          f"{[m + 1 for m in DKG_ROWS_SAMPLE]} equal host Horner; all "
+          f"{n * (t + 1)} row commitments equal their rows' commitments, "
+          f"nodes {[m + 1 for m in DKG_HOST_NODES]} the host's; all {n} "
+          f"value commitments equal f(m, 1)*G1 (3 the host's), the value "
+          f"tampered on lane {DKG_TAMPERED} is rejected there only",
+          flush=True)
+
+    times = []
+    for _ in range(3):
+        o, secs = dkg_call(inp)
+        if not (bool(o["row_ok"].all()) and bool(o["val_ok"].all())):
+            fail("dkg: a timed call failed its checks")
+        times.append(secs)
+    wall = statistics.median(times)
+    print(f"dkg at N = {n}, t = {t}: median {wall:.3f} s of "
+          f"{[round(x, 3) for x in times]} -> {1 / wall:.3f} dealings "
+          f"dealt and checked per second", flush=True)
+    spans = []
+    with kernel_event_timer(spans):
+        _, kwall = dkg_call(inp)
+    kernel_s, per_kernel = kernel_split("dkg", spans, kwall)
+    stages = []
+    marks = [None]
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        stages.append((stage, marks[0], ev))
+        marks[0] = ev
+
+    with dkg_stage_timer(stages):
+        marks[0] = torch.cuda.Event(enable_timing=True)
+        marks[0].record()
+        _, swall = dkg_call(inp, after=mark)
+    split = print_split("dkg", stages, swall)
+
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    b13, step4 = [], ccv.p_step4
+
+    def timed_step4(g2, acc, table, digits):
+        out, ms = timed_once(step4, g2, acc, table, digits)
+        b13.append((digits.shape[1], ms,
+                    ladder_bound(g2, "step4", digits, card)[0]))
+        return out
+
+    ccv.p_step4 = timed_step4
+    try:
+        dkg_call(inp)
+    finally:
+        ccv.p_step4 = step4
+    b13_ms, b13_bound = sum(x[1] for x in b13), sum(x[2] for x in b13)
+    print(f"dkg B13: {len(b13)} launches over "
+          f"{sum(x[0] for x in b13)} lanes ({[x[0] for x in b13]}) x 64 "
+          f"digits, {b13_ms:.1f} ms ({[round(x[1], 2) for x in b13]}), "
+          f"bound {b13_bound:.1f} ms (operations), "
+          f"{b13_ms / b13_bound:.1f}x the bound", flush=True)
+    return dict(launches=launches, launches_per_stage=per_stage,
+                wall_s=wall, times_s=times, per_s=1 / wall,
+                kernel_s=kernel_s, timed_wall_s=kwall, kernel_ms=per_kernel,
+                split_ms=split, b13_ms=b13_ms, b13_bound_ms=b13_bound,
+                b13_launches=b13)
+
+
+def rlc_scalarwise_launches(n):
+    """Launches of one ``verify_sig_shares_rlc`` call: per group one B15
+    and the affine lift of the points (one B2; 4 B1 in G1, 6 in G2), a
+    fold of ⌈log₂ n⌉ levels (5 B1 each), then the affine sums and H and
+    the megakernel check as in ``rlc_launches`` (3 B2, 28 B1, B4-B9 and
+    the easy part's B2)."""
+    expect = dict(PALLAS_LAUNCHES)
+    expect.update({"g1_step": 1, "g2_step": 1, "mont_pow": 2 + 4,
+                   "mont_mul": 4 + 6 + 2 * 5 * _levels(n) + 28})
+    return expect
+
+
+def run_rlc_scalarwise(dev):
+    """``verify_sig_shares_rlc`` (its MSMs as per-lane bit ladders, B15,
+    and the fold) once on slice 3's batch, valid (accepted, launches
+    against ``rlc_scalarwise_launches``) and with one signature replaced
+    (rejected), each call timed."""
+    from threshold_crypto_tpu_torch import ops
+    from threshold_crypto_tpu_torch.device import curve as dcv
+
+    pk_aff, sig_aff, h_jac, _, _ = rlc_inputs(dev)
+    r = ops.rlc_exponents(RLC_N, b"\x09" * 32, pk_aff=pk_aff,
+                          sig_aff=sig_aff)
+    reset_counts()
+    ok, secs = timed_once(ops.verify_sig_shares_rlc, pk_aff, h_jac, sig_aff,
+                          r)
+    launches = read_counts()
+    expect = rlc_scalarwise_launches(RLC_N)
+    if {k: launches[k] for k in expect} != expect:
+        fail(f"verify_sig_shares_rlc: launches {launches}, expected "
+             f"{expect}")
+    bad = dcv.tree_map(lambda a: a.clone(), sig_aff)
+    for c in dcv.leaves(bad[:2]):
+        c[7] = c[8]
+    rejected, bad_ms = timed_once(ops.verify_sig_shares_rlc, pk_aff, h_jac,
+                                  bad, r)
+    if not bool(ok) or bool(rejected):
+        fail("verify_sig_shares_rlc: the valid batch was rejected or the "
+             "batch with one sig replaced accepted")
+    print(f"verify_sig_shares_rlc at N = {RLC_N}: accepts the valid batch "
+          f"({secs / 1e3:.3f} s) and rejects the one with a replaced "
+          f"signature ({bad_ms / 1e3:.3f} s); launches per call "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    return dict(launches=launches, wall_s=secs / 1e3)
+
+
+# ---------------------------------------------------------------------------
 
 def main():
     import numpy as np
@@ -2230,7 +2695,8 @@ def main():
         results.update(check_b16(g2, gen, dev, card))
     torch.cuda.empty_cache()
 
-    old, new = run_slices(dev)
+    old, new, pair_args = run_slices(dev)
+    composed = run_b17_composition(pair_args, dev)
     if old["widest"] != {"mont_mul": widest_mul, "mont_pow": LANES}:
         fail(f"the kernel checks missed the path's widest launches "
              f"{old['widest']}")
@@ -2264,6 +2730,14 @@ def main():
           f"(ops.combine_batch on B14 and B11 / B15 / B16, sign, encrypt, "
           f"decrypt shares and their checks)")
     combined = run_combine(dev)
+    torch.cuda.empty_cache()
+    phase(f"slice 7: the DKG at N = {DKG_N}, t = {DKG_T} "
+          f"(ops.bivar_commit_batch, bivar_row_batch, "
+          f"bivar_commit_row_batch, bivar_commit_eval_batch on B1, B2, B10, "
+          f"B13), and ops.verify_sig_shares_rlc at N = {RLC_N} (B15)")
+    dkg = run_dkg(dev, card)
+    torch.cuda.empty_cache()
+    rlc_sw = run_rlc_scalarwise(dev)
 
     kernels = []
     for mod, k in registry():
@@ -2272,13 +2746,15 @@ def main():
         # of slice 2 (B3 runs inside every B4-B9 launch); B10-B12: of
         # slice 3; B13: of slice 4 (G2, the cofactor ladder) and 5 (G1);
         # B15: of the window-1 MSM; B14: of slice 6's G2 combine; B16: of
-        # its bitscan combines. Every kernel's launches on the RLC, hash,
-        # encrypt and combine paths beside them.
+        # its bitscan combines; B17: of the composition check, the one run
+        # that drives it. Every kernel's launches on the RLC, hash,
+        # encrypt, combine and DKG paths beside them.
         path = (old if k.name.startswith("mont_") else
                 rlc if k.name in RLC_KERNELS else
                 paths[LADDER_KERNELS[k.name]] if k.name in LADDER_KERNELS
                 else combined["paths"][COMBINE_KERNELS[k.name]]
-                if k.name in COMBINE_KERNELS else new)
+                if k.name in COMBINE_KERNELS else
+                composed if k.name in B17_KERNELS else new)
         entry = {
             "name": k.name, "route": "cuda", "source": k.source,
             "replaces": k.replaces, "launches": path["launches"][k.name],
@@ -2294,6 +2770,8 @@ def main():
         entry["launches_encrypt_path"] = paths["encrypt"]["launches"][k.name]
         entry["launches_combine_paths"] = {
             p: c["launches"][k.name] for p, c in combined["paths"].items()}
+        entry["launches_dkg_path"] = dkg["launches"][k.name]
+        entry["launches_rlc_scalarwise"] = rlc_sw["launches"][k.name]
         if "ms_with_fold" in res:
             entry["ms_with_fold"] = res["ms_with_fold"]
         if "digits" in res:

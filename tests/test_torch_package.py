@@ -26,6 +26,7 @@ MODULES = [
     "threshold_crypto_tpu_torch.host.chacha",
     "threshold_crypto_tpu_torch.host.sampling",
     "threshold_crypto_tpu_torch.hashing",
+    "threshold_crypto_tpu_torch.poly",
     "threshold_crypto_tpu_torch.device.mont",
     "threshold_crypto_tpu_torch.device.cuda_mont",
     "threshold_crypto_tpu_torch.device.tower",
@@ -225,3 +226,37 @@ def test_kernels_list_b14_and_b16():
         assert k.plain.__name__ == k.launch.__name__ + "_ref"
         assert isinstance(k.count, KernelCount)
         assert ("tc_" + k.name) in [fn for fn, _ in _build.SIGNATURES[lib]]
+
+
+def test_kernels_list_b17():
+    """B17's four unfused Miller pieces in ``csrc/miller.cu``, each citing
+    its TPU kernel, with a plain version, a count, a C launcher and a
+    dispatcher under the JAX wrapper's name."""
+    from threshold_crypto_tpu_torch.device import cuda_tower as ctw
+    from threshold_crypto_tpu_torch.device.cuda_mont import KernelCount
+
+    tpu = "threshold_crypto_tpu/device/pallas_tower.py:"
+    b17 = {k.name: k for k in ctw.KERNELS if k.replaces in (
+        tpu + "886", tpu + "895", tpu + "940", tpu + "948")}
+    assert sorted(b17) == ["add_step", "dbl_step", "f_fold", "f_sqr_fold"]
+    for k in b17.values():
+        assert k.source == "threshold_crypto_tpu_torch/csrc/miller.cu"
+        assert k.plain.__name__ == k.launch.__name__ + "_ref"
+        assert isinstance(k.count, KernelCount)
+        assert ("tc_" + k.name) in [fn for fn, _ in _build.SIGNATURES[
+            "miller"]]
+        assert callable(getattr(ctw, "p_" + k.name))
+
+
+def test_ops_export_the_dkg_and_rlc_names():
+    from threshold_crypto_tpu_torch import ops
+    from threshold_crypto_tpu_torch.device import curve as dcv
+
+    names = ["commit_batch", "powers_batch", "bivar_commit_batch",
+             "bivar_row_batch", "bivar_commit_row_batch",
+             "bivar_commit_eval_batch", "verify_sig_shares_rlc"]
+    assert all(n in ops.__all__ and callable(getattr(ops, n)) for n in names)
+    for curve in (dcv.G1, dcv.G2):
+        for method in ("generator", "neg", "eq", "scalar_mul",
+                       "msm_scalarwise", "fold_axis"):
+            assert callable(getattr(curve, method))

@@ -275,7 +275,8 @@ def test_registry_lists_every_kernel_with_its_plain_version():
     names = [k.name for mod in (cuda_mont, ctw) for k in mod.KERNELS]
     assert names == ["mont_mul", "mont_pow", "fq_engine", "dbl_fold",
                      "add_fold", "cyclo_sqr", "cyclo_sqr_mul", "fq12_mul",
-                     "fq12_sqr"]
+                     "fq12_sqr", "dbl_step", "add_step", "f_sqr_fold",
+                     "f_fold"]
     for mod in (cuda_mont, ctw):
         for k in mod.KERNELS:
             assert getattr(mod, k.launch.__name__) is k.launch

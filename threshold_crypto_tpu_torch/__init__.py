@@ -9,7 +9,7 @@ in their place.
 What is ported so far: BLS verification on the BLS12-381 stack of
 :mod:`.device` (Montgomery field arithmetic, the Fq2/Fq6/Fq12 tower, G1/G2
 Jacobian curves, the Miller loop and the final exponentiation), the hash to
-G2, batched encryption and the threshold combine, on these paths:
+G2, batched encryption, the threshold combine and the DKG, on these paths:
 :func:`threshold_crypto_tpu_torch.ops.verify_batch` (strict per-pair
 verify, the tower as stacked field products, kernels B1 and B2 in
 ``csrc/mont.cu``), :func:`threshold_crypto_tpu_torch.ops.verify_batch_pallas`
@@ -28,5 +28,14 @@ ladders on B13; B15, the bit ladder, runs ``msm_pallas(window=1)``), and
 :func:`threshold_crypto_tpu_torch.ops.combine_batch` (λ from
 :mod:`.ops.fr`, above 1024 shares on the all-pairs kernel B14 of
 ``csrc/fr.cu``; the 255-bit MSM on B11, B15 or B16 of ``csrc/shared.cu``)
-with the sign, encrypt, decryption-share and check batch ops around it.
+with the sign, encrypt, decryption-share and check batch ops around it,
+and the DKG batch ops :func:`threshold_crypto_tpu_torch.ops.bivar_commit_batch`,
+:func:`~threshold_crypto_tpu_torch.ops.bivar_row_batch`,
+:func:`~threshold_crypto_tpu_torch.ops.bivar_commit_row_batch` and
+:func:`~threshold_crypto_tpu_torch.ops.bivar_commit_eval_batch` (a dealer's
+commitment, rows, row commitments and value checks on the 255-bit ladders
+B10/B13 and B1), with :func:`threshold_crypto_tpu_torch.ops.verify_sig_shares_rlc`
+(the RLC check on per-lane bit ladders, B15). Every TPU kernel of the JAX
+package has its counterpart; the last, B17 (the unfused Miller pieces in
+``csrc/miller.cu``), is on no entry point's path, as in the JAX package.
 """

@@ -41,6 +41,10 @@ SIGNATURES = {
     "miller": [
         ("tc_dbl_fold", [_VP] * 5 + [_INT, _VP]),
         ("tc_add_fold", [_VP] * 6 + [_INT, _VP]),
+        ("tc_dbl_step", [_VP] * 4 + [_INT, _VP]),
+        ("tc_add_step", [_VP] * 5 + [_INT, _VP]),
+        ("tc_f_sqr_fold", [_VP] * 3 + [_INT, _VP]),
+        ("tc_f_fold", [_VP] * 3 + [_INT, _VP]),
     ],
     "fq12": [
         ("tc_cyclo_sqr", [_VP, _VP, _INT, _VP]),

@@ -1,5 +1,5 @@
-// The fused Miller-loop kernels B4 `dbl_fold` and B5 `add_fold` for sm_90a,
-// one thread per lane.
+// The fused Miller-loop kernels B4 `dbl_fold` and B5 `add_fold`, and the
+// unfused Miller pieces B17, for sm_90a, one thread per lane.
 //
 // B4 `dbl_fold_kernel` replaces threshold_crypto_tpu/device/pallas_tower.py
 // `_k_dbl_fold` (:906): T ← 2T and f ← f²·l_tangent(P) in one launch. B5
@@ -24,6 +24,20 @@
 // threads per block the grid is 128 blocks on 132 SMs, one block each: the
 // card is not filled, and the 4 warps per SM do not hide the multiply
 // latency. Occupancy is a later change's work.
+//
+// B17 replaces the four unfused pieces of the same file: `_k_dbl_step`
+// (:886, T ← 2T and the tangent line out), `_k_add_step` (:895, T ← T + Q
+// and the chord line out), `_k_f_sqr_fold` (:940, f ← f²·line) and
+// `_k_f_fold` (:948, f ← f·line). The line leaves as int32[144, n] in the
+// JAX kernel's plane order (c0, c1, c4; re then im). B4 is `dbl_step` then
+// `f_sqr_fold`, B5 `add_step` then `f_fold`, bit for bit: the same tower
+// functions in the same order, cut where the line is written. Split, each
+// iteration moves one more line through device memory (1,152 bytes a lane
+// out, then in), and each piece is bound by its multiplies as B4/B5 are:
+// dbl_step 47 Fq products against 1,920 bytes a lane, add_step 41 against
+// 2,304, f_sqr_fold 75 against 2,880 and f_fold 39 against 2,880. No JAX
+// path calls the pieces; the port's composition check drives a whole
+// Miller loop through them against B4/B5.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0, so a launch refused for its registers
@@ -56,6 +70,40 @@ add_fold_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ T,
   tc::add_fold_lane(f, T, Q, P, fo, To, n, lane);
 }
 
+__global__ void __launch_bounds__(kThreads)
+dbl_step_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ P,
+                int32_t* __restrict__ To, int32_t* __restrict__ line, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::dbl_step_lane(T, P, To, line, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+add_step_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ Q,
+                const int32_t* __restrict__ P, int32_t* __restrict__ To,
+                int32_t* __restrict__ line, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::add_step_lane(T, Q, P, To, line, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+f_sqr_fold_kernel(const int32_t* __restrict__ f,
+                  const int32_t* __restrict__ line, int32_t* __restrict__ fo,
+                  int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::f_sqr_fold_lane(f, line, fo, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+f_fold_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ line,
+              int32_t* __restrict__ fo, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::f_fold_lane(f, line, fo, n, lane);
+}
+
 inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
 
 const int32_t* in(const void* p) { return static_cast<const int32_t*>(p); }
@@ -79,5 +127,41 @@ extern "C" int tc_add_fold(const void* f, const void* T, const void* Q,
   add_fold_kernel<<<grid_for(n), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       in(f), in(T), in(Q), in(P), out(fo), out(To), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_dbl_step(const void* T, const void* P, void* To, void* line,
+                           int n, void* stream) {
+  if (n <= 0) return 0;
+  dbl_step_kernel<<<grid_for(n), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      in(T), in(P), out(To), out(line), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_add_step(const void* T, const void* Q, const void* P,
+                           void* To, void* line, int n, void* stream) {
+  if (n <= 0) return 0;
+  add_step_kernel<<<grid_for(n), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      in(T), in(Q), in(P), out(To), out(line), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_f_sqr_fold(const void* f, const void* line, void* fo, int n,
+                             void* stream) {
+  if (n <= 0) return 0;
+  f_sqr_fold_kernel<<<grid_for(n), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      in(f), in(line), out(fo), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_f_fold(const void* f, const void* line, void* fo, int n,
+                         void* stream) {
+  if (n <= 0) return 0;
+  f_fold_kernel<<<grid_for(n), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      in(f), in(line), out(fo), n);
   return static_cast<int>(cudaGetLastError());
 }

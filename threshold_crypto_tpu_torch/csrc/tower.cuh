@@ -1,6 +1,6 @@
 // The BLS12-381 tower Fq2/Fq6/Fq12 and the Miller-loop step formulas as
 // per-lane device functions over the engine of fq.cuh, and the per-lane
-// bodies of the tower kernels B4-B9.
+// bodies of the tower kernels B4-B9 and B17.
 //
 // Replaces the in-kernel tower of threshold_crypto_tpu/device/
 // pallas_tower.py (:376-697): Karatsuba Fq2 products, the Toom/Karatsuba
@@ -374,7 +374,7 @@ __device__ __noinline__ void add_step(G2Proj& T, Line& l, const Fq2& x2,
 // ---------------------------------------------------------------------------
 // Packed loads and stores, and the per-lane bodies of the kernels. A packed
 // tensor is int32[k·24, n]: Fq12 k = 12 (flat order), T k = 6 (X, Y, Z),
-// Q k = 4 (x, y), P k = 2 (xp, yp).
+// Q k = 4 (x, y), P k = 2 (xp, yp), a line k = 6 (c0, c1, c4).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void load_fq12(Fq12& f, const int32_t* src, int n,
@@ -451,6 +451,91 @@ __device__ __forceinline__ void add_fold_lane(
   fq12_mul_by_014(f, f, l.c0, l.c1, l.c4);
   store_fq12(f_out, f, n, lane);
   store_g2(T_out, T, n, lane);
+}
+
+// The line (c0, c1, c4) as a packed [6·24, n] tensor: c0.re, c0.im, c1.re,
+// c1.im, c4.re, c4.im, the plane order `_k_dbl_step` writes.
+__device__ __forceinline__ void load_line(Line& l, const int32_t* src, int n,
+                                          int lane) {
+  load_fq2(l.c0, src, 0, n, lane);
+  load_fq2(l.c1, src, 2, n, lane);
+  load_fq2(l.c4, src, 4, n, lane);
+}
+
+__device__ __forceinline__ void store_line(int32_t* dst, const Line& l, int n,
+                                           int lane) {
+  store_fq2(dst, l.c0, 0, n, lane);
+  store_fq2(dst, l.c1, 2, n, lane);
+  store_fq2(dst, l.c4, 4, n, lane);
+}
+
+// B17, the unfused Miller pieces: B4 and B5 cut at the line, which goes
+// through device memory in between. `dbl_step_lane` then `f_sqr_fold_lane`
+// computes what `dbl_fold_lane` does, and `add_step_lane` then
+// `f_fold_lane` what `add_fold_lane` does, bit for bit.
+
+// `_k_dbl_step`: T ← 2T and the tangent line at P.
+__device__ __forceinline__ void dbl_step_lane(const int32_t* T_in,
+                                              const int32_t* P_in,
+                                              int32_t* T_out,
+                                              int32_t* line_out, int n,
+                                              int lane) {
+  G2Proj T;
+  Fq xp, yp;
+  Line l;
+  load_g2(T, T_in, n, lane);
+  load_fq(xp, P_in, 0, n, lane);
+  load_fq(yp, P_in, 1, n, lane);
+  dbl_step(T, l, xp, yp);
+  store_g2(T_out, T, n, lane);
+  store_line(line_out, l, n, lane);
+}
+
+// `_k_add_step`: T ← T + Q (Q affine) and the chord line at P.
+__device__ __forceinline__ void add_step_lane(const int32_t* T_in,
+                                              const int32_t* Q_in,
+                                              const int32_t* P_in,
+                                              int32_t* T_out,
+                                              int32_t* line_out, int n,
+                                              int lane) {
+  G2Proj T;
+  Fq2 x2, y2;
+  Fq xp, yp;
+  Line l;
+  load_g2(T, T_in, n, lane);
+  load_fq2(x2, Q_in, 0, n, lane);
+  load_fq2(y2, Q_in, 2, n, lane);
+  load_fq(xp, P_in, 0, n, lane);
+  load_fq(yp, P_in, 1, n, lane);
+  add_step(T, l, x2, y2, xp, yp);
+  store_g2(T_out, T, n, lane);
+  store_line(line_out, l, n, lane);
+}
+
+// `_k_f_sqr_fold`: f ← f²·line, the square first as in B4.
+__device__ __forceinline__ void f_sqr_fold_lane(const int32_t* f_in,
+                                                const int32_t* line_in,
+                                                int32_t* f_out, int n,
+                                                int lane) {
+  Fq12 f;
+  Line l;
+  load_fq12(f, f_in, n, lane);
+  load_line(l, line_in, n, lane);
+  fq12_sqr(f, f);
+  fq12_mul_by_014(f, f, l.c0, l.c1, l.c4);
+  store_fq12(f_out, f, n, lane);
+}
+
+// `_k_f_fold`: f ← f·line.
+__device__ __forceinline__ void f_fold_lane(const int32_t* f_in,
+                                            const int32_t* line_in,
+                                            int32_t* f_out, int n, int lane) {
+  Fq12 f;
+  Line l;
+  load_fq12(f, f_in, n, lane);
+  load_line(l, line_in, n, lane);
+  fq12_mul_by_014(f, f, l.c0, l.c1, l.c4);
+  store_fq12(f_out, f, n, lane);
 }
 
 // B6 (`_k_cyclo_sqr`) and B7 (`_k_cyclo_sqr_mul`: acc²·g).

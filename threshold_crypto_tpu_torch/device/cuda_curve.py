@@ -86,6 +86,9 @@ G1_DBLW = KernelCount()
 G2_DBLW = KernelCount()
 # Entries of B13's table: 1P..15P.
 STEP4_ENTRIES = 15
+# Lanes of one B13 launch of ``scalar_mul_gathered``: the gathered table of
+# a chunk takes 15 × 288 bytes a lane in G1 (2.3 GB), twice that in G2.
+LADDER_CHUNK = 1 << 19
 
 
 def _field(g2: bool):
@@ -521,6 +524,33 @@ def scalar_mul_pallas(curve, points_aff, scalars, nbits: int = 255,
     :786). Returns a Jacobian tuple [N]."""
     return msm_pallas(curve, points_aff, scalars, nbits=nbits, window=window,
                       fold=False)
+
+
+def scalar_mul_gathered(curve, points_aff, index, scalars, nbits: int = 255):
+    """Per-lane scalars_l·points[index_l], for many lanes over few
+    distinct points (the DKG's row commitments and value checks): the
+    ladder table 1P..15P is built once per distinct point (14 B10 over the
+    points), gathered to the lanes, and one B13 per ``LADDER_CHUNK`` lanes
+    runs the ⌈nbits/4⌉ base-16 digits. The same per-lane ladder as
+    ``scalar_mul_pallas``, so the same Jacobian coordinates.
+
+    points_aff: affine tuple (x, y, inf) [P]; index: int64[N] into the
+    points; scalars: int32[N, 16] canonical limbs. Lanes of infinite points
+    get digit 0 and stay at infinity. Returns a Jacobian tuple [N].
+    """
+    g2 = curve is dcv.G2
+    n, dev = index.shape[0], index.device
+    table = _ladder_table(curve, points_aff)
+    live = (~points_aff[2]).to(torch.int32)
+    accs = []
+    for start in range(0, n, LADDER_CHUNK):
+        idx = index[start:start + LADDER_CHUNK]
+        digits = dcv.scalar_digits(scalars[start:start + LADDER_CHUNK],
+                                   nbits, 4) * live[idx][None]
+        accs.append(p_step4(g2, packed_infinity(g2, idx.shape[0], dev),
+                            table.index_select(1, idx),
+                            digits.contiguous()))
+    return unpack_jac(torch.cat(accs, 1), g2)
 
 
 def fixed_digits(k: int, window: int = 4):

@@ -9,12 +9,19 @@ Each kernel is the counterpart of one Pallas megakernel of
 * B6 ``cyclo_sqr`` (``_k_cyclo_sqr``): Granger–Scott squaring;
 * B7 ``cyclo_sqr_mul`` (``_k_cyclo_sqr_mul``): f²·g, cyclotomic square;
 * B8 ``fq12_mul`` (``_k_fq12_mul``) and B9 ``fq12_sqr`` (``_k_fq12_sqr``);
+* B17, the unfused Miller pieces: ``dbl_step`` (``_k_dbl_step``: T ← 2T and
+  the tangent line out), ``add_step`` (``_k_add_step``: T ← T + Q and the
+  chord line out), ``f_sqr_fold`` (``_k_f_sqr_fold``: f²·line) and
+  ``f_fold`` (``_k_f_fold``: f·line). A step then its fold is B4 or B5 bit
+  for bit. No JAX path calls them, so they are on no entry point's path;
+  ``chip_smoke.py`` drives a whole Miller loop through them;
 * ``fq_engine`` is the test entry of B3, the engine of ``csrc/fq.cuh`` that
   runs inside all of them (``_k_mul16``/``_k_mul13``, ``k_add``, ``k_sub``,
   ``k_neg``, ``k_small``): it has no launch of its own on the path.
 
 They take and return the packed layout of :mod:`.packed`, contiguous
-``int32[k·24, N]`` CUDA tensors (f: k = 12, T: 6, Q: 4, P: 2), allocate
+``int32[k·24, N]`` CUDA tensors (f: k = 12, T: 6, Q: 4, P: 2, a line
+(c0, c1, c4): 6, in ``_k_dbl_step``'s plane order), allocate
 their outputs with ``torch.empty``, launch on the current stream and do not
 synchronise. Each wrapper counts its launches (``DBL_FOLD`` …); every launch
 of a kernel whose body is the engine also counts in ``ENGINE``.
@@ -36,8 +43,8 @@ from . import tower as tw
 from .cuda_mont import Kernel, KernelCount, launch
 from .mont import FQ
 
-# Packed rows of an Fq12 f, a point T, an affine Q and a G1 point P.
-F, T_, Q_, P_ = (k * FQ.L for k in (12, 6, 4, 2))
+# Packed rows of an Fq12 f, a point T, an affine Q, a G1 point P and a line.
+F, T_, Q_, P_, LINE = (k * FQ.L for k in (12, 6, 4, 2, 6))
 
 ENGINE = KernelCount()
 DBL_FOLD = KernelCount()
@@ -46,6 +53,10 @@ CYCLO_SQR = KernelCount()
 CYCLO_SQR_MUL = KernelCount()
 FQ12_MUL = KernelCount()
 FQ12_SQR = KernelCount()
+DBL_STEP = KernelCount()
+ADD_STEP = KernelCount()
+F_SQR_FOLD = KernelCount()
+F_FOLD = KernelCount()
 
 
 def _check(*operands):
@@ -71,7 +82,7 @@ def _check(*operands):
 
 def _launch(lib, fn, count, ins, outs, n, *extra):
     """Launch ``fn`` of library ``lib`` on the current stream and count it
-    (and, for B4-B9, in ``ENGINE`` too)."""
+    (and, for B4-B9 and B17, in ``ENGINE`` too)."""
     if n == 0:
         return
     launch(lib, fn, count, (*ins, *outs), *extra, n, lanes=n)
@@ -132,6 +143,40 @@ def fq12_sqr(a):
     return fo
 
 
+def dbl_step(T, P):
+    """Kernel B17 ``dbl_step``: (2T, the tangent line at P) on packed
+    T [144, N], P [48, N]; the line [144, N]."""
+    n = _check(("T", T, T_), ("P", P, P_))
+    To, line = torch.empty_like(T), torch.empty_like(T)
+    _launch("miller", "tc_dbl_step", DBL_STEP, (T, P), (To, line), n)
+    return To, line
+
+
+def add_step(T, Q, P):
+    """Kernel B17 ``add_step``: (T + Q, the chord line at P), Q [96, N]
+    affine."""
+    n = _check(("T", T, T_), ("Q", Q, Q_), ("P", P, P_))
+    To, line = torch.empty_like(T), torch.empty_like(T)
+    _launch("miller", "tc_add_step", ADD_STEP, (T, Q, P), (To, line), n)
+    return To, line
+
+
+def f_sqr_fold(f, line):
+    """Kernel B17 ``f_sqr_fold``: f²·line, f [288, N], line [144, N]."""
+    n = _check(("f", f, F), ("line", line, LINE))
+    fo = torch.empty_like(f)
+    _launch("miller", "tc_f_sqr_fold", F_SQR_FOLD, (f, line), (fo,), n)
+    return fo
+
+
+def f_fold(f, line):
+    """Kernel B17 ``f_fold``: f·line."""
+    n = _check(("f", f, F), ("line", line, LINE))
+    fo = torch.empty_like(f)
+    _launch("miller", "tc_f_fold", F_FOLD, (f, line), (fo,), n)
+    return fo
+
+
 def fq_engine(a, b, k: int):
     """The engine's test entry: stacked Fq values a, b [m·24, N] ->
     int32[5, m·24, N] holding a·b, a + b, a − b, −a and k·a (k ≥ 1)."""
@@ -185,6 +230,27 @@ def fq12_sqr_ref(a):
     return pk.pack12(tw.fq12_sqr(pk.unpack12(a)))
 
 
+def dbl_step_ref(T, P):
+    To, line = tw.dbl_step(_point(T), *pk.unpack(P, 2))
+    return pk.pack_fq2s(To), pk.pack_fq2s(line)
+
+
+def add_step_ref(T, Q, P):
+    To, line = tw.add_step(_point(T), tuple(pk.unpack_fq2s(Q, 2)),
+                           *pk.unpack(P, 2))
+    return pk.pack_fq2s(To), pk.pack_fq2s(line)
+
+
+def f_sqr_fold_ref(f, line):
+    return pk.pack12(tw.fq12_mul_by_014(tw.fq12_sqr(pk.unpack12(f)),
+                                        *pk.unpack_fq2s(line, 3)))
+
+
+def f_fold_ref(f, line):
+    return pk.pack12(tw.fq12_mul_by_014(pk.unpack12(f),
+                                        *pk.unpack_fq2s(line, 3)))
+
+
 def fq_engine_ref(a, b, k: int):
     m = a.shape[0] // FQ.L
     x = torch.stack(pk.unpack(a, m))                           # [m, N, 24]
@@ -222,6 +288,22 @@ def p_fq12_sqr(a):
     return (fq12_sqr if mont.on_card(a) else fq12_sqr_ref)(a)
 
 
+def p_dbl_step(T, P):
+    return (dbl_step if mont.on_card(T) else dbl_step_ref)(T, P)
+
+
+def p_add_step(T, Q, P):
+    return (add_step if mont.on_card(T) else add_step_ref)(T, Q, P)
+
+
+def p_f_sqr_fold(f, line):
+    return (f_sqr_fold if mont.on_card(f) else f_sqr_fold_ref)(f, line)
+
+
+def p_f_fold(f, line):
+    return (f_fold if mont.on_card(f) else f_fold_ref)(f, line)
+
+
 _SRC = "threshold_crypto_tpu_torch/csrc/"
 _TPU = "threshold_crypto_tpu/device/pallas_tower.py:"
 KERNELS = (
@@ -239,4 +321,12 @@ KERNELS = (
            _TPU + "960"),
     Kernel("fq12_sqr", fq12_sqr, fq12_sqr_ref, FQ12_SQR, _SRC + "fq12.cu",
            _TPU + "964"),
+    Kernel("dbl_step", dbl_step, dbl_step_ref, DBL_STEP, _SRC + "miller.cu",
+           _TPU + "886"),
+    Kernel("add_step", add_step, add_step_ref, ADD_STEP, _SRC + "miller.cu",
+           _TPU + "895"),
+    Kernel("f_sqr_fold", f_sqr_fold, f_sqr_fold_ref, F_SQR_FOLD,
+           _SRC + "miller.cu", _TPU + "940"),
+    Kernel("f_fold", f_fold, f_fold_ref, F_FOLD, _SRC + "miller.cu",
+           _TPU + "948"),
 )

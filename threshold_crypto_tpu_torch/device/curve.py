@@ -1,8 +1,10 @@
 """Batched, branch-free G1/G2 curve operations on torch tensors.
 
 The counterpart of ``threshold_crypto_tpu/device/curve.py`` (``DeviceCurve``:
-``infinity``, ``from_host_affine``, ``to_host_affine``, ``double``, ``add``,
-``is_infinity``; ``scalar_bits``, ``scalar_digits``, ``fold_sum``) and of the
+``infinity``, ``generator``, ``from_host_affine``, ``to_host_affine``,
+``double``, ``add``, ``neg``, ``eq``, ``is_infinity``, ``scalar_mul``,
+``msm_scalarwise``; ``scalar_bits``, ``scalar_digits``, ``fold_sum``, whose
+``fold_axis`` also stands for ``_tree_sum``; ``fr_limbs_from_ints``) and of the
 point formulas of ``threshold_crypto_tpu/device/pallas_curve.py:143-370``
 (``_msm_step``, ``_jac_dbl``, ``_jac_add``, ``_jac_madd``, ``_msm_step_w4``)
 and its ``dcv_select_z``, which are the plain versions of the curve kernels
@@ -23,6 +25,7 @@ layer.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..host import curve as hcv
@@ -317,6 +320,14 @@ class DeviceCurve:
         return (f.one(shape, device), f.one(shape, device),
                 f.zero(shape, device))
 
+    def generator(self, shape, device):
+        """The group's generator, Z = 1, broadcast to ``shape``."""
+        f = self.f
+        x, y = self.gen_affine_host
+        return tree_map(lambda a: a[0].expand(tuple(shape) + a.shape[1:]),
+                        (f.from_host([x], device), f.from_host([y], device),
+                         f.one((1,), device)))
+
     def from_host_affine(self, pts, device="cuda"):
         """Host affine points (None = infinity) -> batched Jacobian tuple,
         Z ∈ {0, 1}; an infinity lane carries the generator's coordinates."""
@@ -344,14 +355,69 @@ class DeviceCurve:
     def add(self, p1, p2):
         return jac_add(self.f, p1, p2)
 
-    def fold_sum(self, pts):
-        """Σ over the leading axis by a pairwise tree of complete adds:
-        ⌈log₂ N⌉ levels, each one stacked add over half the lanes; an odd
-        level is padded with infinity. Returns an unbatched point."""
+    def neg(self, p):
+        X, Y, Z = p
+        return (X, self.f.neg(Y), Z)
+
+    def eq(self, p1, p2):
+        """bool[...]: the points are equal (as affine points; infinity
+        equals infinity only): X1·Z2² == X2·Z1² and Y1·Z2³ == Y2·Z1³ on
+        canonical values, the JAX ``eq``."""
+        f = self.f
+        X1, Y1, Z1 = p1
+        X2, Y2, Z2 = p2
+        z1z, z2z = f.mul_many([(Z1, Z1), (Z2, Z2)])
+        x1, x2, z2c, z1c = f.mul_many([(X1, z2z), (X2, z1z), (z2z, Z2),
+                                       (z1z, Z1)])
+        y1, y2 = f.mul_many([(Y1, z2c), (Y2, z1c)])
+        ex = f.is_zero(f.sub(x1, x2))
+        ey = f.is_zero(f.sub(y1, y2))
+        inf1, inf2 = f.is_zero(Z1), f.is_zero(Z2)
+        return (inf1 & inf2) | (~inf1 & ~inf2 & ex & ey)
+
+    def scalar_mul(self, p, k_plain, nbits: int = 255, window: int = 4):
+        """p·k per lane, for Jacobian points p and canonical Fr limbs
+        k_plain (int32[..., 16]) of one batch shape. The points are lifted
+        to affine (``ops.threshold.jacobian_to_affine``: on the card one
+        B2), then the ladder ``cuda_curve.scalar_mul_pallas`` runs: window
+        4, the 1P..15P table (14 B10) and one B13 over ⌈nbits/4⌉ digits;
+        window 1, one B15 over the bits. Infinity lanes give infinity.
+        The values equal the JAX window-4 ladder's as affine points; the
+        Jacobian coordinates may differ. Returns a Jacobian tuple of the
+        batch shape."""
+        from ..ops.threshold import jacobian_to_affine  # imports this
+        from . import cuda_curve
+
+        shape = self.f.shape(p[2])
+        flat = tree_map(lambda a: a.reshape((-1,) + a.shape[len(shape):]),
+                        p)
+        aff = jacobian_to_affine(self, flat)
+        out = cuda_curve.scalar_mul_pallas(
+            self, aff, k_plain.reshape(-1, k_plain.shape[-1]), nbits=nbits,
+            window=window)
+        return tree_map(lambda a: a.reshape(tuple(shape) + a.shape[1:]), out)
+
+    def msm_scalarwise(self, points, scalars, nbits: int = 255,
+                       window: int = 1):
+        """Σ points_i·scalars_i over Jacobian points [N]: N per-lane
+        ladders (``scalar_mul``, by default window 1: one B15), then one
+        ``fold_sum``. Returns an unbatched point."""
+        return self.fold_sum(self.scalar_mul(points, scalars, nbits=nbits,
+                                             window=window))
+
+    def fold_axis(self, pts, axis: int = 0):
+        """Σ over one batch axis by a pairwise tree of complete adds:
+        ⌈log₂ n⌉ levels, each one stacked add of the first half of the
+        entries to the second; an odd level is padded with infinity. The
+        other batch axes stay. The JAX ``_tree_sum`` pairs neighbours
+        instead: the same sums as affine points."""
+        pts = tree_map(lambda a: a.movedim(axis, 0), pts)
         n = self.f.shape(pts[2])[0]
         while n > 1:
             if n % 2:
-                pad = self.infinity((1,), leaves(pts)[0].device)
+                rest = self.f.shape(pts[2])[1:]
+                pad = self.infinity((1,) + tuple(rest),
+                                    leaves(pts)[0].device)
                 pts = tree_map(lambda a, b: torch.cat([a, b]), pts, pad)
                 n += 1
             half = n // 2
@@ -359,6 +425,11 @@ class DeviceCurve:
                            tree_map(lambda a: a[half:], pts))
             n = half
         return tree_map(lambda a: a[0], pts)
+
+    def fold_sum(self, pts):
+        """Σ over the leading axis (``fold_axis`` 0). Returns an
+        unbatched point for a batch [N]."""
+        return self.fold_axis(pts, 0)
 
 
 G1 = DeviceCurve(FqOps, G1_GEN, hcv.G1, "G1")
@@ -371,6 +442,15 @@ def select_z(curve, inf):
     f = curve.f
     shape, dev = inf.shape, inf.device
     return f.select(inf, f.zero(shape, dev), f.one(shape, dev))
+
+
+def fr_limbs_from_ints(ks, device="cuda"):
+    """Host scalars -> canonical (plain, not Montgomery) Fr limbs
+    int32[N, 16] on ``device``."""
+    raw = b"".join((int(k) % mont.FR.p).to_bytes(32, "little") for k in ks)
+    limbs = np.frombuffer(raw, dtype="<u2").astype(np.int32)
+    return torch.from_numpy(limbs.reshape(len(ks), mont.FR.L)).to(
+        mont.device_of(device))
 
 
 def scalar_bits(k_limbs, nbits: int):

@@ -9,7 +9,7 @@ The counterpart of ``threshold_crypto_tpu/ops/fr.py``:
   (D B1 products and D additions), the keygen share derivation;
 * ``lagrange_coeffs_at_zero``: the λᵢ of in-exponent interpolation, with
   one batched inversion (``batch_inv``);
-* ``interpolate_at_zero``: Σ λᵢ·yᵢ by an additive tree.
+* ``interpolate_at_zero``: Σ λᵢ·yᵢ by an additive tree (``sum_leading``).
 
 Values are int32[..., 16] Montgomery Fr limbs unless named plain.
 
@@ -184,9 +184,14 @@ def interpolate_at_zero(xs, ys):
     ok bool[]).
     """
     lam, ok = lagrange_coeffs_at_zero(xs)
-    a = mont.mul(FR, lam, ys)
+    return sum_leading(mont.mul(FR, lam, ys)), ok
+
+
+def sum_leading(a):
+    """Σ over the leading axis, mod r, by a pairwise tree of additions
+    (⌈log₂ N⌉ levels, an odd level carrying its last entry up)."""
     while a.shape[0] > 1:
         half = a.shape[0] // 2
         a = torch.cat([mont.add(FR, a[:half], a[half:2 * half]),
                        a[2 * half:]])
-    return a[0], ok
+    return a[0]

@@ -23,13 +23,22 @@ The counterpart of ``threshold_crypto_tpu/ops/threshold.py``; so far:
 * ``combine_batch``, the threshold combine: λ from the shares' x
   (``ops.fr.lagrange_coeffs_at_zero``, B14 above 1024 shares), then one
   255-bit MSM on one of three paths (B11, B15 or B16);
-* ``derive_shares``, the keygen's share derivation (``ops.fr.poly_eval``).
+* ``derive_shares``, the keygen's share derivation (``ops.fr.poly_eval``);
+* the DKG batch ops: ``commit_batch`` (Feldman commitments on the
+  generator), ``powers_batch``, ``bivar_commit_batch`` (a dealer's
+  triangular commitment), ``bivar_row_batch`` (its rows for every node),
+  ``bivar_commit_row_batch`` (the row commitments every node checks its row
+  against) and ``bivar_commit_eval_batch`` (the per-value check
+  C(x, y) == f(x, y)·G1), on the 255-bit ladders (B10 tables, B13) and B1;
+* ``verify_sig_shares_rlc``, the RLC check with its two 64-bit MSMs as
+  per-lane bit ladders (``DeviceCurve.msm_scalarwise``: B15 and the fold).
 
 The JAX package's jit and AOT-cache wrappers (``verify_batch_pallas_jit``,
 the jitted aggregate of ``verify_sig_shares_rlc_pallas``) have no
-counterpart: PyTorch runs eagerly. Nor has ``combine_batch_stepwise``, which
-drives the combine's MSM bit by bit over a small jitted step only to escape
-XLA's compile latency.
+counterpart: PyTorch runs eagerly. Nor have ``combine_batch_stepwise``,
+``verify_batch_stepwise`` and ``verify_sig_shares_rlc_stepwise``, which
+drive the same math over small jitted steps only to escape XLA's compile
+latency.
 """
 
 from __future__ import annotations
@@ -48,9 +57,10 @@ from ..device import keccak as dkeccak
 from ..device import mont
 from ..device import pairing as dpr
 from ..device.curve import leaves, tree_map
-from ..device.mont import FQ
+from ..device.mont import FQ, FR
 from ..host import chacha as hchacha
 from ..host.params import G1_GEN, P
+from ..poly import coeff_pos
 from . import fr as frops
 
 
@@ -350,8 +360,137 @@ def derive_shares(coeffs_mont, xs_mont):
 
 
 # ---------------------------------------------------------------------------
+# Commitments and the DKG (``src/poly.rs:372-377, 589-632, 693-744``)
+# ---------------------------------------------------------------------------
+
+def commit_batch(coeffs_plain):
+    """Feldman commitment G1·c_k of every coefficient: coeffs_plain
+    int32[D+1, 16] canonical Fr limbs -> a G1 Jacobian tuple [D+1]
+    (``G1.scalar_mul`` of the generator: one B2, 14 B10, one B13)."""
+    gen = dcv.G1.generator((coeffs_plain.shape[0],), coeffs_plain.device)
+    return dcv.G1.scalar_mul(gen, coeffs_plain)
+
+
+def powers_batch(xs_mont, degree: int):
+    """[x⁰ .. x^degree] per lane: int32[M, 16] -> [M, degree+1, 16]
+    Montgomery limbs, by ``degree`` products (B1) one after another."""
+    pw = [mont.one(FR, xs_mont.shape[:1], xs_mont.device)]
+    for _ in range(degree):
+        pw.append(mont.mul(FR, pw[-1], xs_mont))
+    return torch.stack(pw, 1)
+
+
+def bivar_commit_batch(coeffs_plain):
+    """A dealer's ``BivarPoly.commitment``: one batched fixed-base G1
+    scalar-mul over the triangular coefficients (int32[npos, 16] canonical
+    limbs in ``coeff_pos`` order) -> G1 Jacobian tuple [npos]."""
+    return commit_batch(coeffs_plain)
+
+
+def _pos_grid(degree: int, device):
+    """int64[d+1, d+1]: coeff_pos(i, j)."""
+    return torch.tensor([[coeff_pos(i, j) for j in range(degree + 1)]
+                         for i in range(degree + 1)], device=device)
+
+
+def bivar_row_batch(coeffs_mont, xs_mont, degree: int):
+    """The dealer's rows for a batch of nodes: out[m, i] =
+    Σ_j c[pos(i, j)]·x_m^j (``src/poly.rs:607-623``). coeffs_mont:
+    int32[npos, 16], xs_mont: int32[M, 16], both Montgomery limbs; returns
+    int32[M, d+1, 16] Montgomery limbs. The M(d+1)² products are one B1
+    over the gathered coefficient × power grid, the sum over j a tree of
+    additions (``ops.fr.sum_leading``)."""
+    xpow = powers_batch(xs_mont, degree)                        # [M, d+1]
+    grid = coeffs_mont[_pos_grid(degree, coeffs_mont.device)]   # [d+1, d+1]
+    terms = mont.mul(FR, grid[None], xpow[:, None])        # [M, i, j]
+    return frops.sum_leading(terms.movedim(2, 0))
+
+
+def bivar_commit_row_batch(commit_jac, xs_mont, degree: int):
+    """The row commitments from a ``BivarCommitment`` for a batch of
+    nodes: out[m, i] = Σ_j C[pos(i, j)]·x_m^j (``src/poly.rs:693-726``),
+    which every node holds its dealt row against.
+
+    commit_jac: G1 Jacobian tuple [npos]; xs_mont: int32[M, 16]. The
+    commitment is lifted to affine once (one B2), the M(d+1)² products
+    run as per-lane ladders over it (``scalar_mul_gathered``: one table of
+    14 B10 over the npos points, B13 per chunk of lanes), then one fold
+    over j (⌈log₂(d+1)⌉ levels). Returns a G1 Jacobian tuple [M, d+1].
+    """
+    m, d1 = xs_mont.shape[0], degree + 1
+    xpow = frops.fr_to_plain(powers_batch(xs_mont, degree))     # [M, d+1]
+    index = _pos_grid(degree, xs_mont.device)[None].expand(m, d1, d1)
+    scal = xpow[:, None].expand(m, d1, d1, FR.L)
+    prods = ccv.scalar_mul_gathered(dcv.G1,
+                                    jacobian_to_affine(dcv.G1, commit_jac),
+                                    index.reshape(-1),
+                                    scal.reshape(-1, FR.L))
+    prods = tree_map(lambda a: a.reshape(m, d1, d1, FQ.L), prods)
+    return dcv.G1.fold_axis(prods, 2)
+
+
+def bivar_commit_eval_batch(commit_jac, xs_mont, ys_mont, degree: int):
+    """``BivarCommitment.evaluate(x_m, y_m)`` for a batch of pairs:
+    Σ_{i ≤ j} C[pos(i, j)]·(x^i·y^j + x^j·y^i) (the second term for i ≠ j;
+    ``src/poly.rs:589-604`` in the exponent), the per-value DKG check
+    C(m, s) == f(m, s)·G1. The M·npos scalars are one stacked B1 and one
+    addition, their canonical form one B1; the products run as per-lane
+    ladders over the commitment (``scalar_mul_gathered``), then one fold
+    over the npos positions. Returns a G1 Jacobian tuple [M]."""
+    m = xs_mont.shape[0]
+    ij = [(i, j) for j in range(degree + 1) for i in range(j + 1)]  # by pos
+    dev = xs_mont.device
+    ii = torch.tensor([i for i, _ in ij], device=dev)
+    jj = torch.tensor([j for _, j in ij], device=dev)
+    xpow = powers_batch(xs_mont, degree)
+    ypow = powers_batch(ys_mont, degree)
+    both = mont.mul(FR, torch.stack([xpow[:, ii], xpow[:, jj]]),
+                    torch.stack([ypow[:, jj], ypow[:, ii]]))    # [2, M, npos]
+    scal = mont.select((ii != jj)[None], mont.add(FR, both[0], both[1]),
+                       both[0])
+    npos = len(ij)
+    prods = ccv.scalar_mul_gathered(
+        dcv.G1, jacobian_to_affine(dcv.G1, commit_jac),
+        torch.arange(npos, device=dev).repeat(m),
+        frops.fr_to_plain(scal).reshape(-1, FR.L))
+    prods = tree_map(lambda a: a.reshape(m, npos, FQ.L), prods)
+    return dcv.G1.fold_axis(prods, 1)
+
+
+# ---------------------------------------------------------------------------
 # RLC batch verification: N shares on one message
 # ---------------------------------------------------------------------------
+
+def _rlc_aggregate_pairs(pk_aff, h_jac, sig_aff, r_plain):
+    """(Σ rᵢ·pkᵢ, −G1) × (H, Σ rᵢ·sigᵢ) as [2]-pair affine tuples of one
+    lane; both sums by ``msm_scalarwise`` (64-bit bit ladders, the fold)."""
+    def one(p):
+        return tree_map(lambda a: a[None], p)
+
+    agg_pk = dcv.G1.msm_scalarwise(affine_to_jacobian(dcv.G1, pk_aff),
+                                   r_plain, nbits=64)
+    agg_sig = dcv.G2.msm_scalarwise(affine_to_jacobian(dcv.G2, sig_aff),
+                                    r_plain, nbits=64)
+    pk_a = jacobian_to_affine(dcv.G1, one(agg_pk))
+    sig_a = jacobian_to_affine(dcv.G2, one(agg_sig))
+    h_a = jacobian_to_affine(
+        dcv.G2, tree_map(lambda a: a if a.dim() == 2 else a[None], h_jac))
+    return (_pair2(pk_a, _neg_gen_g1((1,), r_plain.device)),
+            _pair2(h_a, sig_a))
+
+
+def verify_sig_shares_rlc(pk_aff, h_jac, sig_aff, r_plain):
+    """The RLC check e(Σ rᵢ·pkᵢ, H) == e(G1, Σ rᵢ·sigᵢ) of
+    ``verify_sig_shares_rlc_pallas`` in the JAX package's other form: both
+    64-bit MSMs as per-lane bit ladders and a fold
+    (``DeviceCurve.msm_scalarwise``), then one 2-pair check, through
+    ``pairing_check_pallas`` on the card and ``pairing_check`` on the CPU
+    (the JAX form picks by its Pallas switch). Same arguments; returns a
+    bool scalar tensor."""
+    p, q = _rlc_aggregate_pairs(pk_aff, h_jac, sig_aff, r_plain)
+    check = (dpr.pairing_check_pallas if mont.on_card(r_plain)
+             else dpr.pairing_check)
+    return check(p, q)[0]
 
 def rlc_aggregate_pallas(pk_aff, sig_aff, r_plain, nbits: int = 64,
                          msm: str = "shared"):
