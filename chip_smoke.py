@@ -14,7 +14,9 @@ Phases, each announced on a flushed line before it starts:
    kernels, B17 included, also on zero lanes and infinity points; B14 at
    4096 lanes with a duplicate pair and a zero lane; B16 at window 1 and 3
    on its special lanes), timed with CUDA events beside the plain version
-   and the kernel's bound;
+   and the kernel's bound; B13 G1 also at the DKG's launch shape (2^19
+   lanes x 64 digits over the dealing's 3,741 gathered points), and B13's
+   registers, stack frame and spills;
 4. slice 1: ``ops.verify_batch`` on 8192 lanes (16,384 pairs) of keys,
    messages and signatures made on the host from a seed; the result must
    equal the mask known from construction lane for lane, and a 256-lane
@@ -315,7 +317,8 @@ def _demangle(sym):
 
 def print_ptxas(name, log):
     """nvcc's seconds, then per kernel its registers, stack frame and
-    spills, and the device functions' largest stack frame."""
+    spills, and the device functions' largest stack frame. Returns {kernel
+    (demangled): (registers, stack frame, spill stores, spill loads)}."""
     secs = re.search(rf"nvcc {name}\.cu: ([\d.]+) s", log)
     print(f"  {name}.cu: nvcc {secs.group(1) if secs else '?'} s", flush=True)
     frames, regs, entries, current = {}, {}, [], None
@@ -336,8 +339,10 @@ def print_ptxas(name, log):
         m = re.search(r"Used (\d+) registers", line)
         if m and entries:
             regs[entries[-1]] = int(m.group(1))
+    report = {}
     for sym in entries:
         frame = frames.get(sym, (0, 0, 0))
+        report[_demangle(sym)] = (regs.get(sym), *frame)
         print(f"    {_demangle(sym)}: {regs.get(sym, '?')} registers, "
               f"{frame[0]} bytes stack frame, {frame[1]} bytes spill stores, "
               f"{frame[2]} bytes spill loads", flush=True)
@@ -348,6 +353,7 @@ def print_ptxas(name, log):
         print(f"    {len(funcs)} device functions: largest stack frame "
               f"{funcs[big][0]} bytes ({_demangle(big)}), spill bytes "
               f"{spills}", flush=True)
+    return report
 
 
 # ---------------------------------------------------------------------------
@@ -1023,6 +1029,47 @@ def check_ladder(g2, kind, gen, dev, card):
     return dict(lanes=n, digits=digits.shape[0], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, plain_lanes=m, bound_ms=bound,
                 bound_by=by)
+
+
+def check_ladder_dkg(gen, dev, card):
+    """B13 G1 at the DKG's launch shape (``scalar_mul_gathered``): one
+    ``LADDER_CHUNK``-lane launch from infinity, 64 random base-16 digits
+    (lanes 0-3 dead), over the table of the dealing's (t+1)(t+2)/2
+    commitment points, random canonical entries, gathered to the lanes at
+    random; bit-exact with the plain version on its first
+    LADDER_CHECK_LANES lanes, and timed with CUDA events beside
+    ``ladder_bound`` on its digits."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
+    kernel = {k.name: k for _, k in registry()}["g1_step4"]
+    n, npts = ccv.LADDER_CHUNK, (DKG_T + 1) * (DKG_T + 2) // 2
+    points = random_packed(ccv.STEP4_ENTRIES * 3, npts, gen, dev)
+    index = torch.randint(0, npts, (n,), generator=gen, device=dev)
+    table = points[:, index].contiguous()
+    del points
+    digits = torch.randint(0, 16, (64, n), generator=gen, device=dev,
+                           dtype=torch.int32)
+    digits[:, :4] = 0
+    digits = digits.contiguous()
+    acc = ccv.packed_infinity(False, n, dev)
+    got = kernel.launch(acc, table, digits)
+    torch.cuda.synchronize()
+    m = LADDER_CHECK_LANES
+    with plain_versions():
+        want = kernel.plain(acc[:, :m].contiguous(),
+                            table[:, :m].contiguous(),
+                            digits[:, :m].contiguous())
+    err = compare("g1_step4", got[:, :m], want,
+                  f"at the DKG shape, first {m} lanes")
+    ms = cuda_time_ms(lambda: kernel.launch(acc, table, digits), 3)
+    bound, by = ladder_bound(False, "step4", digits, card)
+    print(f"g1_step4 at the DKG shape: {n} lanes x 64 digits over {npts} "
+          f"gathered points: bit-exact on {m} lanes; kernel {ms:.3f} ms, "
+          f"bound {bound:.3f} ms ({by}), {ms / bound:.2f}x the bound",
+          flush=True)
+    return dict(lanes=n, digits=64, points=npts, max_abs_err=err, ms=ms,
+                bound_ms=bound, bound_by=by)
 
 
 # ---------------------------------------------------------------------------
@@ -2664,8 +2711,9 @@ def main():
     logs = _build.build()
     print(f"built {sorted(logs)} in {time.time() - t0:.1f} s (one nvcc per "
           f"source, all started together)", flush=True)
+    ptxas = {}
     for name in sorted(logs):
-        print_ptxas(name, logs[name])
+        ptxas.update(print_ptxas(name, logs[name]))
 
     phase("kernels against their plain versions (bit-exact)")
     rng = np.random.default_rng(SEED)
@@ -2690,6 +2738,17 @@ def main():
         for g2 in (False, True):
             results[f"g{1 + g2}_{kind}"] = check_ladder(g2, kind, gen, dev,
                                                          card)
+    results["g1_step4"]["dkg_shape"] = check_ladder_dkg(gen, dev, card)
+    for g2 in (False, True):
+        figures = ptxas[f"step4_kernel<{'Fq2' if g2 else 'Fq'}>"]
+        results[f"g{1 + g2}_step4"]["ptxas"] = dict(zip(
+            ("registers", "stack_frame", "spill_stores", "spill_loads"),
+            figures))
+        print(f"g{1 + g2}_step4 (ladder.cu step4_kernel): {figures[0]} "
+              f"registers, {figures[1]} bytes stack frame, {figures[2]} "
+              f"bytes spill stores, {figures[3]} bytes spill loads",
+              flush=True)
+    torch.cuda.empty_cache()
     results["lagrange_rowprod"] = check_rowprod(dev, card)
     for g2 in (False, True):
         results.update(check_b16(g2, gen, dev, card))
@@ -2778,6 +2837,9 @@ def main():
             entry["digits"] = res["digits"]
         if "plain_lanes" in res:
             entry["plain_lanes"] = res["plain_lanes"]
+        for key in ("dkg_shape", "ptxas"):
+            if key in res:
+                entry[key] = res[key]
         if "accumulators" in res:
             entry["accumulators"] = res["accumulators"]
             entry["ms_other_accumulators"] = res["ms_other_accumulators"]

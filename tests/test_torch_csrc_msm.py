@@ -1,10 +1,11 @@
 """The curve and SHA3 kernels' CUDA sources, compiled for the host, against
 their plain versions and ``hashlib``.
 
-The per-lane bodies of B10, B11, B13, B15 and B16 (``csrc/curve.cuh``: the
+The per-lane bodies of B10, B11, B15 and B16 (``csrc/curve.cuh``: the
 doubling, the complete add, the complete mixed add, the Horner loop of one
-accumulator, the two ladders of one lane, and the gated table add and the
-w doublings of one accumulator lane) and of B12
+accumulator, the bit ladder of one lane, and the gated table add and the
+w doublings of one accumulator lane), of B13 (``csrc/ladder_engine.cuh``:
+the digit ladder of one lane) and of B12
 (``csrc/keccak.cuh``) are plain C++ behind CUDA's
 function qualifiers. Here g++ compiles them with the qualifiers defined
 away, and a serial loop over the lanes (or accumulators, or chunks) stands
@@ -48,6 +49,7 @@ HARNESS = r"""
 #include <vector>
 #include "curve.cuh"
 #include "keccak.cuh"
+#include "ladder_engine.cuh"
 
 // stdin: int32 op, g2, n, accs, ndig, window, start, then the inputs;
 // stdout: the output.
@@ -108,8 +110,8 @@ void run(int op, int n, int accs, int ndig, int window, int start) {
     auto acc = rd(P * n), table = rd(15 * P * n), digits = rd(ndig * n);
     out.resize(P * n);
     for (int l = 0; l < n; ++l)
-      tc::step4_lane<F>(acc.data(), table.data(), digits.data(), out.data(),
-                        n, ndig, l);
+      tc::step4_lane_r<F>(acc.data(), table.data(), digits.data(),
+                          out.data(), n, ndig, l);
   }
   fwrite(out.data(), 4, out.size(), stdout);
 }

@@ -96,7 +96,8 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
     assert srcs == ["fq12.cu", "fr.cu", "keccak.cu", "ladder.cu",
                     "miller.cu", "mont.cu", "msm.cu", "shared.cu"]
     assert [os.path.basename(h) for h in _build.headers()] == [
-        "curve.cuh", "fq.cuh", "fr.cuh", "keccak.cuh", "tower.cuh"]
+        "curve.cuh", "fq.cuh", "fr.cuh", "keccak.cuh", "ladder_engine.cuh",
+        "tower.cuh"]
     cmd = _build.command(name, "/nonexistent/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-Xptxas" in cmd
     inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
@@ -112,6 +113,7 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
 @pytest.mark.parametrize("name,header", [("msm", "curve.cuh"),
                                          ("keccak", "keccak.cuh"),
                                          ("ladder", "curve.cuh"),
+                                         ("ladder", "ladder_engine.cuh"),
                                          ("fr", "fr.cuh"),
                                          ("shared", "curve.cuh")])
 def test_msm_and_keccak_sources_build_alone(name, header):

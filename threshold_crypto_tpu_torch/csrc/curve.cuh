@@ -1,6 +1,6 @@
 // Jacobian G1/G2 point formulas of the curve kernels as per-lane device
-// functions, and the per-lane bodies of B10 (madd), B11 (winacc), B13
-// (step4), B15 (step) and B16 (selmadd, dblw).
+// functions, and the per-lane bodies of B10 (madd), B11 (winacc), B15
+// (step) and B16 (selmadd, dblw). B13 (step4) runs on ladder_engine.cuh.
 //
 // Replaces the in-kernel formulas of threshold_crypto_tpu/device/
 // pallas_curve.py (:143-370): `_jac_dbl` (7 products), `_jac_add` (the
@@ -464,33 +464,6 @@ __device__ __forceinline__ void step_lane(const int32_t* acc_in,
       msm_step(T, T, x2, y2);
     else
       jac_dbl(T, T);
-  }
-  store_jac(out, T, n, lane);
-}
-
-// B13 (`_k_g1_msm_step4` / `_k_g2_msm_step4`) with the ladder inside the
-// thread: acc [3k·24, n] Jacobian, table [15·3k·24, n] (1P..15P, Jacobian),
-// digits [ndig, n] base 16, MSB first; per digit d, T <- 16T, then
-// T + table[d − 1] with the complete add where d != 0. The one entry is
-// loaded by index, where the TPU selected over all 15; a digit outside
-// 1..15 reads entry 0, as the TPU's select chain does. ndig = 1 is the
-// TPU kernel.
-template <class F>
-__device__ __forceinline__ void step4_lane(const int32_t* acc_in,
-                                           const int32_t* table,
-                                           const int32_t* digits,
-                                           int32_t* out, int n, int ndig,
-                                           int lane) {
-  Jac<F> T, Q;
-  load_jac(T, acc_in, 0, n, lane);
-  for (int w = 0; w < ndig; ++w) {
-    for (int i = 0; i < 4; ++i) jac_dbl(T, T);
-    const int d = digits[static_cast<size_t>(w) * n + lane];
-    if (d != 0) {
-      const int e = (d >= 1 && d <= 15) ? d - 1 : 0;
-      load_jac(Q, table, e * 3 * Comps<F>::k, n, lane);
-      jac_add(T, T, Q);
-    }
   }
   store_jac(out, T, n, lane);
 }

@@ -31,10 +31,15 @@
 // against 3k·96·2 bytes of accumulator and 3k·96 bytes per table entry
 // read: the multiply issue rate bounds it by far. Per bit B15 needs one
 // doubling and, for a set bit, the general path of the mixed add (11 / 30)
-// against 5k·96 bytes: the multiply issue rate again. The add's doubling
-// branch is computed and selected on every lane (curve.cuh); the bounds
-// count only the general path. The formulas live in registers and local
-// memory (curve.cuh's __noinline__ functions).
+// against 5k·96 bytes: the multiply issue rate again.
+//
+// B13 runs on the register engine of ladder_engine.cuh (`step4_lane_r`):
+// field values in registers, one out-of-line carry-save Montgomery product
+// in PTX, and the add's doubling case a branch through the ladder's own
+// doubling. B15 keeps curve.cuh's body: its formulas live in registers and
+// local memory (__noinline__ functions), and its add computes the doubling
+// branch on every lane and selects it; its bound counts only the general
+// path.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0.
@@ -43,6 +48,7 @@
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
+#include "ladder_engine.cuh"
 
 namespace {
 
@@ -58,15 +64,31 @@ step_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ q,
   tc::step_lane<F>(acc, q, bits, out, n, nbits, lane);
 }
 
+// B13's blocks of kThreads that must fit on an SM together, per field:
+// __launch_bounds__ caps the registers at 65,536 / (kThreads · blocks) a
+// thread. G1 at 3 blocks (cap 168) ran the DKG's 2^19-lane launch 6 %
+// faster than at 2 (cap 255: 212 registers, no frame) for a 144-byte frame
+// outside the product (NVIDIA H100 80GB HBM3, 700 W; tools/b13_variants.py);
+// G2 keeps the 255 cap, where it spills least.
 template <class F>
-__global__ void __launch_bounds__(kThreads)
+struct Step4Blocks;
+template <>
+struct Step4Blocks<tc::Fq> {
+  static constexpr int value = 3;
+};
+template <>
+struct Step4Blocks<tc::Fq2> {
+  static constexpr int value = 2;
+};
+
+template <class F>
+__global__ void __launch_bounds__(kThreads, Step4Blocks<F>::value)
 step4_kernel(const int32_t* __restrict__ acc,
              const int32_t* __restrict__ table,
              const int32_t* __restrict__ digits, int32_t* __restrict__ out,
              int n, int ndig) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  tc::step4_lane<F>(acc, table, digits, out, n, ndig, lane);
+  if (lane < n) tc::step4_lane_r<F>(acc, table, digits, out, n, ndig, lane);
 }
 
 inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }

@@ -22,7 +22,8 @@ Each kernel is the counterpart of one Pallas kernel of
   ``_k_g1/g2_msm_step4`` :449-450): per lane and base-16 digit d, T ← 16T,
   then T + table[d − 1] where d ≠ 0 (``curve.msm_step_w4``). The TPU ran
   one launch per digit from a ``lax.scan``; here the digit loop runs inside
-  the thread, so a whole ladder is one launch.
+  the thread, so a whole ladder is one launch, on the register engine of
+  ``csrc/ladder_engine.cuh`` (the others run on ``csrc/curve.cuh``).
 * B15 ``g1_step`` / ``g2_step`` (``_mk_step_kernel`` :373, instances
   ``_k_g1/g2_msm_step`` :447-448): per lane and bit, T ← 2T (+ Q affine)
   (``curve.msm_step``), the bit loop inside the thread likewise.
@@ -188,8 +189,9 @@ def _step4(g2, count, acc, table, digits):
 
 
 def g1_step4(acc, table, digits):
-    """Kernel B13, G1: acc [72, N] Jacobian, table [15·72, N] (1P..15P),
-    digits [D, N] base 16 MSB first -> the acc after D ladder steps."""
+    """Kernel B13, G1 (``csrc/ladder.cu`` over ``csrc/ladder_engine.cuh``):
+    acc [72, N] Jacobian, table [15·72, N] (1P..15P), digits [D, N] base 16
+    MSB first -> the acc after D ladder steps."""
     return _step4(False, G1_STEP4, acc, table, digits)
 
 

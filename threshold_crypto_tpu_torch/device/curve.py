@@ -43,7 +43,9 @@ def tree_map(fn, *trees):
 
 
 def leaves(tree):
-    if isinstance(tree, tuple):
+    """The leaves of nested tuples and lists, depth first, in the order of
+    ``jax.tree_util.tree_leaves``."""
+    if isinstance(tree, (tuple, list)):
         return [leaf for t in tree for leaf in leaves(t)]
     return [tree]
 

@@ -540,12 +540,14 @@ def verify_sig_shares_rlc_pallas(pk_aff, h_jac, sig_aff, r_plain,
     return verify_batch_pallas(bc(pk_a), bc(h_a), bc(sg_a))[0]
 
 
-def rlc_exponents(n: int, seed: bytes, pk_aff=None, sig_aff=None,
-                  on_device: bool = True, device=None):
+def rlc_exponents(n: int, seed: bytes, *trees, pk_aff=None, sig_aff=None,
+                  h_jac=None, on_device: bool = True, device=None):
     """Deterministic 64-bit batch-verification exponents, bound to the
     verification transcript: ChaCha20 keyed by SHA3-256(seed ‖ n ‖
-    transcript digests), where the transcript absorbs every leaf of
-    ``pk_aff`` then ``sig_aff`` (``device.keccak.transcript_digests``).
+    transcript digests), where the transcript absorbs, in this order, every
+    leaf of the positional ``trees``, then of ``pk_aff``, ``sig_aff`` and
+    ``h_jac`` (those given; ``device.keccak.transcript_digests``), in the
+    leaf order of the JAX package's ``jax.tree_util.tree_leaves``.
 
     Returns int32[n, 16] canonical Fr limbs with the low 64 bits set and
     never zero (a zero draw becomes 1), on ``device``: by default the device
@@ -553,8 +555,8 @@ def rlc_exponents(n: int, seed: bytes, pk_aff=None, sig_aff=None,
     the ChaCha stream there (``device.chacha``); ``on_device=False`` on the
     host (``host.chacha``); both give the same limbs.
     """
-    absorb = [t for t in (pk_aff, sig_aff) if t is not None]
-    leaf_list = leaves(tuple(absorb))
+    absorb = [t for t in (*trees, pk_aff, sig_aff, h_jac) if t is not None]
+    leaf_list = leaves(absorb)
     if device is None:
         device = next((x.device for x in leaf_list
                        if isinstance(x, torch.Tensor)), "cuda")
