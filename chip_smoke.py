@@ -13,10 +13,12 @@ Phases, each announced on a flushed line before it starts:
    same inputs, bit-exact, at the shapes of the main paths (the tower
    kernels, B17 included, also on zero lanes and infinity points; B14 at
    4096 lanes with a duplicate pair and a zero lane; B16 at window 1 and 3
-   on its special lanes), timed with CUDA events beside the plain version
-   and the kernel's bound; B13 G1 also at the DKG's launch shape (2^19
-   lanes x 64 digits over the dealing's 3,741 gathered points), and B13's
-   registers, stack frame and spills;
+   on its special lanes; B11 also on its special lanes, T == Q followed by
+   another add in the window among them, against the host's partial sums),
+   timed with CUDA events beside the plain version and the kernel's bound;
+   B13 G1 also at the DKG's launch shape (2^19 lanes x 64 digits over the
+   dealing's 3,741 gathered points), and B11's and B13's registers, stack
+   frame and spills;
 4. slice 1: ``ops.verify_batch`` on 8192 lanes (16,384 pairs) of keys,
    messages and signatures made on the host from a seed; the result must
    equal the mask known from construction lane for lane, and a 256-lane
@@ -139,6 +141,8 @@ DBL_FQ_PRODUCTS = (7, 16)
 # weigh cuda_curve.ACCUMULATORS end to end: fewer accumulators mean fewer
 # fold levels but fewer blocks for B11.
 RLC_A_SWEEP = (8192, 16384, 32768)
+# B11's accumulators on its special lanes (``winacc_special_points``).
+WINACC_SPECIAL_A = 5
 RLC_A_ROUNDS = 5
 RLC_KERNELS = ("g1_madd", "g2_madd", "g1_winacc", "g2_winacc", "sha3_chunks")
 # Slice 4, benches/hash_bench.py: distinct messages, 16 keys tiled; lanes
@@ -790,17 +794,85 @@ def winacc_inputs(g2, n, gen, dev):
     return table, digits
 
 
+def winacc_special_points(host, rnd):
+    """B11's special lanes: host table entries [7][17] (None: infinity) and
+    digits [2][17] of the Horner loop at A = WINACC_SPECIAL_A = 5
+    (accumulator j owns lanes j, j + 5, j + 10, j + 15; the last block
+    ragged), with the host's partial sums:
+    acc 0, window 0: lane 0 adds P, lane 5 adds P again (T == Q), lane 10
+    adds more at once, so a doubling deferred past it would be wrong;
+    acc 1: lane 1 adds P in window 0 (the other lanes digit 0), then, after
+    three doublings, 8P in window 1 (T == Q) before lane 6 adds more;
+    acc 2, window 0: P, then −P (T == −Q: infinity), then Q onto infinity;
+    acc 3: every digit 0 (dead lanes); acc 4: an entry at infinity onto
+    infinity (the first add), then Q, then an entry at infinity onto Q;
+    lanes 10 and 11 of window 1 carry digits 9 and −1, outside 1..7, which
+    read entry 0."""
+    from threshold_crypto_tpu_torch.host.params import R
+
+    n, ndig, A = 17, 2, WINACC_SPECIAL_A
+    entries = [[host.mul(host.generator, rnd.randrange(1, R))
+                for _ in range(n)] for _ in range(7)]
+    digits = [[rnd.randrange(1, 8) for _ in range(n)] for _ in range(ndig)]
+
+    def put(w, lane, pt, d=None):
+        d = d or digits[w][lane]
+        digits[w][lane] = d
+        entries[d - 1][lane] = pt
+
+    p0 = entries[digits[0][0] - 1][0]
+    put(0, 5, p0)
+    for lane in (6, 11, 16):
+        digits[0][lane] = 0
+    p1 = entries[digits[0][1] - 1][1]
+    put(1, 1, host.mul(p1, 8), d=digits[0][1] % 7 + 1)
+    p2 = entries[digits[0][2] - 1][2]
+    put(0, 7, host.neg(p2))
+    for w in range(ndig):
+        for lane in (3, 8, 13):
+            digits[w][lane] = 0
+    put(0, 4, None)
+    put(0, 14, None)
+    digits[1][10], digits[1][11] = 9, -1
+
+    sums = [None] * A
+    for w in range(ndig):
+        sums = [None if s is None else host.mul(s, 8) for s in sums]
+        for lane in range(n):
+            d = digits[w][lane]
+            if d != 0:
+                q = entries[d - 1 if 1 <= d <= 7 else 0][lane]
+                sums[lane % A] = host.add(sums[lane % A], q)
+    return entries, digits, sums
+
+
+def winacc_bound(g2, table, digits, accs, window, card):
+    """bound_ms of one B11 launch: per nonzero digit the general path of
+    the complete add, per accumulator and window `window` doublings; bytes:
+    the table and the digits read once, the accumulators written once."""
+    k = 2 if g2 else 1
+    nonzero = int((digits != 0).sum().item())
+    products = (nonzero * ADD_FQ_PRODUCTS[k - 1]
+                + accs * digits.shape[0] * window * DBL_FQ_PRODUCTS[k - 1])
+    bytes_moved = (table.numel() + digits.numel() + 3 * k * 24 * accs) * 4
+    return bound_ms(bytes_moved, products * FQ_PRODUCT_IMADS, card)
+
+
 def check_winacc(g2, gen, dev, card):
     """B11 over all 22 windows at the chosen A: bit-exact against its plain
     version (a sequential loop over blocks of A lanes) at N = 2A, so every
-    accumulator owns two lanes; timed at the path's N = 262,144, and at two
-    other A beside the chosen one."""
+    accumulator owns two lanes, and on the special lanes of
+    ``winacc_special_points``, whose partial sums must equal the host's;
+    timed at the path's N = 262,144, and at two other A beside the chosen
+    one."""
     import torch
     from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.host import curve as hcv
 
     name = "g2_winacc" if g2 else "g1_winacc"
     kernel = {k.name: k for _, k in registry()}[name]
-    A, k = ccv.ACCUMULATORS, 2 if g2 else 1
+    A = ccv.ACCUMULATORS
     table, digits = winacc_inputs(g2, 2 * A, gen, dev)
     got = kernel.launch(table, digits, A, RLC_WINDOW)
     torch.cuda.synchronize()
@@ -809,18 +881,31 @@ def check_winacc(g2, gen, dev, card):
                                     RLC_WINDOW)
     err = compare(name, got, want, f"at N = {2 * A}, A = {A}")
     del table, digits, want
+    curve, host = (dcv.G2, hcv.G2) if g2 else (dcv.G1, hcv.G1)
+    entries, digs, sums = winacc_special_points(host,
+                                                random.Random(0xB11 + g2))
+    table = torch.cat([_host_packed(curve, e, dev) for e in entries])
+    digits = torch.tensor(digs, dtype=torch.int32, device=dev)
+    got = kernel.launch(table, digits, WINACC_SPECIAL_A, RLC_WINDOW)
+    torch.cuda.synchronize()
+    with plain_versions():
+        want = kernel.plain(table, digits, WINACC_SPECIAL_A, RLC_WINDOW)
+    err = max(err, compare(name, got, want, "on the special lanes"))
+    if curve.to_host_affine(ccv.unpack_jac(got, g2)) != sums:
+        fail(f"{name}: the partial sums of the special lanes are not the "
+             f"host's")
+    del table, digits, want
     table, digits = winacc_inputs(g2, RLC_N, gen, dev)
     ms = cuda_time_ms(lambda: kernel.launch(table, digits, A, RLC_WINDOW), 2)
     others = {a: cuda_time_ms(lambda: kernel.launch(table, digits, a,
                                                     RLC_WINDOW), 1)
               for a in (A // 2, 2 * A)}
     nonzero = int((digits != 0).sum().item())
-    add_p, dbl_p = ADD_FQ_PRODUCTS[k - 1], DBL_FQ_PRODUCTS[k - 1]
-    products = nonzero * add_p + A * 22 * RLC_WINDOW * dbl_p
-    bytes_moved = (table.numel() + digits.numel() + 3 * k * 24 * A) * 4
-    bound, by = bound_ms(bytes_moved, products * FQ_PRODUCT_IMADS, card)
+    bound, by = winacc_bound(g2, table, digits, A, RLC_WINDOW, card)
     print(f"{name} table {list(table.shape)} digits {list(digits.shape)} "
-          f"A={A}: bit-exact at N={2 * A} (plain {plain_ms:.1f} ms); kernel "
+          f"A={A}: bit-exact at N={2 * A} (plain {plain_ms:.1f} ms) and on "
+          f"the special lanes (T == Q then another add in its window, "
+          f"T == -Q, infinity, digits 0 and outside 1..7); kernel "
           f"{ms:.3f} ms at N={RLC_N} ({nonzero} nonzero digits), bound "
           f"{bound:.3f} ms ({by}), {ms / bound:.1f}x the bound; at "
           f"A={A // 2}: {others[A // 2]:.3f} ms, A={2 * A}: "
@@ -2739,15 +2824,16 @@ def main():
             results[f"g{1 + g2}_{kind}"] = check_ladder(g2, kind, gen, dev,
                                                          card)
     results["g1_step4"]["dkg_shape"] = check_ladder_dkg(gen, dev, card)
-    for g2 in (False, True):
-        figures = ptxas[f"step4_kernel<{'Fq2' if g2 else 'Fq'}>"]
-        results[f"g{1 + g2}_step4"]["ptxas"] = dict(zip(
-            ("registers", "stack_frame", "spill_stores", "spill_loads"),
-            figures))
-        print(f"g{1 + g2}_step4 (ladder.cu step4_kernel): {figures[0]} "
-              f"registers, {figures[1]} bytes stack frame, {figures[2]} "
-              f"bytes spill stores, {figures[3]} bytes spill loads",
-              flush=True)
+    for kind, source in (("step4", "ladder.cu"), ("winacc", "msm.cu")):
+        for g2 in (False, True):
+            figures = ptxas[f"{kind}_kernel<{'Fq2' if g2 else 'Fq'}>"]
+            results[f"g{1 + g2}_{kind}"]["ptxas"] = dict(zip(
+                ("registers", "stack_frame", "spill_stores", "spill_loads"),
+                figures))
+            print(f"g{1 + g2}_{kind} ({source} {kind}_kernel): {figures[0]} "
+                  f"registers, {figures[1]} bytes stack frame, {figures[2]} "
+                  f"bytes spill stores, {figures[3]} bytes spill loads",
+                  flush=True)
     torch.cuda.empty_cache()
     results["lagrange_rowprod"] = check_rowprod(dev, card)
     for g2 in (False, True):

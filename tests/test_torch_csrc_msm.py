@@ -1,11 +1,11 @@
 """The curve and SHA3 kernels' CUDA sources, compiled for the host, against
 their plain versions and ``hashlib``.
 
-The per-lane bodies of B10, B11, B15 and B16 (``csrc/curve.cuh``: the
-doubling, the complete add, the complete mixed add, the Horner loop of one
-accumulator, the bit ladder of one lane, and the gated table add and the
-w doublings of one accumulator lane), of B13 (``csrc/ladder_engine.cuh``:
-the digit ladder of one lane) and of B12
+The per-lane bodies of B10, B15 and B16 (``csrc/curve.cuh``: the
+doubling, the complete add, the complete mixed add, the bit ladder of one
+lane, and the gated table add and the w doublings of one accumulator
+lane), of B11 and B13 (``csrc/ladder_engine.cuh``: the Horner loop of one
+accumulator, the digit ladder of one lane) and of B12
 (``csrc/keccak.cuh``) are plain C++ behind CUDA's
 function qualifiers. Here g++ compiles them with the qualifiers defined
 away, and a serial loop over the lanes (or accumulators, or chunks) stands
@@ -14,8 +14,9 @@ on the packed layout, checked bit-exact against the plain versions
 (``device/curve.py``, ``device/cuda_curve.py``, ``device/keccak.py``) on
 seeded points with the special lanes T == Q, T == −Q and infinity on
 either side (for the ladders: 16T == ±table[d − 1], 2T == ±Q, T at
-infinity and digit or bit 0; for B16 the block's first lane and a
-ragged last block whose padding has digit 0), and against
+infinity and digit or bit 0; for B11 T == Q followed by another add in
+the same window and digits outside 1..7; for B16 the block's first lane
+and a ragged last block whose padding has digit 0), and against
 ``hashlib.sha3_256``. Without g++ the tests skip
 (the kernels themselves run only on the card, in ``chip_smoke.py``).
 """
@@ -25,6 +26,7 @@ import random
 import shutil
 import subprocess
 
+import chip_smoke
 import numpy as np
 import pytest
 import torch
@@ -87,8 +89,8 @@ void run(int op, int n, int accs, int ndig, int window, int start) {
     auto table = rd(((1ul << window) - 1) * P * n), digits = rd(ndig * n);
     out.resize(P * accs);
     for (int j = 0; j < accs; ++j)
-      tc::winacc_lane<F>(table.data(), digits.data(), out.data(), n, accs,
-                         ndig, window, j);
+      tc::winacc_lane_r<F>(table.data(), digits.data(), out.data(), n,
+                           accs, ndig, window, j);
   } else if (op == 7) {  // selmadd (B16): acc [P, accs], table, digits
     auto acc = rd(P * accs), table = rd(window * P * n), digits = rd(n);
     out.resize(P * accs);
@@ -268,6 +270,29 @@ def test_winacc_body_matches_plain_version(harness, group, accs):
                (rows, accs), accs=accs, ndig=ndig, window=window)
     want = ccv._winacc_ref(g2, table, digits, accs, window)
     assert torch.equal(got, want)
+
+
+def test_winacc_body_matches_plain_version_on_special_lanes(harness, group):
+    """The Horner loop on the special lanes of
+    ``chip_smoke.winacc_special_points`` (T == Q followed by another add in
+    the same window, T == −Q, infinity on either side, dead lanes, digits
+    outside 1..7, a ragged last block), bit-exact with the plain version,
+    whose partial sums equal the host's."""
+    curve, host, _, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    rnd = random.Random(0xB11 + g2)
+    entries, digits, sums = chip_smoke.winacc_special_points(host, rnd)
+    n, A = len(digits[0]), chip_smoke.WINACC_SPECIAL_A
+    table = torch.cat([ccv.pack_point(_jacobian(curve, host, e, rnd))
+                       for e in entries]).contiguous()
+    digits = torch.tensor(digits, dtype=torch.int32)
+    got = _run(harness, "winacc", g2, n, [table, digits], (rows, A),
+               accs=A, ndig=2, window=3)
+    want = ccv._winacc_ref(g2, table, digits, A, 3)
+    assert torch.equal(got, want)
+    assert curve.to_host_affine(ccv.unpack_jac(want, g2)) == sums
+    assert sums[3] is None and sums[0] is not None
 
 
 def _affine(curve, pts):

@@ -11,10 +11,19 @@ placeholder. The driver ``msm_pallas_shared`` with 4 accumulators over
 N = 2·4 + 3 lanes (several lanes per accumulator, a ragged last block)
 must give the host oracle's Σ rᵢ·Pᵢ and the JAX ``msm_pallas_shared``'s sum
 (DIRECT mode) as affine points; dead (infinity) lanes with nonzero scalars
-and real coordinates must never count.
+and real coordinates must never count. B11's plain version at A = 1024 over
+two blocks, with digits outside 1..7 (which read entry 0), equals the JAX
+shared-window Horner chain of DIRECT mode (``_dblw_impl``, then
+``_selmadd_impl`` per block: the fused kernel's select chain and add) bit
+for bit; a slow case holds it against the fused kernel ``_winacc_impl`` in
+interpret mode.
 """
 
+import io
+import os
 import random
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +42,7 @@ from threshold_crypto_tpu_torch.device import cuda_mont
 from threshold_crypto_tpu_torch.device import curve as dcv
 from threshold_crypto_tpu_torch.device import packed as pk
 from threshold_crypto_tpu_torch.host import curve as hcv
-from threshold_crypto_tpu_torch.host.params import R
+from threshold_crypto_tpu_torch.host.params import P, R
 
 N_MADD = 32
 A, N_MSM = 4, 11
@@ -215,6 +224,112 @@ def test_winacc_plain_owns_lanes_by_stride():
                 k = (k << window) | d
             want = host.add(want, host.mul(pts[lane], k))
         assert parts[j] == want, j
+
+
+def _winacc_digit_case(g2, nblk=2, ndig=2):
+    """A table of 7 entries of random canonical Fq limbs over nblk blocks of
+    1024 lanes, and digits [ndig, N] with 0, 1..7 and, on lanes 0-63 of
+    each window, 8, 9, 0x7fffffff and −1 (uint32 0xffffffff to JAX): digits
+    outside 1..7, which the TPU's select chain reads as entry 0."""
+    rng = np.random.default_rng(0xD16 + g2)
+    n, k = nblk * ptw.TILE_ROWS * pcv.LANES, 6 if g2 else 3
+    vals = rng.integers(0, 1 << 62, (7 * k * n, 7), dtype=np.uint64)
+    limbs = np.zeros((7 * k * n, 24), np.uint32)
+    for i, row in enumerate(vals):
+        v = 0
+        for word in row:
+            v = (v << 62) | int(word)
+        v %= P
+        limbs[i] = [(v >> (16 * j)) & 0xFFFF for j in range(24)]
+    comps = limbs.reshape(7 * k, n, 24)
+    digits = rng.integers(0, 8, (ndig, n)).astype(np.int32)
+    digits[:, :64] = np.array([8, 9, 0x7FFFFFFF, -1] * 16, np.int32)
+    return comps, digits
+
+
+def _winacc_jax_direct(g2, comps, digits):
+    """The JAX DIRECT branch of ``pcv.msm_pallas_shared``: per window
+    ``_dblw_impl`` once, then ``_selmadd_impl`` block by block (the
+    fused kernel's select chain and complete add, run as jnp code)."""
+    k, n = (6 if g2 else 3), comps.shape[1]
+    nblk = n // (ptw.TILE_ROWS * pcv.LANES)
+    pp = k * ptw.L
+    tab = ptw.pack([jnp.asarray(c) for c in comps], n)          # [7pp, R, 128]
+    tab_blocks = (tab.reshape(7 * pp, nblk, ptw.TILE_ROWS, pcv.LANES)
+                  .transpose(1, 0, 2, 3))
+    dig = jnp.asarray(digits.astype(np.uint32)).reshape(
+        digits.shape[0], nblk, 1, ptw.TILE_ROWS, pcv.LANES)
+    selmadd, dblw = pcv._selmadd_impl(g2, 7), pcv._dblw_impl(g2, 3)
+    acc = pcv._packed_inf_jac(pp, ptw.TILE_ROWS)
+    for w in range(digits.shape[0]):
+        acc = dblw(acc)
+        for j in range(nblk):
+            acc = selmadd(acc, tab_blocks[j], dig[w, j])
+    return [np.asarray(c) for c in ptw.unpack(acc, k, ptw.TILE_ROWS
+                                              * pcv.LANES)]
+
+
+@pytest.mark.parametrize("g2", [False, True], ids=["G1", "G2"])
+def test_winacc_plain_digit_rule_matches_jax(direct, g2):
+    """B11's plain version at A = 1024 over two blocks, digits outside
+    1..7 included, bit for bit against the JAX shared-window Horner chain
+    (DIRECT mode)."""
+    comps, digits = _winacc_digit_case(g2)
+    want = _winacc_jax_direct(g2, comps, digits)
+    table = pk.pack([torch.from_numpy(c.astype(np.int32)) for c in comps])
+    got = ccv.p_winacc(g2, table, torch.from_numpy(digits), 1024, 3)
+    for i, (g, w) in enumerate(zip(pk.unpack(got, len(want)), want)):
+        assert np.array_equal(g.numpy().astype(np.uint32), w), i
+
+
+# The fused TPU kernel ``pcv._winacc_impl`` in interpret mode, in a child
+# process with XLA's fusion pass off (with it on the interpreted kernel
+# compiles for hours; off, G1 at two blocks and two windows takes about a
+# quarter of an hour on a small CPU host).
+_WINACC_CHILD = """
+import io, sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import numpy as np
+from threshold_crypto_tpu.device import pallas_curve as pcv
+from threshold_crypto_tpu.device import pallas_tower as ptw
+inp = np.load(io.BytesIO(sys.stdin.buffer.read()))
+comps, digits, g2 = inp["comps"], inp["digits"], bool(inp["g2"])
+k, n = comps.shape[0] // 7, comps.shape[1]
+nblk = n // (ptw.TILE_ROWS * pcv.LANES)
+ptw.INTERPRET = True
+tab = ptw.pack([jnp.asarray(c) for c in comps], n)
+dig = jnp.asarray(digits.astype(np.uint32)).reshape(
+    digits.shape[0], nblk, ptw.TILE_ROWS, pcv.LANES)
+acc = pcv._winacc_impl(g2, 7, 3, digits.shape[0], nblk)(tab, dig)
+buf = io.BytesIO()
+np.savez(buf, *[np.asarray(c) for c in ptw.unpack(
+    acc, k, ptw.TILE_ROWS * pcv.LANES)])
+sys.stdout.buffer.write(buf.getvalue())
+"""
+
+
+@pytest.mark.slow
+def test_winacc_plain_digit_rule_matches_jax_kernel_interpret():
+    """The same in G1 against the fused TPU kernel ``_winacc_impl`` itself
+    (Pallas interpret mode): its compile alone takes minutes."""
+    comps, digits = _winacc_digit_case(False)
+    buf = io.BytesIO()
+    np.savez(buf, comps=comps, digits=digits, g2=False)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_disable_hlo_passes=fusion")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _WINACC_CHILD],
+                          input=buf.getvalue(), capture_output=True, env=env,
+                          cwd=root, timeout=3600)
+    assert proc.returncode == 0, proc.stderr.decode()[-4000:]
+    out = np.load(io.BytesIO(proc.stdout))
+    want = [out[f"arr_{i}"] for i in range(3)]
+    table = pk.pack([torch.from_numpy(c.astype(np.int32)) for c in comps])
+    got = ccv.p_winacc(False, table, torch.from_numpy(digits), 1024, 3)
+    for i, (g, w) in enumerate(zip(pk.unpack(got, 3), want)):
+        assert np.array_equal(g.numpy().astype(np.uint32), w), i
 
 
 def _jax_msm(g2, pts, ks):

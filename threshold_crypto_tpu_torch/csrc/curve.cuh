@@ -1,6 +1,6 @@
 // Jacobian G1/G2 point formulas of the curve kernels as per-lane device
-// functions, and the per-lane bodies of B10 (madd), B11 (winacc), B15
-// (step) and B16 (selmadd, dblw). B13 (step4) runs on ladder_engine.cuh.
+// functions, and the per-lane bodies of B10 (madd), B15 (step) and B16
+// (selmadd, dblw). B11 (winacc) and B13 (step4) run on ladder_engine.cuh.
 //
 // Replaces the in-kernel formulas of threshold_crypto_tpu/device/
 // pallas_curve.py (:143-370): `_jac_dbl` (7 products), `_jac_add` (the
@@ -106,13 +106,6 @@ template <class F>
 struct Jac {
   F X, Y, Z;  // infinity iff Z == 0
 };
-
-template <class F>
-__device__ __forceinline__ void set_infinity(Jac<F>& p) {
-  f_set(p.X, true);
-  f_set(p.Y, true);
-  f_set(p.Z, false);
-}
 
 template <class F>
 __device__ __forceinline__ void select3(Jac<F>& out, bool c, const F& x,
@@ -416,33 +409,6 @@ __device__ __forceinline__ void madd_lane(const int32_t* acc_in,
   f_load(y2, q_in, Comps<F>::k, n, lane);
   jac_madd(T, T, x2, y2);
   store_jac(out, T, n, lane);
-}
-
-// B11 (`_mk_winacc_kernel`): accumulator j of `accs` owns lanes j, j + accs,
-// j + 2·accs, … of the n; for each of the ndig windows (MSB first) it
-// doubles `window` times, then adds table[d − 1] for each lane it owns whose
-// digit d is not 0, in lane order. table: entries 1P..(2^window − 1)P of
-// 3k components each, [(2^window − 1)·3k·24, n]; digits [ndig, n]; out:
-// the accumulators, [3k·24, accs].
-template <class F>
-__device__ __forceinline__ void winacc_lane(const int32_t* table,
-                                            const int32_t* digits,
-                                            int32_t* out, int n, int accs,
-                                            int ndig, int window, int j) {
-  Jac<F> acc, q;
-  set_infinity(acc);
-  for (int w = 0; w < ndig; ++w) {
-    for (int i = 0; i < window; ++i) jac_dbl(acc, acc);
-    const int32_t* row = digits + static_cast<size_t>(w) * n;
-    for (int lane = j; lane < n; lane += accs) {
-      const int d = row[lane];
-      if (d != 0) {
-        load_jac(q, table, (d - 1) * 3 * Comps<F>::k, n, lane);
-        jac_add(acc, acc, q);
-      }
-    }
-  }
-  store_jac(out, acc, accs, j);
 }
 
 // B15 (`_k_g1_msm_step` / `_k_g2_msm_step`) with the ladder inside the

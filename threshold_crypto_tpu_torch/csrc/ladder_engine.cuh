@@ -1,11 +1,14 @@
-// B13's register-resident G1/G2 engine, and B13's lane body on it,
-// `step4_lane_r`.
+// B13's register-resident G1/G2 engine, and the lane bodies on it: B13's
+// `step4_lane_r` and B11's `winacc_lane_r`.
 //
-// Replaces, for kernel B13 only (csrc/ladder.cu `step4_kernel`), the
-// formulas of threshold_crypto_tpu/device/pallas_curve.py `_msm_step_w4`
-// (:355; kernel `_mk_step4_kernel` :385): per lane and base-16 digit d,
-// T <- 16T, then T + table[d − 1] with the complete Jacobian add where
-// d != 0. The other curve kernels (B10, B11, B15, B16) keep curve.cuh.
+// Replaces, for kernels B13 (csrc/ladder.cu `step4_kernel`) and B11
+// (csrc/msm.cu `winacc_kernel`), the formulas of
+// threshold_crypto_tpu/device/pallas_curve.py `_msm_step_w4` (:355; kernel
+// `_mk_step4_kernel` :385): per lane and base-16 digit d, T <- 16T, then
+// T + table[d − 1] with the complete Jacobian add where d != 0; and of
+// `_mk_winacc_kernel` (:534): per window w doublings, then the complete
+// add of table[d − 1] for each lane an accumulator owns. The other curve
+// kernels (B10, B15, B16) keep curve.cuh.
 //
 // What bounds it. Per digit 4 doublings (7 Fq products each in G1, 16 in
 // G2) and, for d != 0, the general path of the complete add (16 / 44),
@@ -587,6 +590,63 @@ __device__ __forceinline__ void step4_lane_r(const int32_t* acc_in,
   reg::f_store(out, T.X, 0, n, lane);
   reg::f_store(out, T.Y, kc, n, lane);
   reg::f_store(out, T.Z, 2 * kc, n, lane);
+}
+
+// B11 (`_mk_winacc_kernel`) on the register engine: accumulator j of `accs`
+// starts at infinity and owns lanes j, j + accs, j + 2·accs, … of the n;
+// for each of the ndig windows (MSB first) it doubles `window` times, then
+// adds table[d − 1] for each lane it owns whose digit d is not 0, in lane
+// order (a digit outside 1..2^window − 1 reads entry 0). table: entries
+// 1P..(2^window − 1)P of 3k components each, [(2^window − 1)·3k·24, n];
+// digits [ndig, n]; out: the accumulators, [3k·24, accs].
+//
+// Up to n / accs adds follow one another inside a window, so the add's
+// doubling case (T == Q) cannot wait for the next window's doublings as in
+// `step4_lane_r`: it must be 2T before the next add. One loop runs every
+// step, each pass either a doubling, while doublings are pending, or the
+// next owned lane's add; the window's `window` doublings, the doubling of
+// an add's T == Q case and a last pending one before the store all go
+// through it, so the kernel holds one copy of each formula.
+template <class F>
+__device__ __forceinline__ void winacc_lane_r(const int32_t* table,
+                                              const int32_t* digits,
+                                              int32_t* out, int n, int accs,
+                                              int ndig, int window, int j) {
+  using R = typename reg::Field<F>::type;
+  constexpr int kc = reg::Field<F>::k;
+  const int nent = (1 << window) - 1;
+  reg::Jac<R> T;
+  reg::f_set(T.X, true);
+  reg::f_set(T.Y, true);
+  reg::f_set(T.Z, false);
+  int w = -1;        // the window whose lanes are being added
+  int lane = n;      // its next owned lane; n or more: none left
+  int pending = 0;   // doublings due before the next add
+  bool more = true;
+#pragma unroll 1
+  while (more) {
+    if (pending == 0 && lane >= n && w + 1 < ndig) {
+      ++w;
+      lane = j;
+      pending = window;
+    }
+    if (pending > 0) {
+      reg::jac_dbl(T);
+      --pending;
+    } else if (lane < n) {
+      const int d = digits[static_cast<size_t>(w) * n + lane];
+      if (d != 0) {
+        const int e = (d >= 1 && d <= nent) ? d - 1 : 0;
+        reg::jac_add(T, table, e * 3 * kc, kc, n, lane, pending);
+      }
+      lane += accs;
+    } else {
+      more = false;
+    }
+  }
+  reg::f_store(out, T.X, 0, accs, j);
+  reg::f_store(out, T.Y, kc, accs, j);
+  reg::f_store(out, T.Z, 2 * kc, accs, j);
 }
 
 }  // namespace tc

@@ -14,10 +14,11 @@
 // inside each thread: accumulator j owns lanes j, j + A, j + 2A, … and, per
 // window (MSB first), doubles itself w times, then adds table[d − 1] for
 // each of its lanes with a digit d ≠ 0 (a branch on the digit, and one
-// indexed load of the one entry, where the TPU selected over all entries).
-// It writes A partial sums, which the driver folds in torch. A is free
-// (device/cuda_curve.py ACCUMULATORS): the TPU's 1024 would fill 8 of 132
-// SMs.
+// indexed load of the one entry, where the TPU selected over all entries;
+// a digit outside 1..2^w − 1 reads entry 0, as the TPU's select chain
+// does). It writes A partial sums, which device/cuda_curve.py folds in
+// torch. A is free (ACCUMULATORS there): the TPU's 1024 would fill 8 of
+// 132 SMs.
 //
 // Layout. Packed limb-major int32[k·24, n] (device/packed.py): acc and the
 // table entries are Jacobian (G1 X, Y, Z; G2 X0, X1, Y0, Y1, Z0, Z1), Q is
@@ -26,18 +27,26 @@
 // depends on its digit, so a warp's loads of one window spread over up to
 // 2^w − 1 rows.
 //
-// What bounds it. Each lane computes the general path and the doubling
-// branch and selects (curve.cuh), but the function needs only the general
-// path, so that is what the bounds count. B10 needs 11 products per lane
-// (8 products and 3 squares: G1 11 Fq products; G2 30, an Fq2 product being
-// 3 and a square 2) against 8k·96 bytes of traffic per lane: the multiply
+// What bounds it. The bounds count only the general path of each add,
+// which is all the function needs. B10 needs 11 products per lane (8
+// products and 3 squares: G1 11 Fq products; G2 30, an Fq2 product being 3
+// and a square 2) against 8k·96 bytes of traffic per lane: the multiply
 // issue rate bounds it. B11 needs 16 products per nonzero digit (12 and 4
 // squares: G1 16 Fq, G2 44) plus w doublings of 7 (2 and 5 squares: G1 7,
 // G2 16) per accumulator and window, against one read of the table
 // (21k·96 bytes per lane) and the digits: the multiply issue rate bounds it
-// by far. The formulas and every intermediate live in registers and local
-// memory (curve.cuh); the accumulator stays in the thread for the whole
-// launch.
+// by far. The accumulator stays in the thread for the whole launch.
+//
+// B10 runs on curve.cuh: its formulas pass every operand through a
+// local-memory frame (__noinline__ over struct references), and its add
+// computes the doubling branch on every lane and selects it. B11 runs on
+// B13's register engine (ladder_engine.cuh `winacc_lane_r`): field values
+// in registers, one out-of-line carry-save Montgomery product, the add's
+// doubling case a branch. One loop serves every step of an accumulator,
+// each pass a doubling or the next lane's add, so the kernel holds one
+// copy of each formula (code size set B13's pace). A random digit spreads
+// a warp's loads of one window over up to 2^w − 1 entry rows, about 5×
+// the sectors it uses; tools/b11_variants.py measures that gather.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0.
@@ -46,6 +55,7 @@
 #include <cuda_runtime.h>
 
 #include "curve.cuh"
+#include "ladder_engine.cuh"
 
 namespace {
 
@@ -60,14 +70,30 @@ madd_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ q,
   tc::madd_lane<F>(acc, q, out, n, lane);
 }
 
+// B11's blocks of kThreads that must fit on an SM together, per field:
+// __launch_bounds__ caps the registers at 65,536 / (kThreads · blocks) a
+// thread. At the RLC path's A = 16,384 one block runs on each of 128 SMs
+// whatever the cap, so both fields take the 255 cap (2 blocks), where
+// fewer values spill (tools/b11_variants.py times the other caps).
 template <class F>
-__global__ void __launch_bounds__(kThreads)
+struct WinaccBlocks;
+template <>
+struct WinaccBlocks<tc::Fq> {
+  static constexpr int value = 2;
+};
+template <>
+struct WinaccBlocks<tc::Fq2> {
+  static constexpr int value = 2;
+};
+
+template <class F>
+__global__ void __launch_bounds__(kThreads, WinaccBlocks<F>::value)
 winacc_kernel(const int32_t* __restrict__ table,
               const int32_t* __restrict__ digits, int32_t* __restrict__ out,
               int n, int accs, int ndig, int window) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= accs) return;
-  tc::winacc_lane<F>(table, digits, out, n, accs, ndig, window, j);
+  if (j < accs)
+    tc::winacc_lane_r<F>(table, digits, out, n, accs, ndig, window, j);
 }
 
 inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }

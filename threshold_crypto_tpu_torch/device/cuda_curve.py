@@ -16,14 +16,16 @@ Each kernel is the counterpart of one Pallas kernel of
   so here accumulator j (one thread) owns lanes j, j + A, j + 2A, … of the
   N lanes; for each window, MSB first, it doubles itself w times, then adds
   ``table[digit − 1]`` of each lane it owns, in lane order, with the
-  complete add ``curve.jac_add`` (a zero digit adds nothing). It writes A
-  partial sums; the TPU form is the case A = 1024.
+  complete add ``curve.jac_add`` (a zero digit adds nothing; a digit outside
+  1..2^w − 1 reads entry 0, as the TPU's select chain does). It writes A
+  partial sums; the TPU form is the case A = 1024. It runs on B13's
+  register engine (``csrc/ladder_engine.cuh``).
 * B13 ``g1_step4`` / ``g2_step4`` (``_mk_step4_kernel`` :385, instances
   ``_k_g1/g2_msm_step4`` :449-450): per lane and base-16 digit d, T ← 16T,
   then T + table[d − 1] where d ≠ 0 (``curve.msm_step_w4``). The TPU ran
   one launch per digit from a ``lax.scan``; here the digit loop runs inside
   the thread, so a whole ladder is one launch, on the register engine of
-  ``csrc/ladder_engine.cuh`` (the others run on ``csrc/curve.cuh``).
+  ``csrc/ladder_engine.cuh`` (B10, B15 and B16 run on ``csrc/curve.cuh``).
 * B15 ``g1_step`` / ``g2_step`` (``_mk_step_kernel`` :373, instances
   ``_k_g1/g2_msm_step`` :447-448): per lane and bit, T ← 2T (+ Q affine)
   (``curve.msm_step``), the bit loop inside the thread likewise.
@@ -305,7 +307,8 @@ def g2_madd_ref(acc, q):
 
 def _winacc_ref(g2, table, digits, accumulators, window):
     """B11's loop as stacked tensor ops over the A accumulators: per window
-    w doublings, then one gated complete add per block of A lanes."""
+    w doublings, then one gated complete add per block of A lanes (entry 0
+    for a digit outside 1..2^w − 1)."""
     F = _field(g2)
     rows = (6 if g2 else 3) * L
     n, A = table.shape[1], accumulators
@@ -319,7 +322,9 @@ def _winacc_ref(g2, table, digits, accumulators, window):
         for start in range(0, n, A):
             m = min(A, n - start)
             d = torch.nn.functional.pad(digits[w, start:start + m], (0, A - m))
-            idx = (d[:m] - 1).clamp(min=0).long()
+            dm = d[:m]
+            idx = torch.where((dm >= 1) & (dm <= nent), dm - 1,
+                              torch.zeros_like(dm)).long()
             lanes = torch.arange(start, start + m, device=table.device)
             q = tab[idx, :, lanes].T                          # [rows, m]
             q = torch.nn.functional.pad(q, (0, A - m))
