@@ -14,7 +14,9 @@ Phases, each announced on a flushed line before it starts:
    kernels, B17 included, also on zero lanes and infinity points; B14 at
    4096 lanes with a duplicate pair and a zero lane; B16 at window 1 and 3
    on its special lanes; B11 also on its special lanes, T == Q followed by
-   another add in the window among them, against the host's partial sums),
+   another add in the window among them, against the host's partial sums;
+   B4 and B6, on the lane-group engine, also at the RLC check's widths,
+   1,024 and 512 lanes, with their registers, stack frame and spills),
    timed with CUDA events beside the plain version and the kernel's bound;
    B13 G1 also at the DKG's launch shape (2^19 lanes x 64 digits over the
    dealing's 3,741 gathered points), and B11's and B13's registers, stack
@@ -484,12 +486,23 @@ TOWER_CHECKS = {
 B17_KERNELS = ("dbl_step", "add_step", "f_sqr_fold", "f_fold")
 
 
-def tower_inputs(name, gen, dev):
-    """The kernel's operands at the path's width, with special lanes: 0-3
-    all zero (f = 0, T = 0, P = (0, 0) the infinity point, line 0), and
-    for the kernels that take T and P, 4-7 an infinity P only and 8-11 a
-    zero T only."""
-    comps, _, _, n = TOWER_CHECKS[name]
+# B4 and B6 on the lane-group engine (csrc/tower_group.cuh) are also held
+# at the RLC check's widths: its 2-pair check replicated to RLC_CHECK_BATCH
+# lanes runs B4 on 2 × RLC_CHECK_BATCH pair lanes and B6 on RLC_CHECK_BATCH;
+# their kernels' ptxas figures (csrc/miller.cu, csrc/fq12.cu).
+CHECK_WIDTHS = {"dbl_fold": 2 * RLC_CHECK_BATCH,
+                "cyclo_sqr": RLC_CHECK_BATCH}
+GROUP_KERNELS = {"dbl_fold": ("miller.cu", "dbl_fold_kernel"),
+                 "cyclo_sqr": ("fq12.cu", "cyclo_sqr_group_kernel")}
+
+
+def tower_inputs(name, gen, dev, n=None):
+    """The kernel's operands at the path's width (or n lanes), with special
+    lanes: 0-3 all zero (f = 0, T = 0, P = (0, 0) the infinity point, line
+    0), and for the kernels that take T and P, 4-7 an infinity P only and
+    8-11 a zero T only."""
+    comps, _, _, width = TOWER_CHECKS[name]
+    n = n or width
     ins = [random_packed(k, n, gen, dev) for k in comps]
     for x in ins:
         x[:, 0:4] = 0
@@ -499,12 +512,15 @@ def tower_inputs(name, gen, dev):
     return ins
 
 
-def check_tower(name, gen, dev, card):
+def check_tower(name, gen, dev, card, n=None):
+    """The kernel bit-exact against its plain version at the path's width
+    (or n lanes), its time and its bound."""
     import torch
 
     kernel = {k.name: k for _, k in registry()}[name]
-    comps, out_comps, products, n = TOWER_CHECKS[name]
-    ins = tower_inputs(name, gen, dev)
+    comps, out_comps, products, width = TOWER_CHECKS[name]
+    n = n or width
+    ins = tower_inputs(name, gen, dev, n)
     extra = (8,) if name == "fq_engine" else ()
     got = kernel.launch(*ins, *extra)
     torch.cuda.synchronize()
@@ -2339,7 +2355,9 @@ def run_combine(dev):
 
 def run_b17_composition(args, dev):
     """One whole packed Miller loop over slice 2's pairs (2·LANES lanes: the
-    (pk, H) and (−G1, sig) pairs of ``verify_batch_pallas``) through B17:
+    (pk, H) and (−G1, sig) pairs of ``verify_batch_pallas``) through B17
+    (one thread a lane on tower.cuh) against B4 (the lane-group engine of
+    tower_group.cuh) and B5:
     on each of the 63 bits of |x| after the first ``p_dbl_step`` then
     ``p_f_sqr_fold``, on its five 1-bits ``p_add_step`` then ``p_f_fold``
     (136 launches, counted). f and T equal the B4/B5 loop's bit for bit,
@@ -2812,6 +2830,20 @@ def main():
     gen.manual_seed(SEED)
     for name in TOWER_CHECKS:
         results[name] = check_tower(name, gen, dev, card)
+    for name, n in CHECK_WIDTHS.items():
+        at = check_tower(name, gen, dev, card, n)
+        source, fn = GROUP_KERNELS[name]
+        figures = ptxas[fn]
+        results[name].update(
+            lanes_check_width=n, ms_check_width=at["ms"],
+            plain_ms_check_width=at["plain_ms"],
+            bound_ms_check_width=at["bound_ms"],
+            ptxas=dict(zip(("registers", "stack_frame", "spill_stores",
+                            "spill_loads"), figures)))
+        print(f"{name} ({source} {fn}, lane-group engine): {figures[0]} "
+              f"registers, {figures[1]} bytes stack frame, {figures[2]} "
+              f"bytes spill stores, {figures[3]} bytes spill loads",
+              flush=True)
     for g2 in (False, True):
         results["g2_madd" if g2 else "g1_madd"] = check_madd(g2, gen, dev,
                                                              card)
@@ -2923,7 +2955,9 @@ def main():
             entry["digits"] = res["digits"]
         if "plain_lanes" in res:
             entry["plain_lanes"] = res["plain_lanes"]
-        for key in ("dkg_shape", "ptxas"):
+        for key in ("dkg_shape", "ptxas", "lanes_check_width",
+                    "ms_check_width", "plain_ms_check_width",
+                    "bound_ms_check_width"):
             if key in res:
                 entry[key] = res[key]
         if "accumulators" in res:

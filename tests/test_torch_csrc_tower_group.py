@@ -1,0 +1,448 @@
+"""The lane-group tower engine (``csrc/tower_group.cuh``), compiled for the
+host, against the plain versions of B4 and B6.
+
+On the card one lane of B4 ``dbl_fold`` / B6 ``cyclo_sqr`` runs on a group
+of ``kGroup`` threads: the block stages its lanes' inputs into shared
+memory, each phase of the static schedule is dealt over the group's
+threads with a barrier after it, and the block writes its outputs. Here
+g++ compiles the header with CUDA's qualifiers defined away and a serial
+loop over the threads stands in for the block, calling the same stage and
+phase functions in the barriers' order:
+
+* both bodies bit-exact with ``cuda_tower.dbl_fold_ref`` /
+  ``cyclo_sqr_ref`` at the kernel's group size and at others, on zero f,
+  zero T and infinity P lanes, lanes of p − 1, random lanes and (B6)
+  cyclotomic lanes, over blocks whose last one is ragged;
+* the dealing: each op of each phase runs on exactly one thread of the
+  group, the product phases hold the 122 (B4: 48, 19, 16, 39) and 18 (B6)
+  Fq products, and a thread runs Σ ceil(layer / G) of them;
+* a linear form reduced as its steps say (canonical when stored; as a
+  product's operand, the bound the product needs) on edge and random
+  slots, and the product canonical on operands up to that bound;
+* the tables in the header are the generator's
+  (``tools/tower_group_schedule.py``);
+* a wrapper's dispatch sends a CPU tensor to the plain version.
+
+The kernels themselves run only on the card: ``chip_smoke.py`` phase 3
+holds them bit-exact against the plain versions at the paths' widths.
+"""
+
+import importlib.util
+import os
+import random
+import re
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from threshold_crypto_tpu_torch import _build
+from threshold_crypto_tpu_torch.device import cuda_tower as ctw
+from threshold_crypto_tpu_torch.device import mont
+from threshold_crypto_tpu_torch.device.mont import FQ
+from threshold_crypto_tpu_torch.host import tower as htw
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+HARNESS = r"""
+#define __device__
+#define __host__
+#define __global__
+#define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
+#define __constant__
+#include <cstdio>
+#include <cstdlib>
+#include <vector>
+#include "tower_group.cuh"
+
+using namespace tc::grp;
+
+struct Sched {
+  const int32_t *phase_ops, *ops, *terms, *out_slots;
+  int phases, slots, lane_words;
+};
+static const Sched kS[2] = {
+    {kB4PhaseOps, kB4Ops, kB4Terms, kB4OutSlots, kB4Phases, kB4Slots,
+     kB4LaneWords},
+    {kB6PhaseOps, kB6Ops, kB6Terms, kB6OutSlots, kB6Phases, kB6Slots,
+     kB6LaneWords}};
+
+static std::vector<int32_t> rd(size_t count) {
+  std::vector<int32_t> v(count);
+  if (fread(v.data(), 4, count, stdin) != count) exit(3);
+  return v;
+}
+
+// One block after another of 2^shift lanes and 2^shift·G threads; each
+// loop over tid is what the block's threads do between two barriers.
+static void emulate(const Sched& s, const std::vector<const int32_t*>& in,
+                    const std::vector<int>& in_comps,
+                    const std::vector<int32_t*>& out,
+                    const std::vector<int>& out_comps, int n, int G,
+                    int shift) {
+  const int lanes = 1 << shift, nthreads = lanes * G;
+  std::vector<uint32_t> smem(static_cast<size_t>(lanes) * s.lane_words);
+  for (int lane0 = 0; lane0 < n; lane0 += lanes) {
+    for (auto& w : smem) w = 0xA5A5A5A5u;
+    int slot0 = 0;
+    for (size_t k = 0; k < in.size(); ++k) {
+      for (int tid = 0; tid < nthreads; ++tid)
+        stage_in(in[k], in_comps[k], slot0, n, lane0, shift, tid, nthreads,
+                 smem.data(), s.lane_words);
+      slot0 += in_comps[k];
+    }
+    for (int ph = 0; ph < s.phases; ++ph)
+      for (int tid = 0; tid < nthreads; ++tid)
+        run_phase(s.phase_ops, s.ops, s.terms, ph, tid % G, G,
+                  smem.data() + static_cast<size_t>(tid / G) * s.lane_words);
+    int c0 = 0;
+    for (size_t k = 0; k < out.size(); ++k) {
+      for (int tid = 0; tid < nthreads; ++tid)
+        stage_out(out[k], s.out_slots + c0, out_comps[k], n, lane0, shift,
+                  tid, nthreads, smem.data(), s.lane_words);
+      c0 += out_comps[k];
+    }
+  }
+}
+
+// stdin: int32 op, G, shift, n, then the inputs; stdout: the outputs.
+// op 0: B4 (f, T, P -> f, T); op 1: B6 (f -> f); op 2 + s: for schedule s,
+// a scratch of random values, then per phase its op count, its product
+// flag and per thread g the slots thread g's share of it writes; op 4: n
+// forms (words, first terms, `shift` terms) over a scratch of G slots;
+// op 5: n products.
+int main() {
+  int32_t h[4];
+  if (fread(h, 4, 4, stdin) != 4) return 2;
+  const int op = h[0], G = h[1], shift = h[2], n = h[3];
+  if (op == 0) {
+    auto f = rd(288ul * n), T = rd(144ul * n), P = rd(48ul * n);
+    std::vector<int32_t> fo(288ul * n), To(144ul * n);
+    emulate(kS[0], {f.data(), T.data(), P.data()}, {12, 6, 2},
+            {fo.data(), To.data()}, {12, 6}, n, G, shift);
+    fwrite(fo.data(), 4, fo.size(), stdout);
+    fwrite(To.data(), 4, To.size(), stdout);
+  } else if (op == 1) {
+    auto f = rd(288ul * n);
+    std::vector<int32_t> fo(288ul * n);
+    emulate(kS[1], {f.data()}, {12}, {fo.data()}, {12}, n, G, shift);
+    fwrite(fo.data(), 4, fo.size(), stdout);
+  } else if (op == 4) {  // n forms over a scratch of G slots
+    auto init = rd(static_cast<size_t>(G) * kWords);
+    auto words = rd(n);
+    auto starts = rd(n);
+    auto terms = rd(static_cast<size_t>(shift));
+    std::vector<uint32_t> lane(init.begin(), init.end()), out;
+    for (int i = 0; i < n; ++i) {
+      tc::reg::Fp r;
+      form(r, terms.data() + starts[i], words[i], lane.data());
+      out.insert(out.end(), r.w, r.w + kWords);
+    }
+    fwrite(out.data(), 4, out.size(), stdout);
+  } else if (op == 5) {  // n products of 12-word operands
+    auto a = rd(12ul * n), b = rd(12ul * n);
+    std::vector<uint32_t> out;
+    for (int i = 0; i < n; ++i) {
+      tc::reg::Fp x, y;
+      for (int j = 0; j < kWords; ++j) {
+        x.w[j] = static_cast<uint32_t>(a[12 * i + j]);
+        y.w[j] = static_cast<uint32_t>(b[12 * i + j]);
+      }
+      const tc::reg::Fp r = tc::reg::fp_mul_call(x, y);
+      out.insert(out.end(), r.w, r.w + kWords);
+    }
+    fwrite(out.data(), 4, out.size(), stdout);
+  } else {
+    const Sched& s = kS[op - 2];
+    auto init = rd(static_cast<size_t>(s.slots) * kWords);
+    std::vector<int32_t> out;
+    for (int ph = 0; ph < s.phases; ++ph) {
+      const int first = s.phase_ops[2 * ph], count = s.phase_ops[2 * ph + 1];
+      out.push_back(count);
+      out.push_back(s.ops[4 * first + 3] > 0);
+      for (int g = 0; g < G; ++g) {
+        std::vector<uint32_t> lane(init.begin(), init.end());
+        run_phase(s.phase_ops, s.ops, s.terms, ph, g, G, lane.data());
+        for (int k = 0; k < s.slots; ++k) {
+          bool changed = false;
+          for (int j = 0; j < kWords; ++j)
+            changed |= lane[k * kWords + j] !=
+                       static_cast<uint32_t>(init[k * kWords + j]);
+          out.push_back(changed);
+        }
+      }
+    }
+    fwrite(out.data(), 4, out.size(), stdout);
+  }
+  return 0;
+}
+"""
+
+N = 22          # lanes: blocks of 4 (shift 2), the last one ragged
+SHIFT = 2
+GROUP = 8       # the kernel's kGroup
+PRODUCTS = {"dbl_fold": [48, 19, 16, 39], "cyclo_sqr": [18]}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module")
+def harness(tmp_path_factory):
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("no g++ to compile the kernel sources for the host")
+    d = tmp_path_factory.mktemp("csrc_tower_group")
+    src = d / "harness.cpp"
+    src.write_text(HARNESS)
+    exe = str(d / "harness")
+    subprocess.run([gxx, "-O1", "-std=c++17", "-I", _build.CSRC, str(src),
+                    "-o", exe], check=True, capture_output=True, timeout=300)
+    return exe
+
+
+def _run(exe, op, G, n, blobs, shift=SHIFT):
+    head = np.array([op, G, shift, n], np.int32).tobytes()
+    proc = subprocess.run([exe], input=head + b"".join(blobs),
+                          capture_output=True, timeout=120, check=True)
+    return np.frombuffer(proc.stdout, np.int32).copy()
+
+
+def _packed(comps):
+    """Host int values [k][N] -> packed int32[k·24, N] Montgomery limbs."""
+    x = np.stack([mont.stack_mont(FQ, c) for c in comps])   # [k, N, 24]
+    return torch.from_numpy(np.ascontiguousarray(
+        x.transpose(0, 2, 1).reshape(len(comps) * FQ.L, -1)))
+
+
+def _random(rnd, k):
+    return [[rnd.randrange(FQ.p) for _ in range(N)] for _ in range(k)]
+
+
+def _flat12(f):
+    return [c for fq6 in f for fq2 in fq6 for c in fq2]
+
+
+def _dbl_fold_inputs(seed):
+    """f, T, P with lanes 0-1 all zero, 2-3 P = (0, 0) (infinity), 4-5
+    T = 0, 6 every component p − 1, the rest random."""
+    rnd = random.Random(seed)
+    f, T, P = _random(rnd, 12), _random(rnd, 6), _random(rnd, 2)
+    for lane in (0, 1):
+        for x in (f, T, P):
+            for c in x:
+                c[lane] = 0
+    for lane in (2, 3):
+        for c in P:
+            c[lane] = 0
+    for lane in (4, 5):
+        for c in T:
+            c[lane] = 0
+    for x in (f, T, P):
+        for c in x:
+            c[6] = FQ.p - 1
+    return _packed(f), _packed(T), _packed(P)
+
+
+def _cyclo_inputs(seed):
+    """f with lanes 0-1 zero, 2 every component p − 1, 8-13 in the
+    cyclotomic subgroup (g^((p^6 − 1)(p^2 + 1)) of a random g), the rest
+    random."""
+    rnd = random.Random(seed)
+    f = _random(rnd, 12)
+    for c in f:
+        c[0] = c[1] = 0
+        c[2] = FQ.p - 1
+    for lane in range(8, 14):
+        g = ((tuple(tuple(rnd.randrange(FQ.p) for _ in range(2))
+                    for _ in range(3))),
+             (tuple(tuple(rnd.randrange(FQ.p) for _ in range(2))
+                    for _ in range(3))))
+        e = htw.fq12_mul(htw.fq12_conj(g), htw.fq12_inv(g))
+        e = htw.fq12_mul(htw.fq12_frob(e, 2), e)
+        for c, v in zip(f, _flat12(e)):
+            c[lane] = v
+    return _packed(f), f
+
+
+@pytest.mark.parametrize("G", [GROUP, 4, 16])
+def test_dbl_fold_group_body_matches_plain_version(harness, G):
+    f, T, P = _dbl_fold_inputs(0xB4 + G)
+    out = _run(harness, 0, G, N, [x.numpy().tobytes() for x in (f, T, P)])
+    fo = torch.from_numpy(out[:288 * N].reshape(288, N).copy())
+    To = torch.from_numpy(out[288 * N:].reshape(144, N).copy())
+    want_f, want_T = ctw.dbl_fold_ref(f, T, P)
+    assert torch.equal(fo, want_f)
+    assert torch.equal(To, want_T)
+
+
+@pytest.mark.parametrize("G", [GROUP, 4, 16])
+def test_cyclo_sqr_group_body_matches_plain_version(harness, G):
+    f, host = _cyclo_inputs(0xB6 + G)
+    out = _run(harness, 1, G, N, [f.numpy().tobytes()])
+    fo = torch.from_numpy(out.reshape(288, N).copy())
+    assert torch.equal(fo, ctw.cyclo_sqr_ref(f))
+    # on the cyclotomic lanes, the true square
+    got = [mont.unstack_mont(FQ, c) for c in pk_unpack(fo)]
+    for lane in range(8, 14):
+        x = [host[i][lane] for i in range(12)]
+        fq2 = [(x[2 * i], x[2 * i + 1]) for i in range(6)]
+        e = (tuple(fq2[:3]), tuple(fq2[3:]))
+        assert [got[i][lane] for i in range(12)] == \
+            _flat12(htw.fq12_sqr(e))
+
+
+def pk_unpack(packed):
+    """Packed int32[288, N] -> 12 int32[N, 24] components."""
+    return [packed[i * FQ.L:(i + 1) * FQ.L].T.contiguous()
+            for i in range(12)]
+
+
+@pytest.mark.parametrize("name,sched", [("dbl_fold", 0), ("cyclo_sqr", 1)])
+@pytest.mark.parametrize("G", [GROUP, 4])
+def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
+    """Thread g's share of a phase writes the slots of ops g, g + G, …:
+    over the group the shares are disjoint and cover every op of the
+    phase once; the product phases hold the 122 (B4) or 18 (B6) Fq
+    products, and the busiest thread runs Σ ceil(layer / G) of them."""
+    text = open(os.path.join(_build.CSRC, "tower_group.cuh")).read()
+    prefix = "kB4" if sched == 0 else "kB6"
+    slots = int(re.search(rf"constexpr int {prefix}Slots = (\d+);",
+                          text).group(1))
+    rnd = random.Random(sched)
+    init = np.array([(rnd.randrange(FQ.p) >> (32 * j)) & 0xFFFFFFFF
+                     for _ in range(slots) for j in range(12)], np.uint32)
+    out = _run(harness, 2 + sched, G, 0, [init.tobytes()])
+    pos, products, busiest = 0, [], 0
+    while pos < out.size:
+        count, is_product = int(out[pos]), bool(out[pos + 1])
+        pos += 2
+        shares = out[pos:pos + G * slots].reshape(G, slots).astype(bool)
+        pos += G * slots
+        assert shares.sum(axis=0).max() <= 1        # disjoint
+        assert shares.sum() == count                # every op once
+        assert [int(s.sum()) for s in shares] == [
+            len(range(g, count, G)) for g in range(G)]
+        if is_product:
+            products.append(count)
+            busiest += -(-count // G)
+    assert products == PRODUCTS[name]
+    assert busiest == sum(-(-c // G) for c in PRODUCTS[name])
+    if name == "dbl_fold" and G == GROUP:
+        assert busiest == 16
+
+
+def _gen():
+    spec = importlib.util.spec_from_file_location(
+        "tower_group_schedule",
+        os.path.join(ROOT, "tools", "tower_group_schedule.py"))
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    return gen
+
+
+def _words(x):
+    return [(x >> (32 * j)) & 0xFFFFFFFF for j in range(12)]
+
+
+def _int(ws):
+    return sum(int(w) << (32 * j) for j, w in enumerate(ws))
+
+
+@pytest.mark.parametrize("steps", ["product", "stored"])
+def test_forms_reduce_as_their_steps_say(harness, steps):
+    """A form Σ c·slot with the generator's reduction steps: stored, the
+    canonical value; as a product operand, its value mod p below 2^384
+    (below 3p after QSTEP) and within the weight bound the product needs.
+    Slots of 0, 1, p − 1, p − 2 and random values; 1 to 24 terms with
+    coefficients up to ±127, all of one sign among them."""
+    gen = _gen()
+    P = FQ.p
+    rnd = random.Random(0xF0 + len(steps))
+    vals = [0, 1, P - 1, P - 2] + [rnd.randrange(P) for _ in range(12)]
+    init = np.array([w for v in vals for w in _words(v)], np.uint32)
+    forms = []
+    for i in range(300):
+        nt = rnd.randint(1, 24)
+        slots = rnd.sample(range(len(vals)), min(nt, len(vals)))
+        sign = [1, -1, 0][i % 3]
+        coefs = [(sign or rnd.choice([1, -1])) * rnd.randint(1, 127)
+                 for _ in slots]
+        forms.append(dict(zip(slots, coefs)))
+    words, starts, terms = [], [], []
+    for f in forms:
+        lin = gen.Lin(f)
+        if steps == "stored":
+            red = gen.reduction(lin, None)[0]
+        else:
+            red = gen.reduction(lin, gen.Lin({0: 4}))[0]
+        starts.append(len(terms))
+        terms += [s << 8 | (c & 0xFF) for s, c in f.items()]
+        words.append(len(f) | red << 8)
+    blobs = [init.tobytes(), np.array(words, np.int32).tobytes(),
+             np.array(starts, np.int32).tobytes(),
+             np.array(terms, np.int32).tobytes()]
+    out = _run(harness, 4, len(vals), len(forms), blobs, shift=len(terms))
+    got = [_int(r) for r in out.view(np.uint32).reshape(-1, 12)]
+    for f, g, w in zip(forms, got, words):
+        want = sum(c * vals[s] for s, c in f.items()) % P
+        assert g % P == want
+        weight = sum(abs(c) for c in f.values())
+        if steps == "stored":
+            assert g == want
+        elif w >> 8:
+            assert g < 3 * P
+        else:
+            assert g <= weight * P
+
+
+def test_product_is_canonical_below_its_bound(harness):
+    """The engine's product on operands a, b < 2^384 with a·b < R·p (the
+    unreduced forms' bound): the canonical a·b·R⁻¹ mod p."""
+    P, R = FQ.p, 1 << 384
+    rnd = random.Random(0x3B)
+    pairs = [(9 * P - 1, P - 1), (3 * P - 1, 3 * P - 1), (P - 1, 9 * P - 1),
+             (4 * P - 1, 2 * P - 1), (0, 9 * P - 1), (3 * P - 1, 0)]
+    for _ in range(200):
+        wa = rnd.randint(1, 9)
+        wb = rnd.randint(1, 9 // wa)
+        pairs.append((rnd.randrange(wa * P), rnd.randrange(wb * P)))
+    assert all(a * b < R * P and a < R and b < R for a, b in pairs)
+    a = np.array([_words(x) for x, _ in pairs], np.uint32)
+    b = np.array([_words(y) for _, y in pairs], np.uint32)
+    out = _run(harness, 5, 0, len(pairs), [a.tobytes(), b.tobytes()])
+    got = [_int(r) for r in out.view(np.uint32).reshape(-1, 12)]
+    rinv = pow(R, -1, P)
+    assert got == [x * y * rinv % P for x, y in pairs]
+
+
+def test_header_tables_are_the_generators():
+    gen = _gen()
+    text = open(gen.HEADER).read()
+    assert gen.header_with(text, gen.block()) == text
+    assert [s().product_counts() for s in gen.SCHEDULES.values()] == [
+        PRODUCTS["dbl_fold"], PRODUCTS["cyclo_sqr"]]
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """The dispatch sends a CPU tensor to the plain version, without a
+    launch; the wrapper itself takes CUDA tensors only."""
+    f, T, P = _dbl_fold_inputs(7)
+    before = (ctw.DBL_FOLD.launches, ctw.CYCLO_SQR.launches)
+    got = ctw.p_dbl_fold(f, T, P)
+    want = ctw.dbl_fold_ref(f, T, P)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert torch.equal(ctw.p_cyclo_sqr(f), ctw.cyclo_sqr_ref(f))
+    assert (ctw.DBL_FOLD.launches, ctw.CYCLO_SQR.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        ctw.dbl_fold(f, T, P)
+    with pytest.raises(ValueError, match="CUDA"):
+        ctw.cyclo_sqr(f)

@@ -97,7 +97,7 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
                     "miller.cu", "mont.cu", "msm.cu", "shared.cu"]
     assert [os.path.basename(h) for h in _build.headers()] == [
         "curve.cuh", "fq.cuh", "fr.cuh", "keccak.cuh", "ladder_engine.cuh",
-        "tower.cuh"]
+        "tower.cuh", "tower_group.cuh"]
     cmd = _build.command(name, "/nonexistent/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd and "-Xptxas" in cmd
     inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]
@@ -116,12 +116,15 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
                                          ("ladder", "curve.cuh"),
                                          ("ladder", "ladder_engine.cuh"),
                                          ("fr", "fr.cuh"),
-                                         ("shared", "curve.cuh")])
+                                         ("shared", "curve.cuh"),
+                                         ("miller", "tower_group.cuh"),
+                                         ("fq12", "tower_group.cuh")])
 def test_msm_and_keccak_sources_build_alone(name, header):
     """The curve, transcript and Fr sources (the RLC slice's msm and
     keccak, the hash and encrypt slice's ladder, the combine slice's fr and
-    shared): one nvcc each, their header beside them, no PyTorch headers,
-    and a C launcher for every signature."""
+    shared), and the tower sources with the lane-group engine of B4 and
+    B6: one nvcc each, their header beside them, no PyTorch headers, and a
+    C launcher for every signature."""
     cmd = _build.command(name, "/nonexistent/lib.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     inputs = [a for a in cmd if a.endswith((".cu", ".cuh", ".cpp", ".c"))]

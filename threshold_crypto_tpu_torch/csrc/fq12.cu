@@ -1,11 +1,16 @@
 // The Fq12 kernels of the final exponentiation, B6-B9, and the test entry
-// of the engine B3, for sm_90a, one thread per lane.
+// of the engine B3, for sm_90a.
 //
-// B6 `cyclo_sqr_kernel` replaces threshold_crypto_tpu/device/
-// pallas_tower.py `_k_cyclo_sqr` (:956), the Granger-Scott squaring; with a
-// second operand it is B7, `_k_cyclo_sqr_mul` (:932), acc²·g, the 1-bit
-// step of exp-by-x. B8 `fq12_mul_kernel` replaces `_k_fq12_mul` (:960);
-// without a second operand it is B9, `_k_fq12_sqr` (:964). `engine_kernel`
+// B6 `cyclo_sqr_group_kernel` replaces threshold_crypto_tpu/device/
+// pallas_tower.py `_k_cyclo_sqr` (:956), the Granger-Scott squaring, on
+// the lane-group engine of tower_group.cuh: one lane over a group of
+// tc::grp::kGroup threads, its 18 Fq products dealt over the group (3 a
+// thread at kGroup = 8), the operands in registers and the values in the
+// block's shared memory. `cyclo_sqr_kernel` with a second operand is B7,
+// `_k_cyclo_sqr_mul` (:932), acc²·g, the 1-bit step of exp-by-x, one
+// thread per lane on tower.cuh. B8 `fq12_mul_kernel` replaces
+// `_k_fq12_mul` (:960); without a second operand it is B9, `_k_fq12_sqr`
+// (:964). `engine_kernel`
 // runs B3 (fq.cuh, replacing `_k_mul16`/`_k_mul13` and `k_add`, `k_sub`,
 // `k_neg`, `k_small`, :140-323) on its own: B3 has no launch of its own on
 // the path, so this entry is how it is held against the plain field
@@ -18,10 +23,9 @@
 // against 2 × 1,152 bytes, B7 72 products against 3 × 1,152 bytes, B8 54
 // against 3 × 1,152 and B9 36 against 2 × 1,152: on an H100 SXM the
 // multiply issue rate bounds B7-B9, and B6 sits near the balance point
-// (its bytes take about as long as its products). f and every intermediate
-// stay in the thread's registers and local memory. At 8,192 lanes and 128
-// threads per block the grid is 64 blocks on 132 SMs: half the card idles.
-// Occupancy is a later change's work.
+// (its bytes take about as long as its products). In B7-B9 f and every
+// intermediate stay in the thread's registers and local memory; at 8,192
+// lanes and 128 threads per block the grid is 64 blocks on 132 SMs.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0.
@@ -30,12 +34,32 @@
 #include <cuda_runtime.h>
 
 #include "tower.cuh"
+#include "tower_group.cuh"
 
 namespace {
 
 using tc::kThreads;
 
-// g == nullptr: B6; else B7.
+// B6: 2^lane_shift lanes a block, kGroup threads a lane.
+__global__ void __launch_bounds__(tc::grp::kMaxThreads, tc::grp::kMinBlocks)
+cyclo_sqr_group_kernel(const int32_t* __restrict__ f,
+                       int32_t* __restrict__ fo, int n, int lane_shift) {
+  using namespace tc::grp;
+  extern __shared__ uint4 cyclo_sqr_scratch[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(cyclo_sqr_scratch);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane0 = blockIdx.x << lane_shift;
+  stage_in(f, 12, 0, n, lane0, lane_shift, tid, nthreads, smem,
+           kB6LaneWords);
+  __syncthreads();
+  run_schedule(kB6PhaseOps, kB6Ops, kB6Terms, kB6Phases,
+               smem + (tid / kGroup) * kB6LaneWords);
+  __syncthreads();
+  stage_out(fo, kB6OutSlots, 12, n, lane0, lane_shift, tid, nthreads, smem,
+            kB6LaneWords);
+}
+
+// B7 (with g; g == nullptr is tower.cuh's B6 body, run by no launcher).
 __global__ void __launch_bounds__(kThreads)
 cyclo_sqr_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ g,
                  int32_t* __restrict__ fo, int n) {
@@ -85,7 +109,17 @@ int launch_mul(const void* a, const void* b, void* fo, int n, void* stream) {
 }  // namespace
 
 extern "C" int tc_cyclo_sqr(const void* f, void* fo, int n, void* stream) {
-  return launch_cyclo(f, nullptr, fo, n, stream);
+  if (n <= 0) return 0;
+  static int allowed = 0;
+  const tc::grp::Shape s = tc::grp::group_shape(n, tc::grp::kB6LaneWords);
+  const int err = tc::grp::allow_scratch(
+      reinterpret_cast<const void*>(cyclo_sqr_group_kernel), s.bytes,
+      allowed);
+  if (err != 0) return err;
+  cyclo_sqr_group_kernel<<<s.blocks, s.threads, s.bytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+      in(f), out(fo), n, s.shift);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tc_cyclo_sqr_mul(const void* f, const void* g, void* fo, int n,

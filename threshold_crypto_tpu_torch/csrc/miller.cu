@@ -1,5 +1,5 @@
 // The fused Miller-loop kernels B4 `dbl_fold` and B5 `add_fold`, and the
-// unfused Miller pieces B17, for sm_90a, one thread per lane.
+// unfused Miller pieces B17, for sm_90a.
 //
 // B4 `dbl_fold_kernel` replaces threshold_crypto_tpu/device/pallas_tower.py
 // `_k_dbl_fold` (:906): T ← 2T and f ← f²·l_tangent(P) in one launch. B5
@@ -8,30 +8,32 @@
 // the first and B5 on its five 1-bits, over every pair of the batch.
 //
 // Layout. Packed limb-major int32[k·24, n] (tower.cuh): f k = 12, T k = 6,
-// Q k = 4, P k = 2; thread `lane` reads column `lane` of every row, so a
-// warp reads 32 neighbouring words per row. Outputs are separate tensors.
+// Q k = 4, P k = 2. Outputs are separate tensors.
 //
-// What bounds it. B4 runs 122 Fq products per lane (36 for f², 47 for the
-// doubling and its line, 39 for the sparse fold; the JAX kernel's 127 less
-// one for each of its five Fq2 squares, which run here as 2-product
-// squares) against 912 rows × 4 bytes of traffic: 71,736 32-bit IMAD
-// results against 3,648 bytes, so the multiply issue rate bounds it, by
-// about 3.9× over the bytes on an H100 SXM. B5 runs 80 products (41 + 39)
-// against 4,032 bytes, also bound by the multiplies (2.3×). The design
-// keeps f, T and every intermediate of the iteration in the thread's
+// B4 runs on the lane-group engine of tower_group.cuh: one lane over a
+// group of tc::grp::kGroup threads, its 122 Fq products (four dependent
+// layers of 48, 19, 16 and 39) dealt over the group from a static
+// schedule, the operands in registers and the values in the block's
+// shared memory; the block stages its lanes' f, T and P as coalesced rows
+// in and f, T out. What bounds it: 122 products (71,736 32-bit IMAD
+// results) against 3,648 bytes a lane, the multiply issue rate by about
+// 3.9× over the bytes on an H100 SXM; one thread a lane left the check's
+// 1,024-lane launches on 8 SMs at the latency of 122 products in series,
+// where a group runs 16 of them a thread.
+//
+// B5 and B17 run one thread per lane on tower.cuh (`__noinline__` tower
+// functions over the engine of fq.cuh), every intermediate in the thread's
 // registers and local memory: one read and one write of f and T per
-// iteration, as the TPU kernel kept them in VMEM. At 16,384 lanes and 128
-// threads per block the grid is 128 blocks on 132 SMs, one block each: the
-// card is not filled, and the 4 warps per SM do not hide the multiply
-// latency. Occupancy is a later change's work.
+// iteration. B5 runs 80 products (41 + 39) against 4,032 bytes, bound by
+// the multiplies (2.3×).
 //
 // B17 replaces the four unfused pieces of the same file: `_k_dbl_step`
 // (:886, T ← 2T and the tangent line out), `_k_add_step` (:895, T ← T + Q
 // and the chord line out), `_k_f_sqr_fold` (:940, f ← f²·line) and
 // `_k_f_fold` (:948, f ← f·line). The line leaves as int32[144, n] in the
 // JAX kernel's plane order (c0, c1, c4; re then im). B4 is `dbl_step` then
-// `f_sqr_fold`, B5 `add_step` then `f_fold`, bit for bit: the same tower
-// functions in the same order, cut where the line is written. Split, each
+// `f_sqr_fold`, B5 `add_step` then `f_fold`, bit for bit: the same field
+// elements, cut where the line is written. Split, each
 // iteration moves one more line through device memory (1,152 bytes a lane
 // out, then in), and each piece is bound by its multiplies as B4/B5 are:
 // dbl_step 47 Fq products against 1,920 bytes a lane, add_step 41 against
@@ -40,25 +42,43 @@
 // Miller loop through them against B4/B5.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
-// wrapper raises if that is not 0, so a launch refused for its registers
-// or stack is never silent.
+// wrapper raises if that is not 0, so a launch refused for its registers,
+// stack or shared memory is never silent.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "tower.cuh"
+#include "tower_group.cuh"
 
 namespace {
 
 using tc::kThreads;
 
-__global__ void __launch_bounds__(kThreads)
+// B4: 2^lane_shift lanes a block, kGroup threads a lane.
+__global__ void __launch_bounds__(tc::grp::kMaxThreads, tc::grp::kMinBlocks)
 dbl_fold_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ T,
                 const int32_t* __restrict__ P, int32_t* __restrict__ fo,
-                int32_t* __restrict__ To, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  tc::dbl_fold_lane(f, T, P, fo, To, n, lane);
+                int32_t* __restrict__ To, int n, int lane_shift) {
+  using namespace tc::grp;
+  extern __shared__ uint4 dbl_fold_scratch[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(dbl_fold_scratch);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane0 = blockIdx.x << lane_shift;
+  stage_in(f, 12, 0, n, lane0, lane_shift, tid, nthreads, smem,
+           kB4LaneWords);
+  stage_in(T, 6, 12, n, lane0, lane_shift, tid, nthreads, smem,
+           kB4LaneWords);
+  stage_in(P, 2, 18, n, lane0, lane_shift, tid, nthreads, smem,
+           kB4LaneWords);
+  __syncthreads();
+  run_schedule(kB4PhaseOps, kB4Ops, kB4Terms, kB4Phases,
+               smem + (tid / kGroup) * kB4LaneWords);
+  __syncthreads();
+  stage_out(fo, kB4OutSlots, 12, n, lane0, lane_shift, tid, nthreads, smem,
+            kB4LaneWords);
+  stage_out(To, kB4OutSlots + 12, 6, n, lane0, lane_shift, tid, nthreads,
+            smem, kB4LaneWords);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -114,9 +134,14 @@ int32_t* out(void* p) { return static_cast<int32_t*>(p); }
 extern "C" int tc_dbl_fold(const void* f, const void* T, const void* P,
                            void* fo, void* To, int n, void* stream) {
   if (n <= 0) return 0;
-  dbl_fold_kernel<<<grid_for(n), kThreads, 0,
+  static int allowed = 0;
+  const tc::grp::Shape s = tc::grp::group_shape(n, tc::grp::kB4LaneWords);
+  const int err = tc::grp::allow_scratch(
+      reinterpret_cast<const void*>(dbl_fold_kernel), s.bytes, allowed);
+  if (err != 0) return err;
+  dbl_fold_kernel<<<s.blocks, s.threads, s.bytes,
                     static_cast<cudaStream_t>(stream)>>>(
-      in(f), in(T), in(P), out(fo), out(To), n);
+      in(f), in(T), in(P), out(fo), out(To), n, s.shift);
   return static_cast<int>(cudaGetLastError());
 }
 

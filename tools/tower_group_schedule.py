@@ -1,0 +1,490 @@
+#!/usr/bin/env python3
+"""The static schedules of B4 (``dbl_fold``) and B6 (``cyclo_sqr``) on the
+lane-group tower engine, and the tables of ``csrc/tower_group.cuh``.
+
+    python3 tools/tower_group_schedule.py           # print the table block
+    python3 tools/tower_group_schedule.py --write   # write it into the header
+    python3 tools/tower_group_schedule.py --check   # exit 1 if it differs
+
+A schedule is the formulas of ``csrc/tower.cuh`` (the JAX package's, with
+Fq2 squares as two products) written over symbolic Fq values. Every Fq
+value the engine keeps is one slot of a lane's shared-memory scratch, and
+everything between two products is linear over Fq with small integer
+coefficients (adds, subs, doublings, ξ·x = (x0 − x1, x0 + x1)), so a value
+is a linear form: a sum of c·slot. The schedule is a list of phases:
+
+* a product phase: Fq products dst = A·B whose operands A and B are
+  linear forms over earlier slots (the Karatsuba sums and differences,
+  formed as the operands are loaded);
+* a linear phase: dst = a linear form over earlier slots (the fins of the
+  products: Karatsuba's t0 − t1 and t2 − t0 − t1, ``_fq6_mul_fin``,
+  ``_sparse01_fin``, the Granger-Scott 3t ∓ 2z, the outputs).
+
+No op of a phase reads a slot that another op of the same phase writes,
+so the ops of a phase may run in any order or in parallel, and a phase
+ends at a barrier. The slots are allocated by liveness (first fit): a slot
+is free for a phase's outputs once every op that reads its value has run
+in an earlier phase. The inputs take the first slots, in the packed
+components' order (B4: f 0-11, T 12-17, P 18-19; B6: f 0-11).
+
+B4 follows the JAX package's four product layers (`pallas_tower.dbl_fold`:
+48, 19, 16 and 39 Fq products), B6 its one layer of 18. The engine deals
+the ops of each phase round-robin over the G threads of a lane's group:
+thread g runs ops g, g + G, …; the product phases' ops are all one
+product, the linear phases' are sorted by their cost, largest first. Each
+form carries its reduction steps (`reduction`): the engine sums a form
+unreduced and reduces it only as far as its use needs.
+
+The table block is C++ between the marker lines of the header.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+HEADER = os.path.join(ROOT, "threshold_crypto_tpu_torch", "csrc",
+                      "tower_group.cuh")
+BEGIN = "// BEGIN SCHEDULE TABLES (tools/tower_group_schedule.py --write)"
+END = "// END SCHEDULE TABLES"
+
+
+# ---------------------------------------------------------------------------
+# Linear forms over nodes
+# ---------------------------------------------------------------------------
+
+class Lin:
+    """Σ coef·node over Fq: a dict {node: nonzero int}."""
+
+    __slots__ = ("c",)
+
+    def __init__(self, c=None):
+        self.c = {k: v for k, v in (c or {}).items() if v}
+
+    def __add__(self, o):
+        c = dict(self.c)
+        for k, v in o.c.items():
+            c[k] = c.get(k, 0) + v
+        return Lin(c)
+
+    def __neg__(self):
+        return Lin({k: -v for k, v in self.c.items()})
+
+    def __sub__(self, o):
+        return self + (-o)
+
+    def __rmul__(self, k: int):
+        return Lin({n: k * v for n, v in self.c.items()})
+
+
+# Fq2 = (re, im), Fq6 = 3 Fq2, Fq12 = 2 Fq6, as tuples of Lin.
+def add2(a, b):
+    return (a[0] + b[0], a[1] + b[1])
+
+
+def sub2(a, b):
+    return (a[0] - b[0], a[1] - b[1])
+
+
+def small2(k, a):
+    return (k * a[0], k * a[1])
+
+
+def xi(a):
+    """ξ·a = (1 + u)·a = (a0 − a1, a0 + a1)."""
+    return (a[0] - a[1], a[0] + a[1])
+
+
+def add6(a, b):
+    return tuple(add2(x, y) for x, y in zip(a, b))
+
+
+def sub6(a, b):
+    return tuple(sub2(x, y) for x, y in zip(a, b))
+
+
+def mul_by_v(a):
+    return (xi(a[2]), a[0], a[1])
+
+
+# ---------------------------------------------------------------------------
+# Products: an Fq2 product is a request of Fq pairs and a fin over them
+# ---------------------------------------------------------------------------
+
+def mul2(a, b):
+    """Karatsuba: t0 = a0·b0, t1 = a1·b1, t2 = (a0+a1)(b0+b1);
+    (t0 − t1, t2 − t0 − t1)."""
+    return ([(a[0], b[0]), (a[1], b[1]), (a[0] + a[1], b[0] + b[1])],
+            lambda t: (t[0] - t[1], t[2] - t[0] - t[1]))
+
+
+def sqr2(a):
+    """a² = ((a0+a1)(a0−a1), 2·a0·a1)."""
+    return ([(a[0] + a[1], a[0] - a[1]), (a[0], a[1])],
+            lambda t: (t[0], 2 * t[1]))
+
+
+def scale2(a, k):
+    """a·k for an Fq k."""
+    return [(a[0], k), (a[1], k)], lambda t: (t[0], t[1])
+
+
+def fq6_mul_reqs(a, b):
+    """`_fq6_mul_parts`: t_i = a_i·b_i, m12, m01, m02."""
+    return [mul2(a[0], b[0]), mul2(a[1], b[1]), mul2(a[2], b[2]),
+            mul2(add2(a[1], a[2]), add2(b[1], b[2])),
+            mul2(add2(a[0], a[1]), add2(b[0], b[1])),
+            mul2(add2(a[0], a[2]), add2(b[0], b[2]))]
+
+
+def fq6_mul_fin(t):
+    t0, t1, t2, m12, m01, m02 = t
+    c0 = add2(t0, xi(sub2(m12, add2(t1, t2))))
+    c1 = add2(sub2(m01, add2(t0, t1)), xi(t2))
+    c2 = add2(sub2(m02, add2(t0, t2)), t1)
+    return (c0, c1, c2)
+
+
+def sparse01_reqs(a, b0, b1):
+    return [mul2(a[0], b0), mul2(a[1], b1), mul2(a[2], b1),
+            mul2(add2(a[0], a[1]), add2(b0, b1)), mul2(a[2], b0)]
+
+
+def sparse01_fin(t):
+    t0, t1, t2b1, tss, t2b0 = t
+    return (add2(t0, xi(t2b1)), sub2(tss, add2(t0, t1)), add2(t2b0, t1))
+
+
+# ---------------------------------------------------------------------------
+# Building a schedule
+# ---------------------------------------------------------------------------
+
+class Schedule:
+    def __init__(self, name, n_inputs):
+        self.name = name
+        self.n_inputs = n_inputs
+        self.phases = []     # (kind, [(node, A, B or None)])
+        self.n_nodes = n_inputs
+        self.outputs = []    # nodes, in the order of the output components
+
+    def inputs(self):
+        return [Lin({i: 1}) for i in range(self.n_inputs)]
+
+    def _new(self):
+        self.n_nodes += 1
+        return self.n_nodes - 1
+
+    def products(self, reqs):
+        """One product phase over the Fq2 requests; returns their fins."""
+        ops, outs = [], []
+        for pairs, fin in reqs:
+            t = []
+            for a, b in pairs:
+                node = self._new()
+                ops.append((node, a, b))
+                t.append(Lin({node: 1}))
+            outs.append(fin(t))
+        self.phases.append(("product", ops))
+        return outs
+
+    def linear(self, forms):
+        """One linear phase materialising the Fq forms; returns them as
+        single nodes."""
+        ops, outs = [], []
+        for f in forms:
+            node = self._new()
+            ops.append((node, f, None))
+            outs.append(Lin({node: 1}))
+        self.phases.append(("linear", ops))
+        return outs
+
+    def linear2(self, values):
+        """Materialise Fq2 values."""
+        flat = self.linear([c for v in values for c in v])
+        return [(flat[2 * i], flat[2 * i + 1]) for i in range(len(values))]
+
+    def output(self, values):
+        """The output components, in order: nodes of linear phases."""
+        self.outputs = [lin_node(x) for x in values]
+
+    # -- allocation ---------------------------------------------------------
+
+    def allocate(self):
+        """slot[node] by liveness, first fit; returns (slots, n_slots)."""
+        last = {}
+        for p, (_, ops) in enumerate(self.phases):
+            for _, a, b in ops:
+                for form in (a, b) if b is not None else (a,):
+                    for node in form.c:
+                        last[node] = p
+        for node in self.outputs:
+            last[node] = len(self.phases)
+        slot = {i: i for i in range(self.n_inputs)}
+        owner = {i: i for i in range(self.n_inputs)}   # slot -> node
+        for p, (_, ops) in enumerate(self.phases):
+            free = sorted(s for s, node in owner.items()
+                          if last.get(node, -1) < p)
+            fresh = len(owner)
+            for node, _, _ in ops:
+                if free:
+                    s = free.pop(0)
+                else:
+                    s, fresh = fresh, fresh + 1
+                slot[node] = s
+                owner[s] = node
+        return slot, len(owner)
+
+    # -- emission -------------------------------------------------------------
+
+    def tables(self):
+        """(terms, ops, phases, out_slots, n_slots): terms as slot << 8 |
+        (coef & 0xff); ops as (dst, first term, form A, form B), a form
+        word its terms | reduction << 8 (`reduction`), B 0 in a linear op;
+        phases as (first op, ops)."""
+        slot, n_slots = self.allocate()
+        terms, ops, phases = [], [], []
+
+        def emit(form, steps):
+            items = sorted(form.c.items(), key=lambda kv: (slot[kv[0]],
+                                                          kv[1]))
+            for node, coef in items:
+                if not -128 <= coef <= 127:
+                    raise ValueError(f"coefficient {coef} out of int8")
+                terms.append(slot[node] << 8 | (coef & 0xFF))
+            return len(items) | steps << 8
+
+        for kind, pops in self.phases:
+            if kind == "linear":
+                pops = sorted(pops, key=lambda op: -form_cost(op[1]))
+            first = len(ops)
+            for node, a, b in pops:
+                t0 = len(terms)
+                ra, rb = reduction(a, b)
+                fa = emit(a, ra)
+                fb = emit(b, rb) if b is not None else 0
+                ops.append((slot[node], t0, fa, fb))
+            phases.append((first, len(pops)))
+        return (terms, ops, phases, [slot[n] for n in self.outputs],
+                n_slots)
+
+    def product_counts(self):
+        return [len(ops) for kind, ops in self.phases if kind == "product"]
+
+
+def lin_node(x):
+    (node, coef), = x.c.items()
+    assert coef == 1
+    return node
+
+
+def weight(form):
+    """Σ|c| of a form: its value, each term below p, is below weight·p."""
+    return sum(abs(c) for c in form.c.values())
+
+
+# The reduction steps of a form, bits of its word above the term count:
+# QSTEP subtracts q·p for an estimate q of the value over p (leaving it
+# below 3p), CSUB·n n conditional subtracts of p (n ≤ 3).
+QSTEP, CSUB = 1, 2
+
+
+def reduction(a, b):
+    """The reduction steps of the forms of op dst = A·B (b None: dst = A).
+
+    The engine sums a form to a value between 0 and weight·p (both
+    included) that is the form mod p. The product (carry-save CIOS,
+    R = 2^384) gives the canonical a·b·R⁻¹ for a, b < 2^384 with
+    a·b < R·p, since its result is then below 2p before its one
+    conditional subtract; R / p > 9.8, so weights whose product is at most
+    9 need no step, and a weight above 3 is otherwise brought below 3p by
+    QSTEP. A linear op's value is stored, so it must be canonical: a
+    single term of coefficient 1 is; otherwise at most weight ≤ 3
+    conditional subtracts, above that QSTEP then two."""
+    wa = weight(a)
+    if b is not None:
+        wb = weight(b)
+        if wa * wb <= 9:
+            return 0, 0
+        return (QSTEP if wa > 3 else 0), (QSTEP if wb > 3 else 0)
+    if wa == 1 and set(a.c.values()) == {1}:
+        return 0, 0
+    if wa <= 3:
+        return CSUB * wa, 0
+    return QSTEP | CSUB * 2, 0
+
+
+def form_cost(form):
+    """Terms of a form, and its reduction: the order of a linear phase's
+    ops, costliest first."""
+    return len(form.c) + (2 if weight(form) > 3 else 0)
+
+
+def fq12_from(flat):
+    """Flat components (the packed order c[i/6].c[(i/2)%3].c[i%2]) to an
+    Fq12 of Fq2 tuples."""
+    fq2 = [(flat[2 * i], flat[2 * i + 1]) for i in range(6)]
+    return ((fq2[0], fq2[1], fq2[2]), (fq2[3], fq2[4], fq2[5]))
+
+
+def fq12_flat(f):
+    return [c for fq6 in f for fq2 in fq6 for c in fq2]
+
+
+# ---------------------------------------------------------------------------
+# B4 and B6
+# ---------------------------------------------------------------------------
+
+def b4_schedule():
+    """`pallas_tower.dbl_fold` (tower.cuh `dbl_step`, `fq12_sqr`,
+    `fq12_mul_by_014`): T ← 2T, f ← f²·l_tangent(P). Inputs f (12), T
+    (6), P (2); outputs f (12), then T (6)."""
+    s = Schedule("B4", 20)
+    x = s.inputs()
+    f = fq12_from(x[:12])
+    X, Y, Z = (x[12], x[13]), (x[14], x[15]), (x[16], x[17])
+    xp, yp = x[18], x[19]
+    a0, a1 = f
+
+    # Layer 1: the doubling's X², Y², Y·Z, X·Y, Z² and f²'s 12 Fq2
+    # products (tt = a0·a1, ss = (a0 + a1)(a0 + v·a1)).
+    sv = add6(a0, mul_by_v(a1))
+    r = s.products([sqr2(X), sqr2(Y), mul2(Y, Z), mul2(X, Y), sqr2(Z)]
+                   + fq6_mul_reqs(a0, a1) + fq6_mul_reqs(add6(a0, a1), sv))
+    # tt and ss, then f² = (ss − tt − v·tt, 2tt): two linear phases cost
+    # about half the adds of one. The doubling's values stay forms over
+    # layer 1's products (10 slots fewer at the peak, 68 against 78).
+    m = s.linear2(list(fq6_mul_fin(r[5:11])) + list(fq6_mul_fin(r[11:17])))
+    tt, ss = tuple(m[:3]), tuple(m[3:])
+    m = s.linear2(list(sub6(sub6(ss, tt), mul_by_v(tt))) + list(add6(tt, tt)))
+    f2 = (tuple(m[:3]), tuple(m[3:]))
+    XX, YY, S, XY, ZZ = r[:5]
+    W = small2(3, XX)
+
+    # Layer 2: B = XY·S, W², S², XX·X, YY·Z, XX·Z, Y·ZZ.
+    B, WW, SS, XXX, YYZ, XXZ, YZZ = s.products(
+        [mul2(XY, S), sqr2(W), sqr2(S), mul2(XX, X), mul2(YY, Z),
+         mul2(XX, Z), mul2(Y, ZZ)])
+    H = sub2(WW, small2(8, B))
+    H, D, c0 = s.linear2([H, sub2(small2(4, B), H),
+                          sub2(small2(3, XXX), small2(2, YYZ))])
+
+    # Layer 3: 2H·S, W(4B − H), YY·SS, S·SS, and the line's c1 = −3XX·Z·xp,
+    # c4 = 2Y·ZZ·yp.
+    Xo, WD, YYSS, SSS, c1, c4 = s.products(
+        [mul2(small2(2, H), S), mul2(W, D), mul2(YY, SS), mul2(S, SS),
+         scale2(small2(-3, XXZ), xp), scale2(small2(2, YZZ), yp)])
+    To = s.linear2([Xo, sub2(WD, small2(8, YYSS)), small2(8, SSS)])
+
+    # Layer 4: `fq12_mul_by_014(f², c0, c1, c4)`.
+    f0, f1 = f2
+    o = add2(c1, c4)
+    t = s.products(sparse01_reqs(f0, c0, c1)
+                   + [mul2(f1[2], c4), mul2(f1[0], c4), mul2(f1[1], c4)]
+                   + sparse01_reqs(add6(f0, f1), c0, o))
+    t0 = sparse01_fin(t[0:5])
+    t1 = (xi(t[5]), t[6], t[7])
+    t3 = sparse01_fin(t[8:13])
+    fo = (add6(t0, mul_by_v(t1)), sub6(t3, add6(t0, t1)))
+    s.output(s.linear(fq12_flat(fo)) + [c for v in To for c in v])
+    return s
+
+
+def b6_schedule():
+    """`pallas_tower.fq12_cyclo_sqr` (tower.cuh `fq12_cyclo_sqr`,
+    Granger-Scott). With f = ((z0, z4, z3), (z2, z1, z5)), each Fq4 piece
+    (x, y) of (z0, z1), (z2, z3), (z4, z5) squares to t0 = x² + ξy²,
+    t1 = (x + y)² − x² − y²; the outputs are 3t − 2z for (t0a, z0),
+    (t0b, z4), (t0c, z3) and 3t + 2z for (t1a, z1), (t1b, z5),
+    (ξ·t1c, z2). Input f (12), output f (12)."""
+    s = Schedule("B6", 12)
+    (z0, z4, z3), (z2, z1, z5) = fq12_from(s.inputs())
+    pieces = ((z0, z1), (z2, z3), (z4, z5))
+    reqs = []
+    for x, y in pieces:
+        reqs += [sqr2(x), sqr2(y), sqr2(add2(x, y))]
+    sq = s.products(reqs)
+    t0, t1 = [], []
+    for k in range(3):
+        xx, yy, ss = sq[3 * k:3 * k + 3]
+        t0.append(add2(xi(yy), xx))
+        t1.append(sub2(sub2(ss, xx), yy))
+
+    def minus(t, z):   # 3t − 2z
+        return sub2(small2(3, t), small2(2, z))
+
+    def plus(t, z):    # 3t + 2z
+        return add2(small2(3, t), small2(2, z))
+
+    out = ((minus(t0[0], z0), minus(t0[1], z4), minus(t0[2], z3)),
+           (plus(xi(t1[2]), z2), plus(t1[0], z1), plus(t1[1], z5)))
+    s.output(s.linear(fq12_flat(out)))
+    return s
+
+
+SCHEDULES = {"kB4": b4_schedule, "kB6": b6_schedule}
+
+
+def _array(name, values, per_line):
+    lines = []
+    for i in range(0, len(values), per_line):
+        lines.append("    " + ", ".join(str(v) for v in
+                                         values[i:i + per_line]) + ",")
+    return (f"__device__ const int32_t {name}[] = {{\n" + "\n".join(lines)
+            + "\n};")
+
+
+def block():
+    """The C++ table block of the header."""
+    out = [BEGIN]
+    for prefix, make in SCHEDULES.items():
+        s = make()
+        terms, ops, phases, out_slots, n_slots = s.tables()
+        counts = s.product_counts()
+        out.append(
+            f"// {s.name}: {len(phases)} phases, {sum(counts)} Fq products "
+            f"in the product phases ({', '.join(map(str, counts))}), "
+            f"{len(terms)} terms, {n_slots} slots.")
+        out.append(f"constexpr int {prefix}Phases = {len(phases)};")
+        out.append(f"constexpr int {prefix}Slots = {n_slots};")
+        out.append(f"constexpr int {prefix}Inputs = {s.n_inputs};")
+        out.append(f"constexpr int {prefix}Outputs = {len(out_slots)};")
+        out.append(_array(f"{prefix}PhaseOps",
+                          [v for p in phases for v in p], 8))
+        out.append(_array(f"{prefix}Ops", [v for o in ops for v in o], 8))
+        out.append(_array(f"{prefix}Terms", terms, 8))
+        out.append(_array(f"{prefix}OutSlots", out_slots, 12))
+    out.append(END)
+    return "\n".join(out) + "\n"
+
+
+def header_with(text, tables):
+    i, j = text.index(BEGIN), text.index(END)
+    return text[:i] + tables + text[j + len(END) + 1:]
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--write", action="store_true")
+    ap.add_argument("--check", action="store_true")
+    args = ap.parse_args()
+    tables = block()
+    if not (args.write or args.check):
+        sys.stdout.write(tables)
+        return 0
+    text = open(HEADER).read()
+    new = header_with(text, tables)
+    if args.check:
+        if new != text:
+            print(f"{HEADER}: the schedule tables differ from the generator's",
+                  file=sys.stderr)
+            return 1
+        return 0
+    with open(HEADER, "w") as f:
+        f.write(new)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

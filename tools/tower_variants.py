@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""B4 (``dbl_fold``) and B6 (``cyclo_sqr``) on the lane-group engine
+(``csrc/tower_group.cuh``) against their old bodies and other group sizes,
+on one card.
+
+    python3 tools/tower_variants.py [--split] [--parent ROOT]
+
+The variants, each built with the package's nvcc flags into
+``threshold_crypto_tpu_torch/_build/variants/``:
+
+* ``old``: the one-thread-per-lane kernels the package ran before the
+  engine (``tower.cuh`` ``dbl_fold_lane`` / ``cyclo_sqr_lane``, 128-thread
+  blocks), kept here as text;
+* ``g1``, ``g4``, ``g8``, ``g16``, ``g32``: the package's ``miller.cu``
+  and ``fq12.cu`` with ``tc::grp::kGroup`` set to 1, 4, 8 (the package's),
+  16 or 32 threads a lane. G = 1 keeps the register product and the
+  staging in shared memory without the split.
+
+For each: ptxas's registers, stack frame and spills of the B4 and B6
+kernels; bit-exact against the package's kernels (which are held against
+their plain versions here too) on ``chip_smoke.tower_inputs`` (zero and
+infinity lanes) at both widths of each kernel: slice 2's (B4 16,384 pair
+lanes, B6 8192) and the RLC check's (B4 2 × RLC_CHECK_BATCH = 1,024, B6
+512); and the kernel time with CUDA events, in turns (old, g1, …, g16,
+g16, …, old) at each width, beside ``chip_smoke``'s bound: launched one by
+one from Python (``chip_smoke.cuda_time_ms``, as the path launches them)
+and replayed from a CUDA graph (the device time alone).
+
+With ``--split`` it builds, in place of the variants, the package's kernels
+and copies of them with one part of the work taken out (``SPLIT``: the
+product, the product operands' sums, the linear ops, the reduction steps,
+everything but the staging), whose results are wrong, and times them the
+same way: where the kernels' time goes.
+
+With ``--parent ROOT`` (another checkout: its ``chip_smoke.py`` and
+``threshold_crypto_tpu_torch/``) it also times both checkouts' calls in
+turns, one child process per turn (parent, this, this, parent, twice):
+the RLC call (``chip_smoke.rlc_call``, N = 262,144, exponents included),
+its check stage (``verify_batch_pallas`` at 512 lanes, from
+``chip_smoke.stage_timer``'s events) and the per-pair call
+``ops.verify_batch_pallas`` at 8192 lanes. Prints one JSON line last and
+writes it to ``tower_variants.json`` beside the builds. Without CUDA it
+exits 2.
+"""
+
+import argparse
+import ctypes
+import json
+import os
+import shutil
+import statistics
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402
+from threshold_crypto_tpu_torch import _build  # noqa: E402
+
+# The kernels B4 and B6 ran before the lane-group engine.
+OLD_CU = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "tower.cuh"
+
+namespace {
+
+using tc::kThreads;
+
+__global__ void __launch_bounds__(kThreads)
+dbl_fold_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ T,
+                const int32_t* __restrict__ P, int32_t* __restrict__ fo,
+                int32_t* __restrict__ To, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::dbl_fold_lane(f, T, P, fo, To, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cyclo_sqr_kernel(const int32_t* __restrict__ f, int32_t* __restrict__ fo,
+                 int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::cyclo_sqr_lane(f, nullptr, fo, n, lane);
+}
+
+}  // namespace
+
+extern "C" int tc_dbl_fold(const void* f, const void* T, const void* P,
+                           void* fo, void* To, int n, void* stream) {
+  if (n <= 0) return 0;
+  dbl_fold_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(f), static_cast<const int32_t*>(T),
+      static_cast<const int32_t*>(P), static_cast<int32_t*>(fo),
+      static_cast<int32_t*>(To), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_cyclo_sqr(const void* f, void* fo, int n, void* stream) {
+  if (n <= 0) return 0;
+  cyclo_sqr_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(f), static_cast<int32_t*>(fo), n);
+  return static_cast<int>(cudaGetLastError());
+}
+"""
+# --split: the package's kernels with one part of the work taken out, to
+# see where their time goes (their results are wrong, so they are timed
+# only): (name, [(text, replacement) in tower_group.cuh, miller.cu,
+# fq12.cu]).
+SPLIT = {
+    "no product (an add instead)": [
+        ("      a = reg::fp_mul_call(a, b);", "      reg::fp_add(a, a, b);")],
+    "product operands one slot each": [
+        ("    form(a, terms + t0, fa, lane);",
+         "    if (fb != 0) slot_load(a, lane, terms[t0] >> 8);\n"
+         "    else form(a, terms + t0, fa, lane);"),
+        ("      form(b, terms + t0 + (fa & 0xFF), fb, lane);",
+         "      slot_load(b, lane, terms[t0 + (fa & 0xFF)] >> 8);")],
+    "no linear ops": [
+        ("    const int dst = op[0], t0 = op[1], fa = op[2], fb = op[3];",
+         "    const int dst = op[0], t0 = op[1], fa = op[2], fb = op[3];\n"
+         "    if (fb == 0) continue;")],
+    "no reduction steps": [
+        ("  if (word & kQStep) qstep(t);", ""),
+        ("  const int csubs = (word >> kCSubShift) & 3;",
+         "  const int csubs = 0;")],
+    "staging only": [("  for (int ph = 0; ph < phases; ++ph) {",
+                      "  for (int ph = 0; ph < 0; ++ph) {")],
+}
+GROUP_LINE = "constexpr int kGroup = 8;"
+GROUPS = (1, 4, 8, 16, 32)
+# The B4 and B6 kernels' names (demangled) in the variants: old, group.
+KERNEL_NAMES = ("dbl_fold_kernel", "cyclo_sqr_kernel",
+                "cyclo_sqr_group_kernel")
+WIDTHS = {"dbl_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
+          "cyclo_sqr": (cs.LANES, cs.RLC_CHECK_BATCH)}
+REPS = {"dbl_fold": 20, "cyclo_sqr": 50}
+# Timed calls of one turn, after a warm-up call.
+TURN_CALLS = 5
+# One turn in the checkout that is the child's working directory: its
+# kernels built (one nvcc per source, together), then TURN_CALLS RLC
+# calls, as many with the stages bracketed by events (the check stage),
+# and as many per-pair calls at 8192 lanes, each after a warm-up call.
+TURN_CHILD = """
+import json, sys
+import torch
+import chip_smoke as cs
+from threshold_crypto_tpu_torch import _build, ops
+from threshold_crypto_tpu_torch.device import pairing as dpr
+_build.build()
+dev = torch.device("cuda", 0)
+calls = int(sys.argv[1])
+pk_aff, sig_aff, h_jac = cs.rlc_inputs(dev)[:3]
+rlc, check = [], []
+for i in range(1 + calls):
+    ok, _, s = cs.rlc_call(pk_aff, sig_aff, h_jac, bytes([40 + i]) * 32)
+    if not ok:
+        raise SystemExit("the valid batch was rejected")
+    rlc.append(s)
+for i in range(1 + calls):
+    spans = []
+    with cs.stage_timer(spans):
+        ok, _, _ = cs.rlc_call(pk_aff, sig_aff, h_jac, bytes([80 + i]) * 32)
+    torch.cuda.synchronize()
+    if not ok:
+        raise SystemExit("the valid batch was rejected")
+    check.append(sum(a.elapsed_time(b) for k, a, b in spans if k == "check"))
+pk, h, sig, want = cs.build_inputs()
+args = (dpr.g1_affine_from_host(pk, device=dev),
+        dpr.g2_affine_from_host(h, device=dev),
+        dpr.g2_affine_from_host(sig, device=dev))
+want_t = torch.tensor(want, device=dev)
+pair = [cs.timed_call(ops.verify_batch_pallas, args, want_t, "pairs")[1]
+        for _ in range(1 + calls)]
+print(json.dumps({"rlc_s": rlc[1:], "check_ms": check[1:],
+                  "pair_s": pair[1:]}))
+"""
+
+
+def nvcc_start(src, out_dir, name):
+    so = os.path.join(out_dir, f"lib{name}.so")
+    cmd = [_build.nvcc(), *_build.FLAGS, "-o", so, src]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), so
+
+
+def nvcc_wait(proc, what):
+    log, _ = proc.communicate(timeout=1500)
+    if proc.returncode != 0:
+        print(log[-4000:], flush=True)
+        raise RuntimeError(f"nvcc failed for {what}")
+    return log
+
+
+def build_variants(bdir, split):
+    """{variant: {source: (Popen, so)}}, every nvcc started together; with
+    split, the package's kernels and the SPLIT cuts only."""
+    procs = {}
+    if split:
+        for i, (name, patches) in enumerate({"kernel": [],
+                                             **SPLIT}.items()):
+            d = os.path.join(bdir, f"split{i}")
+            shutil.copytree(_build.CSRC, d)
+            for fname in ("tower_group.cuh", "miller.cu", "fq12.cu"):
+                path = os.path.join(d, fname)
+                text = open(path).read()
+                for old, new in patches:
+                    text = text.replace(old, new)
+                with open(path, "w") as f:
+                    f.write(text)
+            procs[name] = {src: nvcc_start(os.path.join(d, f"{src}.cu"), d,
+                                           src)
+                           for src in ("miller", "fq12")}
+        for name, patches in SPLIT.items():
+            for old, _ in patches:
+                if not any(old in open(os.path.join(_build.CSRC, f)).read()
+                           for f in ("tower_group.cuh", "miller.cu",
+                                     "fq12.cu")):
+                    raise RuntimeError(f"split anchor not found: {old!r}")
+        return procs
+    d = os.path.join(bdir, "old")
+    shutil.copytree(_build.CSRC, d)
+    with open(os.path.join(d, "tower_old.cu"), "w") as f:
+        f.write(OLD_CU)
+    lib = nvcc_start(os.path.join(d, "tower_old.cu"), d, "tower_old")
+    procs["old"] = {"miller": lib, "fq12": lib}
+    for g in GROUPS:
+        d = os.path.join(bdir, f"g{g}")
+        shutil.copytree(_build.CSRC, d)
+        path = os.path.join(d, "tower_group.cuh")
+        text = open(path).read()
+        if GROUP_LINE not in text:
+            raise RuntimeError(f"patch anchor not found: {GROUP_LINE!r}")
+        with open(path, "w") as f:
+            f.write(text.replace(GROUP_LINE, f"constexpr int kGroup = {g};"))
+        procs[f"g{g}"] = {name: nvcc_start(os.path.join(d, f"{name}.cu"), d,
+                                           name)
+                          for name in ("miller", "fq12")}
+    return procs
+
+
+def load(so, fn):
+    """The library at so with fn's C signature (tc_dbl_fold or
+    tc_cyclo_sqr)."""
+    lib = ctypes.CDLL(so)
+    getattr(lib, fn).argtypes = (
+        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
+        if fn == "tc_dbl_fold" else
+        [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def graph_time_ms(fn, reps):
+    """Mean device time of one fn() over reps launches captured in one CUDA
+    graph and replayed (no host dispatch between them), after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def turns(parent):
+    """Both checkouts' calls in turns (parent, this, this, parent, twice):
+    {"parent": {...}, "this": {...}}, each key a list over the turns."""
+    roots = {"parent": os.path.abspath(parent), "this": ROOT}
+    out = {k: {"rlc_s": [], "check_ms": [], "pair_s": []} for k in roots}
+    for who in ("parent", "this", "this", "parent") * 2:
+        proc = subprocess.run([sys.executable, "-c", TURN_CHILD,
+                               str(TURN_CALLS)], cwd=roots[who],
+                              capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
+            raise RuntimeError(f"the turn of {who} failed")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        for k, v in got.items():
+            out[who][k] += v
+        print(f"turn {who}: " + ", ".join(
+            f"{k} {[round(x, 4) for x in v]}" for k, v in got.items()),
+            flush=True)
+    for key in ("rlc_s", "check_ms", "pair_s"):
+        print(f"{key} in turns ({TURN_CALLS} calls a turn): " + ", ".join(
+            f"{who} median {statistics.median(v[key]):.4f} (quartiles "
+            f"{statistics.quantiles(v[key], n=4)[0]:.4f}-"
+            f"{statistics.quantiles(v[key], n=4)[2]:.4f})"
+            for who, v in out.items()), flush=True)
+    return out
+
+
+def main():
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="root of another checkout: time its "
+                    "RLC call, check stage and per-pair call in turns with "
+                    "this one's")
+    ap.add_argument("--split", action="store_true", help="time the "
+                    "package's kernels with one part of their work taken "
+                    "out (SPLIT) instead of the variants")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("tower_variants: no CUDA device", file=sys.stderr)
+        return 2
+    from threshold_crypto_tpu_torch.device import cuda_tower as ctw
+
+    card = cs.nvidia_smi("name,power.limit")
+    print(card, flush=True)
+    clock = float(cs.nvidia_smi("clocks.max.sm").split()[0])
+    props = torch.cuda.get_device_properties(0)
+    cardd = {"sms": props.multi_processor_count, "clock_hz": clock * 1e6}
+
+    bdir = os.path.join(_build.BUILD_DIR, "variants")
+    shutil.rmtree(bdir, ignore_errors=True)
+    os.makedirs(bdir)
+    t0 = time.time()
+    procs = build_variants(bdir, args.split)
+    _build.build(["miller", "fq12"])
+    res = {"card": card, "variants": {}}
+    libs = {}
+    for name, srcs in procs.items():
+        ptxas, sos = {}, {}
+        for src, (proc, so) in srcs.items():
+            if so in sos.values():
+                continue
+            ptxas.update(cs.print_ptxas(
+                src, nvcc_wait(proc, f"variant {name} {src}.cu")))
+            sos[src] = so
+        res["variants"][name] = {
+            "ptxas": {k: v for k, v in ptxas.items() if k in KERNEL_NAMES},
+            "ms": {}}
+        libs[name] = {"dbl_fold": load(sos["miller"], "tc_dbl_fold"),
+                      "cyclo_sqr": load(sos.get("fq12", sos["miller"]),
+                                        "tc_cyclo_sqr")}
+        print(f"{name}: ptxas {res['variants'][name]['ptxas']}", flush=True)
+    print(f"built {len(libs)} variants in {time.time() - t0:.1f} s",
+          flush=True)
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def run(variant, kernel, ins):
+        lib = libs[variant][kernel]
+        if kernel == "dbl_fold":
+            f, T, P = ins
+            fo, To = torch.empty_like(f), torch.empty_like(T)
+            err = lib.tc_dbl_fold(f.data_ptr(), T.data_ptr(), P.data_ptr(),
+                                  fo.data_ptr(), To.data_ptr(), f.shape[1],
+                                  stream())
+            out = (fo, To)
+        else:
+            (f,) = ins
+            fo = torch.empty_like(f)
+            err = lib.tc_cyclo_sqr(f.data_ptr(), fo.data_ptr(), f.shape[1],
+                                   stream())
+            out = (fo,)
+        if err:
+            raise RuntimeError(f"{variant} {kernel}: launch error {err}")
+        return out
+
+    res["bound_ms"] = {}
+    order = list(libs) + list(libs)[::-1]
+    for kernel, widths in WIDTHS.items():
+        pkg = {"dbl_fold": ctw.dbl_fold, "cyclo_sqr": ctw.cyclo_sqr}[kernel]
+        plain = {"dbl_fold": ctw.dbl_fold_ref,
+                 "cyclo_sqr": ctw.cyclo_sqr_ref}[kernel]
+        comps, out_comps, products, _ = cs.TOWER_CHECKS[kernel]
+        for n in widths:
+            ins = cs.tower_inputs(kernel, gen, dev, n)
+            want = pkg(*ins)
+            want = want if isinstance(want, tuple) else (want,)
+            ref = plain(*ins)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            if not all(torch.equal(a, b) for a, b in zip(want, ref)):
+                raise RuntimeError(f"the package's {kernel} differs from its "
+                                   f"plain version at {n} lanes")
+            for name in libs:
+                if args.split and name != "kernel":
+                    continue
+                got = run(name, kernel, ins)
+                if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                    raise RuntimeError(f"variant {name} {kernel} differs "
+                                       f"from the package's at {n} lanes")
+            bound = cs.bound_ms((sum(comps) + out_comps) * 24 * 4 * n,
+                                n * products * cs.FQ_PRODUCT_IMADS, cardd)[0]
+            key = f"{kernel} n={n}"
+            res["bound_ms"][key] = bound
+            for name in order:
+                fn = (lambda: run(name, kernel, ins))  # noqa: E731
+                v = res["variants"][name]
+                v["ms"].setdefault(key, []).append(
+                    cs.cuda_time_ms(fn, REPS[kernel]))
+                v.setdefault("graph_ms", {}).setdefault(key, []).append(
+                    graph_time_ms(fn, REPS[kernel]))
+            checked = "the kernel" if args.split else "every variant"
+            print(f"{key} (bound {bound:.4f} ms; {checked} bit-exact), "
+                  f"launched one by one | replayed from a CUDA graph: "
+                  + ", ".join(
+                      f"{nm} {statistics.mean(v['ms'][key]):.4f} | "
+                      f"{statistics.mean(v['graph_ms'][key]):.4f} ms"
+                      for nm, v in res["variants"].items()), flush=True)
+            del ins, want, ref
+    torch.cuda.empty_cache()
+    if args.parent:
+        res["turns"] = turns(args.parent)
+    line = json.dumps(res)
+    with open(os.path.join(bdir, "tower_variants.json"), "w") as f:
+        f.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
