@@ -15,12 +15,13 @@ Phases, each announced on a flushed line before it starts:
    4096 lanes with a duplicate pair and a zero lane; B16 at window 1 and 3
    on its special lanes; B11 also on its special lanes, T == Q followed by
    another add in the window among them, against the host's partial sums;
-   B4 and B6, on the lane-group engine, also at the RLC check's widths,
-   1,024 and 512 lanes, with their registers, stack frame and spills),
-   timed with CUDA events beside the plain version and the kernel's bound;
-   B13 G1 also at the DKG's launch shape (2^19 lanes x 64 digits over the
-   dealing's 3,741 gathered points), and B11's and B13's registers, stack
-   frame and spills;
+   B4, B6 and B7, on the lane-group engine, also at the RLC check's
+   widths, 1,024, 512 and 512 lanes, with their registers, stack frame and
+   spills; B10 also timed on the table build's first launch, where every
+   lane takes the doubling branch), timed with CUDA events beside the plain
+   version and the kernel's bound; B13 G1 also at the DKG's launch shape
+   (2^19 lanes x 64 digits over the dealing's 3,741 gathered points), and
+   B10's, B11's and B13's registers, stack frame and spills;
 4. slice 1: ``ops.verify_batch`` on 8192 lanes (16,384 pairs) of keys,
    messages and signatures made on the host from a seed; the result must
    equal the mask known from construction lane for lane, and a 256-lane
@@ -486,14 +487,17 @@ TOWER_CHECKS = {
 B17_KERNELS = ("dbl_step", "add_step", "f_sqr_fold", "f_fold")
 
 
-# B4 and B6 on the lane-group engine (csrc/tower_group.cuh) are also held
-# at the RLC check's widths: its 2-pair check replicated to RLC_CHECK_BATCH
-# lanes runs B4 on 2 × RLC_CHECK_BATCH pair lanes and B6 on RLC_CHECK_BATCH;
-# their kernels' ptxas figures (csrc/miller.cu, csrc/fq12.cu).
+# B4, B6 and B7 on the lane-group engine (csrc/tower_group.cuh) are also
+# held at the RLC check's widths: its 2-pair check replicated to
+# RLC_CHECK_BATCH lanes runs B4 on 2 × RLC_CHECK_BATCH pair lanes and B6
+# and B7 on RLC_CHECK_BATCH; their kernels' ptxas figures (csrc/miller.cu,
+# csrc/fq12.cu).
 CHECK_WIDTHS = {"dbl_fold": 2 * RLC_CHECK_BATCH,
-                "cyclo_sqr": RLC_CHECK_BATCH}
+                "cyclo_sqr": RLC_CHECK_BATCH,
+                "cyclo_sqr_mul": RLC_CHECK_BATCH}
 GROUP_KERNELS = {"dbl_fold": ("miller.cu", "dbl_fold_kernel"),
-                 "cyclo_sqr": ("fq12.cu", "cyclo_sqr_group_kernel")}
+                 "cyclo_sqr": ("fq12.cu", "cyclo_sqr_group_kernel"),
+                 "cyclo_sqr_mul": ("fq12.cu", "cyclo_sqr_mul_group_kernel")}
 
 
 def tower_inputs(name, gen, dev, n=None):
@@ -757,9 +761,13 @@ def madd_inputs(g2, n, gen, dev):
 
 def check_madd(g2, gen, dev, card):
     """B10 at the path's width, N = 262,144 lanes, against its plain
-    version (run over blocks of 16,384 lanes, which it treats alike)."""
+    version (run over blocks of 16,384 lanes, which it treats alike); then
+    timed on the table build's first launch (acc = Q with Z = 1: every lane
+    takes the doubling branch), held against the plain version on its
+    first 16,384 lanes."""
     import torch
     from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import packed as pk
 
     name = "g2_madd" if g2 else "g1_madd"
     kernel = {k.name: k for _, k in registry()}[name]
@@ -789,8 +797,20 @@ def check_madd(g2, gen, dev, card):
           f"infinity, T == Q, T == -Q and zero lanes included); kernel "
           f"{ms:.4f} ms, plain {plain_ms:.1f} ms, bound {bound:.4f} ms "
           f"({by}), {ms / bound:.1f}x the bound", flush=True)
+    first = torch.cat([q, pk._one_rows(k, n, dev)])
+    got = kernel.launch(first, q)
+    with plain_versions():
+        want = kernel.plain(first[:, :step].contiguous(),
+                            q[:, :step].contiguous())
+    compare(name, got[:, :step].contiguous(), want,
+            "on the table build's first launch")
+    ms_dbl = cuda_time_ms(lambda: kernel.launch(first, q), 10)
+    print(f"{name} on the table build's first launch (acc = Q, Z = 1, every "
+          f"lane doubles): bit-exact on {min(step, n)} lanes; kernel "
+          f"{ms_dbl:.4f} ms",
+          flush=True)
     return dict(lanes=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by)
+                bound_ms=bound, bound_by=by, ms_all_doubling=ms_dbl)
 
 
 def winacc_inputs(g2, n, gen, dev):
@@ -1335,16 +1355,22 @@ def print_split(what, spans, wall_s):
 
 
 def kernel_split(what, spans, wall_s):
-    """Sum the kernel spans by kernel and print the kernel share."""
-    per_kernel = {}
+    """Sum the kernel spans by kernel and print the kernel share, then each
+    kernel's device time in the call, its launches and the time a launch,
+    the most first."""
+    per_kernel, launches = {}, {}
     for name, start, stop in spans:
         per_kernel[name] = per_kernel.get(name, 0.0) + start.elapsed_time(stop)
+        launches[name] = launches.get(name, 0) + 1
     kernel_s = sum(per_kernel.values()) / 1e3
     print(f"{what} time split (one call, kernels bracketed by events): wall "
           f"{wall_s:.3f} s, kernels {kernel_s:.3f} s "
           f"({100 * kernel_s / wall_s:.1f} %), the rest "
-          f"{wall_s - kernel_s:.3f} s; ms per kernel "
-          f"{ {k: round(v, 3) for k, v in per_kernel.items()} }", flush=True)
+          f"{wall_s - kernel_s:.3f} s; per kernel (ms in the call, launches, "
+          f"ms a launch): " + ", ".join(
+              f"{k} {v:.3f} / {launches[k]} / {v / launches[k]:.4f}"
+              for k, v in sorted(per_kernel.items(), key=lambda kv: -kv[1])),
+          flush=True)
     return kernel_s, per_kernel
 
 
@@ -2856,7 +2882,8 @@ def main():
             results[f"g{1 + g2}_{kind}"] = check_ladder(g2, kind, gen, dev,
                                                          card)
     results["g1_step4"]["dkg_shape"] = check_ladder_dkg(gen, dev, card)
-    for kind, source in (("step4", "ladder.cu"), ("winacc", "msm.cu")):
+    for kind, source in (("step4", "ladder.cu"), ("winacc", "msm.cu"),
+                         ("madd", "msm.cu")):
         for g2 in (False, True):
             figures = ptxas[f"{kind}_kernel<{'Fq2' if g2 else 'Fq'}>"]
             results[f"g{1 + g2}_{kind}"]["ptxas"] = dict(zip(
@@ -2951,6 +2978,8 @@ def main():
         entry["launches_rlc_scalarwise"] = rlc_sw["launches"][k.name]
         if "ms_with_fold" in res:
             entry["ms_with_fold"] = res["ms_with_fold"]
+        if "ms_all_doubling" in res:
+            entry["ms_all_doubling"] = res["ms_all_doubling"]
         if "digits" in res:
             entry["digits"] = res["digits"]
         if "plain_lanes" in res:

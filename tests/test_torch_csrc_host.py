@@ -1,13 +1,16 @@
 """The tower kernels' CUDA sources, compiled for the host, against their plain
 PyTorch versions.
 
-The per-lane bodies of B3-B9 live in ``csrc/tower.cuh`` over the engine of
-``csrc/fq.cuh`` as plain C++ behind CUDA's function qualifiers. Here g++
-compiles those headers with the qualifiers defined away, and a serial loop
-over the lanes stands in for the grid: the same integer arithmetic the
-kernels run on the card, on the packed int32[k·24, N] layout, checked
-bit-exact against ``cuda_tower``'s plain versions on seeded inputs with zero
-lanes. Without g++ the tests skip (the kernels themselves run only on the
+The per-lane bodies of B3-B5, B8 and B9 live in ``csrc/tower.cuh`` over the
+engine of ``csrc/fq.cuh``, and those of B6 and B7 in the lane-group engine
+``csrc/tower_group.cuh``, as plain C++ behind CUDA's function qualifiers.
+Here g++ compiles those headers with the qualifiers defined away, and a
+serial loop over the lanes stands in for the grid (for B6 and B7, over one
+lane's group of ``kGroup`` threads, phase by phase): the same integer
+arithmetic the kernels run on the card, on the packed int32[k·24, N]
+layout, checked bit-exact against ``cuda_tower``'s plain versions on seeded
+inputs with zero lanes. ``tests/test_torch_csrc_tower_group.py`` holds the
+lane-group bodies at other group sizes and block shapes. Without g++ the tests skip (the kernels themselves run only on the
 card, in ``chip_smoke.py``).
 """
 
@@ -37,6 +40,32 @@ HARNESS = r"""
 #include <cstdlib>
 #include <vector>
 #include "tower.cuh"
+#include "tower_group.cuh"
+
+// B6 (g == nullptr) and B7 on the lane-group engine: one block of one lane
+// and kGroup threads after another; each loop over tid is what the
+// threads do between two barriers.
+static void group_lanes(const int32_t* f, const int32_t* g, int32_t* fo,
+                        int n) {
+  using namespace tc::grp;
+  const bool mul = g != nullptr;
+  const int words = mul ? kB7LaneWords : kB6LaneWords;
+  std::vector<uint32_t> smem(words);
+  for (int lane = 0; lane < n; ++lane) {
+    for (int tid = 0; tid < kGroup; ++tid) {
+      stage_in(f, 12, 0, n, lane, 0, tid, kGroup, smem.data(), words);
+      if (mul)
+        stage_in(g, 12, 12, n, lane, 0, tid, kGroup, smem.data(), words);
+    }
+    for (int ph = 0; ph < (mul ? kB7Phases : kB6Phases); ++ph)
+      for (int tid = 0; tid < kGroup; ++tid)
+        run_phase(mul ? kB7PhaseOps : kB6PhaseOps, mul ? kB7Ops : kB6Ops,
+                  mul ? kB7Terms : kB6Terms, ph, tid, kGroup, smem.data());
+    for (int tid = 0; tid < kGroup; ++tid)
+      stage_out(fo, mul ? kB7OutSlots : kB6OutSlots, 12, n, lane, 0, tid,
+                kGroup, smem.data(), words);
+  }
+}
 
 // stdin: int32 op, n, m, k, then the packed inputs; stdout: the outputs.
 static std::vector<int32_t> rd(size_t count) {
@@ -62,15 +91,14 @@ int main() {
     in.push_back(rd(24ul * m * n));
   }
   std::vector<int32_t> a(op == 6 ? 5 * 24ul * m * n : F), b(T);
-  for (int l = 0; l < n; ++l) {
+  if (op == 2 || op == 3)
+    group_lanes(in[0].data(), op == 3 ? in[1].data() : nullptr, a.data(), n);
+  for (int l = 0; l < n && op != 2 && op != 3; ++l) {
     switch (op) {
       case 0: tc::dbl_fold_lane(in[0].data(), in[1].data(), in[2].data(),
                                 a.data(), b.data(), n, l); break;
       case 1: tc::add_fold_lane(in[0].data(), in[1].data(), in[2].data(),
                                 in[3].data(), a.data(), b.data(), n, l); break;
-      case 2: tc::cyclo_sqr_lane(in[0].data(), nullptr, a.data(), n, l); break;
-      case 3: tc::cyclo_sqr_lane(in[0].data(), in[1].data(), a.data(), n, l);
-              break;
       case 4: tc::fq12_mul_lane(in[0].data(), in[1].data(), a.data(), n, l);
               break;
       case 5: tc::fq12_mul_lane(in[0].data(), nullptr, a.data(), n, l); break;

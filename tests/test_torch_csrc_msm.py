@@ -1,11 +1,11 @@
 """The curve and SHA3 kernels' CUDA sources, compiled for the host, against
 their plain versions and ``hashlib``.
 
-The per-lane bodies of B10, B15 and B16 (``csrc/curve.cuh``: the
-doubling, the complete add, the complete mixed add, the bit ladder of one
-lane, and the gated table add and the w doublings of one accumulator
-lane), of B11 and B13 (``csrc/ladder_engine.cuh``: the Horner loop of one
-accumulator, the digit ladder of one lane) and of B12
+The per-lane bodies of B15 and B16 (``csrc/curve.cuh``: the doubling,
+the complete add, the bit ladder of one lane, and the gated table add and
+the w doublings of one accumulator lane), of B10, B11 and B13
+(``csrc/ladder_engine.cuh``: the complete mixed add of one lane, the
+Horner loop of one accumulator, the digit ladder of one lane) and of B12
 (``csrc/keccak.cuh``) are plain C++ behind CUDA's
 function qualifiers. Here g++ compiles them with the qualifiers defined
 away, and a serial loop over the lanes (or accumulators, or chunks) stands
@@ -14,10 +14,11 @@ on the packed layout, checked bit-exact against the plain versions
 (``device/curve.py``, ``device/cuda_curve.py``, ``device/keccak.py``) on
 seeded points with the special lanes T == Q, T == −Q and infinity on
 either side (for the ladders: 16T == ±table[d − 1], 2T == ±Q, T at
-infinity and digit or bit 0; for B11 T == Q followed by another add in
-the same window and digits outside 1..7; for B16 the block's first lane
-and a ragged last block whose padding has digit 0), and against
-``hashlib.sha3_256``. Without g++ the tests skip
+infinity and digit or bit 0; for B10 also zero and p − 1 lanes, and the
+table build's six launches from acc = Q with Z = 1; for B11 T == Q
+followed by another add in the same window and digits outside 1..7; for
+B16 the block's first lane and a ragged last block whose padding has
+digit 0), and against ``hashlib.sha3_256``. Without g++ the tests skip
 (the kernels themselves run only on the card, in ``chip_smoke.py``).
 """
 
@@ -35,6 +36,8 @@ from threshold_crypto_tpu_torch import _build
 from threshold_crypto_tpu_torch.device import cuda_curve as ccv
 from threshold_crypto_tpu_torch.device import curve as dcv
 from threshold_crypto_tpu_torch.device import keccak as dk
+from threshold_crypto_tpu_torch.device import mont
+from threshold_crypto_tpu_torch.device.mont import FQ
 from threshold_crypto_tpu_torch.host import curve as hcv
 from threshold_crypto_tpu_torch.host import tower as htw
 from threshold_crypto_tpu_torch.host.params import P, R
@@ -69,7 +72,7 @@ void run(int op, int n, int accs, int ndig, int window, int start) {
     auto acc = rd(P * n), q = rd(2 * P / 3 * n);
     out.resize(P * n);
     for (int l = 0; l < n; ++l)
-      tc::madd_lane<F>(acc.data(), q.data(), out.data(), n, l);
+      tc::madd_lane_r<F>(acc.data(), q.data(), out.data(), n, l);
   } else if (op == 1 || op == 2) {  // dbl, add
     auto a = rd(P * n);
     auto b = op == 2 ? rd(P * n) : std::vector<int32_t>();
@@ -251,6 +254,49 @@ def test_mixed_add_body_matches_plain_version(harness, group):
     assert torch.equal(got, want)
     pts = curve.to_host_affine(ccv.unpack_jac(want, g2))
     assert pts[3] is None and pts[2] is not None
+
+
+def test_mixed_add_body_on_edge_lanes(harness, group):
+    """B10's lane body on ``chip_smoke.madd_inputs``' lanes (T at infinity,
+    T == Q with Z = 1, T == −Q, everything zero) and lanes of p − 1 in
+    every component of acc, of q or of both, the rest random values."""
+    curve, _, _, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    n = 24
+    gen = torch.Generator()
+    gen.manual_seed(0xB10 + g2)
+    acc, q = chip_smoke.madd_inputs(g2, n, gen, "cpu")
+    pm1 = mont.limbs_from_int(FQ, FQ.p - 1)
+    for x, lanes in ((acc, (16, 18)), (q, (17, 18))):
+        for lane in lanes:
+            x[:, lane] = torch.from_numpy(np.tile(pm1, x.shape[0] // FQ.L))
+    got = _run(harness, "madd", g2, n, [acc, q], (rows, n))
+    want = ccv._madd_ref(g2, acc, q)
+    assert torch.equal(got, want)
+    z = want[2 * rows // 3:]
+    assert not bool(z[:, 8:12].any())                   # T == −Q
+    assert all(bool(z[:, lane].any()) for lane in range(4, 8))  # 2T
+
+
+def test_mixed_add_body_builds_the_table(harness, group):
+    """The table build of ``msm_pallas_shared``: six launches from acc = Q
+    with Z = 1 (the first takes the doubling branch on every lane), P to
+    7P, bit-exact with ``p_madd``'s chain, and the host's multiples."""
+    curve, host, _, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    rnd = random.Random(0x7AB + g2)
+    pts = [host.mul(host.generator, rnd.randrange(1, R)) for _ in range(N)]
+    q = _affine(curve, pts)
+    acc = torch.cat([q, ccv.pk._one_rows(2 if g2 else 1, N, "cpu")])
+    want = acc
+    for i in range(2, 8):
+        acc = _run(harness, "madd", g2, N, [acc, q], (rows, N))
+        want = ccv.p_madd(g2, want, q)
+        assert torch.equal(acc, want)
+        assert curve.to_host_affine(ccv.unpack_jac(acc, g2)) == [
+            host.mul(p, i) for p in pts]
 
 
 @pytest.mark.parametrize("accs", [1, 3, 5])

@@ -1,21 +1,23 @@
 """The lane-group tower engine (``csrc/tower_group.cuh``), compiled for the
-host, against the plain versions of B4 and B6.
+host, against the plain versions of B4, B6 and B7.
 
-On the card one lane of B4 ``dbl_fold`` / B6 ``cyclo_sqr`` runs on a group
-of ``kGroup`` threads: the block stages its lanes' inputs into shared
+On the card one lane of B4 ``dbl_fold`` / B6 ``cyclo_sqr`` / B7
+``cyclo_sqr_mul`` runs on a group of ``kGroup`` threads: the block stages its lanes' inputs into shared
 memory, each phase of the static schedule is dealt over the group's
 threads with a barrier after it, and the block writes its outputs. Here
 g++ compiles the header with CUDA's qualifiers defined away and a serial
 loop over the threads stands in for the block, calling the same stage and
 phase functions in the barriers' order:
 
-* both bodies bit-exact with ``cuda_tower.dbl_fold_ref`` /
-  ``cyclo_sqr_ref`` at the kernel's group size and at others, on zero f,
-  zero T and infinity P lanes, lanes of p − 1, random lanes and (B6)
-  cyclotomic lanes, over blocks whose last one is ragged;
+* the bodies bit-exact with ``cuda_tower.dbl_fold_ref`` /
+  ``cyclo_sqr_ref`` / ``cyclo_sqr_mul_ref`` at the kernel's group size and
+  at others, on zero f, g and T and infinity P lanes, lanes of p − 1,
+  random lanes and (B6, B7) cyclotomic lanes, over blocks whose last one
+  is ragged;
 * the dealing: each op of each phase runs on exactly one thread of the
-  group, the product phases hold the 122 (B4: 48, 19, 16, 39) and 18 (B6)
-  Fq products, and a thread runs Σ ceil(layer / G) of them;
+  group, the product phases hold the 122 (B4: 48, 19, 16, 39), 18 (B6)
+  and 72 (B7: 18, 54) Fq products, and a thread runs Σ ceil(layer / G) of
+  them;
 * a linear form reduced as its steps say (canonical when stored; as a
   product's operand, the bound the product needs) on edge and random
   slots, and the product canonical on operands up to that bound;
@@ -64,11 +66,13 @@ struct Sched {
   const int32_t *phase_ops, *ops, *terms, *out_slots;
   int phases, slots, lane_words;
 };
-static const Sched kS[2] = {
+static const Sched kS[3] = {
     {kB4PhaseOps, kB4Ops, kB4Terms, kB4OutSlots, kB4Phases, kB4Slots,
      kB4LaneWords},
     {kB6PhaseOps, kB6Ops, kB6Terms, kB6OutSlots, kB6Phases, kB6Slots,
-     kB6LaneWords}};
+     kB6LaneWords},
+    {kB7PhaseOps, kB7Ops, kB7Terms, kB7OutSlots, kB7Phases, kB7Slots,
+     kB7LaneWords}};
 
 static std::vector<int32_t> rd(size_t count) {
   std::vector<int32_t> v(count);
@@ -109,11 +113,11 @@ static void emulate(const Sched& s, const std::vector<const int32_t*>& in,
 }
 
 // stdin: int32 op, G, shift, n, then the inputs; stdout: the outputs.
-// op 0: B4 (f, T, P -> f, T); op 1: B6 (f -> f); op 2 + s: for schedule s,
-// a scratch of random values, then per phase its op count, its product
-// flag and per thread g the slots thread g's share of it writes; op 4: n
-// forms (words, first terms, `shift` terms) over a scratch of G slots;
-// op 5: n products.
+// op 0: B4 (f, T, P -> f, T); op 1: B6 (f -> f); op 6: B7 (f, g -> f);
+// op 10 + s: for schedule s, a scratch of random values, then per phase
+// its op count, its product flag and per thread g the slots thread g's
+// share of it writes; op 4: n forms (words, first terms, `shift` terms)
+// over a scratch of G slots; op 5: n products.
 int main() {
   int32_t h[4];
   if (fread(h, 4, 4, stdin) != 4) return 2;
@@ -129,6 +133,12 @@ int main() {
     auto f = rd(288ul * n);
     std::vector<int32_t> fo(288ul * n);
     emulate(kS[1], {f.data()}, {12}, {fo.data()}, {12}, n, G, shift);
+    fwrite(fo.data(), 4, fo.size(), stdout);
+  } else if (op == 6) {
+    auto f = rd(288ul * n), g = rd(288ul * n);
+    std::vector<int32_t> fo(288ul * n);
+    emulate(kS[2], {f.data(), g.data()}, {12, 12}, {fo.data()}, {12}, n, G,
+            shift);
     fwrite(fo.data(), 4, fo.size(), stdout);
   } else if (op == 4) {  // n forms over a scratch of G slots
     auto init = rd(static_cast<size_t>(G) * kWords);
@@ -155,8 +165,8 @@ int main() {
       out.insert(out.end(), r.w, r.w + kWords);
     }
     fwrite(out.data(), 4, out.size(), stdout);
-  } else {
-    const Sched& s = kS[op - 2];
+  } else if (op >= 10 && op < 13) {
+    const Sched& s = kS[op - 10];
     auto init = rd(static_cast<size_t>(s.slots) * kWords);
     std::vector<int32_t> out;
     for (int ph = 0; ph < s.phases; ++ph) {
@@ -176,6 +186,8 @@ int main() {
       }
     }
     fwrite(out.data(), 4, out.size(), stdout);
+  } else {
+    return 4;
   }
   return 0;
 }
@@ -184,7 +196,8 @@ int main() {
 N = 22          # lanes: blocks of 4 (shift 2), the last one ragged
 SHIFT = 2
 GROUP = 8       # the kernel's kGroup
-PRODUCTS = {"dbl_fold": [48, 19, 16, 39], "cyclo_sqr": [18]}
+PRODUCTS = {"dbl_fold": [48, 19, 16, 39], "cyclo_sqr": [18],
+            "cyclo_sqr_mul": [18, 54]}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -300,27 +313,57 @@ def test_cyclo_sqr_group_body_matches_plain_version(harness, G):
             _flat12(htw.fq12_sqr(e))
 
 
+@pytest.mark.parametrize("G", [GROUP, 1, 4, 16, 32])
+def test_cyclo_sqr_mul_group_body_matches_plain_version(harness, G):
+    """B7: f²·g with f on B6's lanes (zero, p − 1, cyclotomic, random) and
+    g random with zero lanes 0 and 3 and p − 1 on lane 4."""
+    f, host = _cyclo_inputs(0xB7 + G)
+    rnd = random.Random(0xB70 + G)
+    g_host = _random(rnd, 12)
+    for c in g_host:
+        c[0] = c[3] = 0
+        c[4] = FQ.p - 1
+    g = _packed(g_host)
+    out = _run(harness, 6, G, N, [f.numpy().tobytes(), g.numpy().tobytes()])
+    fo = torch.from_numpy(out.reshape(288, N).copy())
+    assert torch.equal(fo, ctw.cyclo_sqr_mul_ref(f, g))
+    # on the cyclotomic lanes, the true f²·g
+    got = [mont.unstack_mont(FQ, c) for c in pk_unpack(fo)]
+    for lane in range(8, 14):
+        e, h = (_fq12([x[i][lane] for i in range(12)])
+                for x in (host, g_host))
+        assert [got[i][lane] for i in range(12)] == \
+            _flat12(htw.fq12_mul(htw.fq12_sqr(e), h))
+
+
+def _fq12(x):
+    """12 Fq components in the packed order -> a host Fq12."""
+    fq2 = [(x[2 * i], x[2 * i + 1]) for i in range(6)]
+    return (tuple(fq2[:3]), tuple(fq2[3:]))
+
+
 def pk_unpack(packed):
     """Packed int32[288, N] -> 12 int32[N, 24] components."""
     return [packed[i * FQ.L:(i + 1) * FQ.L].T.contiguous()
             for i in range(12)]
 
 
-@pytest.mark.parametrize("name,sched", [("dbl_fold", 0), ("cyclo_sqr", 1)])
+@pytest.mark.parametrize("name,sched", [("dbl_fold", 0), ("cyclo_sqr", 1),
+                                        ("cyclo_sqr_mul", 2)])
 @pytest.mark.parametrize("G", [GROUP, 4])
 def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
     """Thread g's share of a phase writes the slots of ops g, g + G, …:
     over the group the shares are disjoint and cover every op of the
-    phase once; the product phases hold the 122 (B4) or 18 (B6) Fq
-    products, and the busiest thread runs Σ ceil(layer / G) of them."""
+    phase once; the product phases hold the 122 (B4), 18 (B6) or 72 (B7)
+    Fq products, and the busiest thread runs Σ ceil(layer / G) of them."""
     text = open(os.path.join(_build.CSRC, "tower_group.cuh")).read()
-    prefix = "kB4" if sched == 0 else "kB6"
+    prefix = ("kB4", "kB6", "kB7")[sched]
     slots = int(re.search(rf"constexpr int {prefix}Slots = (\d+);",
                           text).group(1))
     rnd = random.Random(sched)
     init = np.array([(rnd.randrange(FQ.p) >> (32 * j)) & 0xFFFFFFFF
                      for _ in range(slots) for j in range(12)], np.uint32)
-    out = _run(harness, 2 + sched, G, 0, [init.tobytes()])
+    out = _run(harness, 10 + sched, G, 0, [init.tobytes()])
     pos, products, busiest = 0, [], 0
     while pos < out.size:
         count, is_product = int(out[pos]), bool(out[pos + 1])
@@ -336,8 +379,9 @@ def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
             busiest += -(-count // G)
     assert products == PRODUCTS[name]
     assert busiest == sum(-(-c // G) for c in PRODUCTS[name])
-    if name == "dbl_fold" and G == GROUP:
-        assert busiest == 16
+    if G == GROUP:
+        assert busiest == {"dbl_fold": 16, "cyclo_sqr": 3,
+                           "cyclo_sqr_mul": 10}[name]
 
 
 def _gen():
@@ -429,20 +473,25 @@ def test_header_tables_are_the_generators():
     text = open(gen.HEADER).read()
     assert gen.header_with(text, gen.block()) == text
     assert [s().product_counts() for s in gen.SCHEDULES.values()] == [
-        PRODUCTS["dbl_fold"], PRODUCTS["cyclo_sqr"]]
+        PRODUCTS["dbl_fold"], PRODUCTS["cyclo_sqr"],
+        PRODUCTS["cyclo_sqr_mul"]]
 
 
 def test_cpu_tensors_take_the_plain_versions():
     """The dispatch sends a CPU tensor to the plain version, without a
     launch; the wrapper itself takes CUDA tensors only."""
     f, T, P = _dbl_fold_inputs(7)
-    before = (ctw.DBL_FOLD.launches, ctw.CYCLO_SQR.launches)
+    counts = (ctw.DBL_FOLD, ctw.CYCLO_SQR, ctw.CYCLO_SQR_MUL)
+    before = [c.launches for c in counts]
     got = ctw.p_dbl_fold(f, T, P)
     want = ctw.dbl_fold_ref(f, T, P)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert torch.equal(ctw.p_cyclo_sqr(f), ctw.cyclo_sqr_ref(f))
-    assert (ctw.DBL_FOLD.launches, ctw.CYCLO_SQR.launches) == before
+    assert torch.equal(ctw.p_cyclo_sqr_mul(f, f), ctw.cyclo_sqr_mul_ref(f, f))
+    assert [c.launches for c in counts] == before
     with pytest.raises(ValueError, match="CUDA"):
         ctw.dbl_fold(f, T, P)
     with pytest.raises(ValueError, match="CUDA"):
         ctw.cyclo_sqr(f)
+    with pytest.raises(ValueError, match="CUDA"):
+        ctw.cyclo_sqr_mul(f, f)

@@ -1,14 +1,14 @@
 // Jacobian G1/G2 point formulas of the curve kernels as per-lane device
-// functions, and the per-lane bodies of B10 (madd), B15 (step) and B16
-// (selmadd, dblw). B11 (winacc) and B13 (step4) run on ladder_engine.cuh.
+// functions, and the per-lane bodies of B15 (step) and B16 (selmadd,
+// dblw). B10 (madd), B11 (winacc) and B13 (step4) run on
+// ladder_engine.cuh.
 //
 // Replaces the in-kernel formulas of threshold_crypto_tpu/device/
 // pallas_curve.py (:143-370): `_jac_dbl` (7 products), `_jac_add` (the
 // complete Jacobian + Jacobian add, 23 products, 16 of them on the general
-// path), `_jac_madd` (the complete mixed add, 18 products, 11 of them on
-// the general path) and `_msm_step` (a doubling and a gated complete mixed
-// add with its own doubling of 2T, 25 products, 18 of them on the general
-// path), written for G1 over Fq and G2 over Fq2 as one template over the
+// path) and `_msm_step` (a doubling and a gated complete mixed add with
+// its own doubling of 2T, 25 products, 18 of them on the general path),
+// written for G1 over Fq and G2 over Fq2 as one template over the
 // field. The formulas are the JAX ones value for
 // value: the same products, the same small multiples (2·x as x + x, 3·x,
 // 8·x by fq_small's addition tree) and the same select order (T == Q, then
@@ -136,7 +136,7 @@ __device__ __forceinline__ void store_jac(int32_t* dst, const Jac<F>& p,
 }
 
 // ---------------------------------------------------------------------------
-// The formulas (pallas_curve.py `_jac_dbl`, `_jac_add`, `_jac_madd`)
+// The formulas (pallas_curve.py `_jac_dbl`, `_jac_add`, `_msm_step`)
 // ---------------------------------------------------------------------------
 
 // A = X², B = Y², S = Y·Z, E = 3A, C = B², D = 2((X + B)² − A − C);
@@ -236,70 +236,6 @@ __device__ __noinline__ void jac_add(Jac<F>& r, const Jac<F>& T,
   r = out;
 }
 
-// The complete mixed add T (Jacobian) + Q (affine, not at infinity).
-template <class F>
-__device__ __noinline__ void jac_madd(Jac<F>& r, const Jac<F>& T,
-                                      const F& x2, const F& y2) {
-  F z1z, A, B, S, XpB, E, u2, z1cu, C, XB2, E2, h, D, Xd, s2, hh, EDX, rr_;
-  F Yd, Zd, hhh, v, rr, Zn, Xn, Yn, t, u;
-  // L1
-  f_sqr(z1z, T.Z);
-  f_sqr(A, T.X);
-  f_sqr(B, T.Y);
-  f_mul(S, T.Y, T.Z);
-  f_add(XpB, T.X, B);
-  f_small(E, A, 3);
-  // L2
-  f_mul(u2, x2, z1z);
-  f_mul(z1cu, z1z, T.Z);
-  f_sqr(C, B);
-  f_sqr(XB2, XpB);
-  f_sqr(E2, E);
-  f_sub(h, u2, T.X);
-  f_sub(t, XB2, A);
-  f_sub(t, t, C);
-  f_small(D, t, 2);
-  f_small(t, D, 2);
-  f_sub(Xd, E2, t);
-  // L3
-  f_mul(s2, y2, z1cu);
-  f_sqr(hh, h);
-  f_sub(t, D, Xd);
-  f_mul(EDX, E, t);
-  f_sub(rr_, s2, T.Y);                   // r
-  f_small(u, C, 8);
-  f_sub(Yd, EDX, u);
-  f_small(Zd, S, 2);
-  // L4
-  f_mul(hhh, h, hh);
-  f_mul(v, T.X, hh);
-  f_sqr(rr, rr_);
-  f_mul(Zn, T.Z, h);
-  f_sub(t, rr, hhh);
-  f_small(u, v, 2);
-  f_sub(Xn, t, u);
-  // L5
-  f_sub(t, v, Xn);
-  f_mul(t, rr_, t);
-  f_mul(u, T.Y, hhh);
-  f_sub(Yn, t, u);
-
-  const bool h0 = f_is_zero(h);
-  const bool r0 = f_is_zero(rr_);
-  const bool t_inf = f_is_zero(T.Z);
-  Jac<F> out;
-  out.X = Xn;
-  out.Y = Yn;
-  out.Z = Zn;
-  select3(out, h0 && r0, Xd, Yd, Zd);    // T == Q  -> 2T
-  F one, zero;
-  f_set(one, true);
-  f_set(zero, false);
-  select3(out, h0 && !r0, one, one, zero);  // T == -Q -> infinity
-  select3(out, t_inf, x2, y2, one);      // 0 + Q -> Q
-  r = out;
-}
-
 // One set bit of the per-lane ladder (`_msm_step` with do_add): r = 2T + Q
 // (Q affine). The doubling of T runs as in jac_dbl; the mixed add starts
 // from 2T with Zd² = 4S² and Zd³ = Zd²·Zd, and the doubling of 2T (Xdd,
@@ -396,20 +332,6 @@ __device__ __noinline__ void msm_step(Jac<F>& r, const Jac<F>& T,
 // ---------------------------------------------------------------------------
 // Per-lane bodies
 // ---------------------------------------------------------------------------
-
-// B10 (`_k_g1_madd` / `_k_g2_madd`): acc [3k·24, n] + q [2k·24, n] affine.
-template <class F>
-__device__ __forceinline__ void madd_lane(const int32_t* acc_in,
-                                          const int32_t* q_in, int32_t* out,
-                                          int n, int lane) {
-  Jac<F> T;
-  F x2, y2;
-  load_jac(T, acc_in, 0, n, lane);
-  f_load(x2, q_in, 0, n, lane);
-  f_load(y2, q_in, Comps<F>::k, n, lane);
-  jac_madd(T, T, x2, y2);
-  store_jac(out, T, n, lane);
-}
 
 // B15 (`_k_g1_msm_step` / `_k_g2_msm_step`) with the ladder inside the
 // thread: acc [3k·24, n] Jacobian, q [2k·24, n] affine, bits [nbits, n]

@@ -6,9 +6,10 @@
 // the lane-group engine of tower_group.cuh: one lane over a group of
 // tc::grp::kGroup threads, its 18 Fq products dealt over the group (3 a
 // thread at kGroup = 8), the operands in registers and the values in the
-// block's shared memory. `cyclo_sqr_kernel` with a second operand is B7,
-// `_k_cyclo_sqr_mul` (:932), acc²·g, the 1-bit step of exp-by-x, one
-// thread per lane on tower.cuh. B8 `fq12_mul_kernel` replaces
+// block's shared memory. B7 `cyclo_sqr_mul_group_kernel` replaces
+// `_k_cyclo_sqr_mul` (:932), acc²·g, the 1-bit step of exp-by-x, on the
+// same engine: B6's 18 products, then the Fq12 product's 54 (3 + 7 a
+// thread). B8 `fq12_mul_kernel` replaces
 // `_k_fq12_mul` (:960); without a second operand it is B9, `_k_fq12_sqr`
 // (:964). `engine_kernel`
 // runs B3 (fq.cuh, replacing `_k_mul16`/`_k_mul13` and `k_add`, `k_sub`,
@@ -23,9 +24,10 @@
 // against 2 × 1,152 bytes, B7 72 products against 3 × 1,152 bytes, B8 54
 // against 3 × 1,152 and B9 36 against 2 × 1,152: on an H100 SXM the
 // multiply issue rate bounds B7-B9, and B6 sits near the balance point
-// (its bytes take about as long as its products). In B7-B9 f and every
-// intermediate stay in the thread's registers and local memory; at 8,192
-// lanes and 128 threads per block the grid is 64 blocks on 132 SMs.
+// (its bytes take about as long as its products). In B8 and B9 (tower.cuh)
+// f and every intermediate stay in the thread's registers and local
+// memory; at 8,192 lanes and 128 threads per block the grid is 64 blocks
+// on 132 SMs.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0.
@@ -59,13 +61,26 @@ cyclo_sqr_group_kernel(const int32_t* __restrict__ f,
             kB6LaneWords);
 }
 
-// B7 (with g; g == nullptr is tower.cuh's B6 body, run by no launcher).
-__global__ void __launch_bounds__(kThreads)
-cyclo_sqr_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ g,
-                 int32_t* __restrict__ fo, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  tc::cyclo_sqr_lane(f, g, fo, n, lane);
+// B7: f in slots 0-11, g in 12-23.
+__global__ void __launch_bounds__(tc::grp::kMaxThreads, tc::grp::kMinBlocks)
+cyclo_sqr_mul_group_kernel(const int32_t* __restrict__ f,
+                           const int32_t* __restrict__ g,
+                           int32_t* __restrict__ fo, int n, int lane_shift) {
+  using namespace tc::grp;
+  extern __shared__ uint4 cyclo_sqr_mul_scratch[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(cyclo_sqr_mul_scratch);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane0 = blockIdx.x << lane_shift;
+  stage_in(f, 12, 0, n, lane0, lane_shift, tid, nthreads, smem,
+           kB7LaneWords);
+  stage_in(g, 12, 12, n, lane0, lane_shift, tid, nthreads, smem,
+           kB7LaneWords);
+  __syncthreads();
+  run_schedule(kB7PhaseOps, kB7Ops, kB7Terms, kB7Phases,
+               smem + (tid / kGroup) * kB7LaneWords);
+  __syncthreads();
+  stage_out(fo, kB7OutSlots, 12, n, lane0, lane_shift, tid, nthreads, smem,
+            kB7LaneWords);
 }
 
 // b == nullptr: B9; else B8.
@@ -89,14 +104,6 @@ inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
 
 const int32_t* in(const void* p) { return static_cast<const int32_t*>(p); }
 int32_t* out(void* p) { return static_cast<int32_t*>(p); }
-
-int launch_cyclo(const void* f, const void* g, void* fo, int n, void* stream) {
-  if (n <= 0) return 0;
-  cyclo_sqr_kernel<<<grid_for(n), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(in(f), in(g),
-                                                          out(fo), n);
-  return static_cast<int>(cudaGetLastError());
-}
 
 int launch_mul(const void* a, const void* b, void* fo, int n, void* stream) {
   if (n <= 0) return 0;
@@ -124,7 +131,17 @@ extern "C" int tc_cyclo_sqr(const void* f, void* fo, int n, void* stream) {
 
 extern "C" int tc_cyclo_sqr_mul(const void* f, const void* g, void* fo, int n,
                                 void* stream) {
-  return launch_cyclo(f, g, fo, n, stream);
+  if (n <= 0) return 0;
+  static int allowed = 0;
+  const tc::grp::Shape s = tc::grp::group_shape(n, tc::grp::kB7LaneWords);
+  const int err = tc::grp::allow_scratch(
+      reinterpret_cast<const void*>(cyclo_sqr_mul_group_kernel), s.bytes,
+      allowed);
+  if (err != 0) return err;
+  cyclo_sqr_mul_group_kernel<<<s.blocks, s.threads, s.bytes,
+                               static_cast<cudaStream_t>(stream)>>>(
+      in(f), in(g), out(fo), n, s.shift);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tc_fq12_mul(const void* a, const void* b, void* fo, int n,

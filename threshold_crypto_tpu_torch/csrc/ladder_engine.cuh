@@ -1,24 +1,28 @@
 // B13's register-resident G1/G2 engine, and the lane bodies on it: B13's
-// `step4_lane_r` and B11's `winacc_lane_r`.
+// `step4_lane_r`, B11's `winacc_lane_r` and B10's `madd_lane_r`.
 //
-// Replaces, for kernels B13 (csrc/ladder.cu `step4_kernel`) and B11
-// (csrc/msm.cu `winacc_kernel`), the formulas of
+// Replaces, for kernels B13 (csrc/ladder.cu `step4_kernel`), B11 and B10
+// (csrc/msm.cu `winacc_kernel`, `madd_kernel`), the formulas of
 // threshold_crypto_tpu/device/pallas_curve.py `_msm_step_w4` (:355; kernel
 // `_mk_step4_kernel` :385): per lane and base-16 digit d, T <- 16T, then
-// T + table[d − 1] with the complete Jacobian add where d != 0; and of
+// T + table[d − 1] with the complete Jacobian add where d != 0; of
 // `_mk_winacc_kernel` (:534): per window w doublings, then the complete
-// add of table[d − 1] for each lane an accumulator owns. The other curve
-// kernels (B10, B15, B16) keep curve.cuh.
+// add of table[d − 1] for each lane an accumulator owns; and of
+// `_mk_madd_kernel` (:397): per lane T + Q with `_jac_madd` (:305), the
+// complete mixed add, Q affine. The other curve kernels (B15, B16) keep
+// curve.cuh.
 //
 // What bounds it. Per digit 4 doublings (7 Fq products each in G1, 16 in
 // G2) and, for d != 0, the general path of the complete add (16 / 44),
 // against 288 (576) bytes of table entry a digit: the 32-bit multiply
 // issue rate bounds it by far, as long as the operands stay in registers.
-// curve.cuh's engine passes every operand and result of every field op
-// through a per-thread local-memory frame (__noinline__ over struct
-// references; 1,296 bytes for G1 B13), and its complete add computes the
-// doubling branch on every lane and selects it (23 Fq products where the
-// general path needs 16).
+// B10 needs 11 / 30 products a lane (the mixed add's general path)
+// against 8k·96 bytes: the multiply rate again. curve.cuh's engine passes
+// every operand and result of every field op through a per-thread
+// local-memory frame (__noinline__ over struct references; 1,296 bytes for
+// G1 B13), and its complete adds compute the doubling branch on every lane
+// and select it (23 Fq products where the general path needs 16; the mixed
+// add 18 where it needs 11).
 //
 // What this engine does about it.
 // * An Fq is 12 uint32_t in registers. The point formulas and the field
@@ -44,7 +48,7 @@
 //   multiply rate sets the pace; out of line it is ~3.3 k, about half the
 //   time at the DKG's launch shape (NVIDIA H100 80GB HBM3, 700 W;
 //   tools/b13_variants.py).
-// * The doubling case of the complete add (T == Q) is a branch, taken only
+// * The doubling case of the complete adds (T == Q) is a branch, taken only
 //   where h == 0 and r == 0 with neither point at infinity: T is left as it
 //   is and one more doubling runs before the next digit's four (or after
 //   the last digit), through the same doubling code. That doubling is
@@ -647,6 +651,73 @@ __device__ __forceinline__ void winacc_lane_r(const int32_t* table,
   reg::f_store(out, T.X, 0, accs, j);
   reg::f_store(out, T.Y, kc, accs, j);
   reg::f_store(out, T.Z, 2 * kc, accs, j);
+}
+
+// B10 (`_k_g1_madd` / `_k_g2_madd`) on the register engine: acc [3k·24, n]
+// Jacobian + q [2k·24, n] affine, per lane, with `_jac_madd`'s general path
+// (u1 = X1 and s1 = Y1, Q's Z being 1: 8 products and 3 squares, G1 11 Fq
+// products, G2 30) and its cases. Where T == Q (h == 0, r == 0, T not at
+// infinity) the lane branches into `jac_dbl`, whose formulas are
+// `_jac_madd`'s Xd, Yd, Zd: the same limbs as its select. T == −Q
+// (infinity) and T at infinity (Q, with Z = 1) stay data selects, in that
+// order, as in `_jac_madd`. The table build (device/cuda_curve.py) starts
+// from acc = Q with Z = 1, so its first launch takes the doubling branch
+// on every lane and the others never do.
+template <class F>
+__device__ __forceinline__ void madd_lane_r(const int32_t* acc_in,
+                                            const int32_t* q_in,
+                                            int32_t* out, int n, int lane) {
+  using R = typename reg::Field<F>::type;
+  constexpr int kc = reg::Field<F>::k;
+  reg::Jac<R> T;
+  reg::f_load(T.X, acc_in, 0, n, lane);
+  reg::f_load(T.Y, acc_in, kc, n, lane);
+  reg::f_load(T.Z, acc_in, 2 * kc, n, lane);
+  R z1, h, r;
+  reg::f_sqr(z1, T.Z);             // Z1²
+  reg::f_load(h, q_in, 0, n, lane);
+  reg::f_mul(h, h, z1);            // u2 = x2·Z1²
+  reg::f_sub(h, h, T.X);           // h = u2 − X1
+  reg::f_mul(z1, z1, T.Z);         // Z1³
+  reg::f_load(r, q_in, kc, n, lane);
+  reg::f_mul(r, r, z1);            // s2 = y2·Z1³
+  reg::f_sub(r, r, T.Y);           // r = s2 − Y1
+  const bool h0 = reg::f_is_zero(h);
+  const bool r0 = reg::f_is_zero(r);
+  const bool inf = reg::f_is_zero(T.Z);
+  if (h0 && r0 && !inf) {          // T == Q: 2T
+    reg::jac_dbl(T);
+  } else {
+    R Xo, Yo, Zo;
+    reg::f_mul(Zo, T.Z, h);        // Zo = Z1·h
+    reg::f_sqr(z1, h);             // hh
+    reg::f_mul(h, h, z1);          // hhh
+    reg::f_mul(z1, T.X, z1);       // v = X1·hh
+    reg::f_sqr(Xo, r);             // r²
+    reg::f_sub(Xo, Xo, h);
+    reg::f_add(Yo, z1, z1);
+    reg::f_sub(Xo, Xo, Yo);        // Xo = r² − hhh − 2v
+    reg::f_sub(z1, z1, Xo);
+    reg::f_mul(z1, r, z1);         // r(v − Xo)
+    reg::f_mul(Yo, T.Y, h);        // Y1·hhh
+    reg::f_sub(Yo, z1, Yo);        // Yo
+    if (h0) {                      // T == −Q -> infinity
+      reg::f_set(Xo, true);
+      reg::f_set(Yo, true);
+      reg::f_set(Zo, false);
+    }
+    if (inf) {                     // 0 + Q -> Q
+      reg::f_load(Xo, q_in, 0, n, lane);
+      reg::f_load(Yo, q_in, kc, n, lane);
+      reg::f_set(Zo, true);
+    }
+    T.X = Xo;
+    T.Y = Yo;
+    T.Z = Zo;
+  }
+  reg::f_store(out, T.X, 0, n, lane);
+  reg::f_store(out, T.Y, kc, n, lane);
+  reg::f_store(out, T.Z, 2 * kc, n, lane);
 }
 
 }  // namespace tc

@@ -37,16 +37,18 @@
 // (21k·96 bytes per lane) and the digits: the multiply issue rate bounds it
 // by far. The accumulator stays in the thread for the whole launch.
 //
-// B10 runs on curve.cuh: its formulas pass every operand through a
-// local-memory frame (__noinline__ over struct references), and its add
-// computes the doubling branch on every lane and selects it. B11 runs on
-// B13's register engine (ladder_engine.cuh `winacc_lane_r`): field values
-// in registers, one out-of-line carry-save Montgomery product, the add's
-// doubling case a branch. One loop serves every step of an accumulator,
-// each pass a doubling or the next lane's add, so the kernel holds one
-// copy of each formula (code size set B13's pace). A random digit spreads
-// a warp's loads of one window over up to 2^w − 1 entry rows, about 5×
-// the sectors it uses; tools/b11_variants.py measures that gather.
+// Both run on B13's register engine (ladder_engine.cuh `madd_lane_r`,
+// `winacc_lane_r`): field values in registers, one out-of-line carry-save
+// Montgomery product, the add's doubling case a branch (curve.cuh's
+// formulas, which B10 ran before, pass every operand through a
+// local-memory frame and compute the doubling branch on every lane). In
+// B10 the table build's first launch takes that branch on every lane (acc
+// = Q), the others on none. In B11 one loop serves every step of an
+// accumulator, each pass a doubling or the next lane's add, so the kernel
+// holds one copy of each formula (code size set B13's pace). A random
+// digit spreads a warp's loads of one window over up to 2^w − 1 entry
+// rows, about 5× the sectors it uses; tools/b11_variants.py measures that
+// gather.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0.
@@ -61,13 +63,31 @@ namespace {
 
 using tc::kThreads;
 
+// B10's blocks of kThreads that must fit on an SM together, per field:
+// __launch_bounds__ caps the registers at 65,536 / (kThreads · blocks) a
+// thread. At the RLC path's 262,144 lanes the grid is 2,048 blocks, so
+// more blocks an SM could hide the product's latency; yet the caps of 255,
+// 168 and 128 registers time within 1.4 % of one another in G1, and 128
+// spills and is 5-8 % slower in G2 (tools/b10_variants.py, PERF.md §6). Each
+// field takes the most blocks whose code spills no more than at the 255
+// cap: 3 in G1 (no spills), 2 in G2.
 template <class F>
-__global__ void __launch_bounds__(kThreads)
+struct MaddBlocks;
+template <>
+struct MaddBlocks<tc::Fq> {
+  static constexpr int value = 3;
+};
+template <>
+struct MaddBlocks<tc::Fq2> {
+  static constexpr int value = 2;
+};
+
+template <class F>
+__global__ void __launch_bounds__(kThreads, MaddBlocks<F>::value)
 madd_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ q,
             int32_t* __restrict__ out, int n) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  tc::madd_lane<F>(acc, q, out, n, lane);
+  if (lane < n) tc::madd_lane_r<F>(acc, q, out, n, lane);
 }
 
 // B11's blocks of kThreads that must fit on an SM together, per field:

@@ -1,21 +1,20 @@
 // The BLS12-381 tower Fq2/Fq6/Fq12 and the Miller-loop step formulas as
 // per-lane device functions over the engine of fq.cuh, and the per-lane
-// bodies of the tower kernels B4-B9 and B17.
+// bodies of the tower kernels B5, B8, B9 and B17. B4, B6 and B7 run on the
+// lane-group engine of tower_group.cuh; `dbl_fold_lane`, B4's body before
+// it, is run by no launcher.
 //
 // Replaces the in-kernel tower of threshold_crypto_tpu/device/
 // pallas_tower.py (:376-697): Karatsuba Fq2 products, the Toom/Karatsuba
 // Fq6 product (`_fq6_mul_parts` / `_fq6_mul_fin`), `fq12_mul`, `fq12_sqr`
-// (complex squaring), `fq12_mul_by_014`, the Granger-Scott `fq12_cyclo_sqr`
-// and the homogeneous projective `dbl_step` / `add_step` with their fused
-// folds. Fq2 = Fq[u]/(u²+1), Fq6 = Fq2[v]/(v³−ξ) with ξ = 1+u,
+// (complex squaring), `fq12_mul_by_014` and the homogeneous projective
+// `dbl_step` / `add_step` with their fused folds. Fq2 = Fq[u]/(u²+1), Fq6 = Fq2[v]/(v³−ξ) with ξ = 1+u,
 // Fq12 = Fq6[w]/(w²−v).
 //
 // Every Fq value is canonical, so any correct Fq12 product gives the TPU
-// kernels' limbs. Three outputs depend on the formula, and use the JAX
+// kernels' limbs. Two outputs depend on the formula, and use the JAX
 // package's: the projective T and the line (c0, c1, c4) of the doubling
-// and addition steps (the line scaled by w³·2YZ² resp. w³·v), and the
-// cyclotomic squaring (Granger-Scott; off the cyclotomic subgroup another
-// squaring gives other limbs). No function divides or branches on data, so
+// and addition steps (the line scaled by w³·2YZ² resp. w³·v). No function divides or branches on data, so
 // a zero lane runs like any other.
 //
 // The TPU kernels stacked the independent products of a formula layer into
@@ -228,53 +227,6 @@ __device__ __noinline__ void fq12_mul_by_014(Fq12& r, const Fq12& f,
   fq6_sub(r.c[1], t3, sf);
   fq6_mul_by_v(t1, t1);
   fq6_add(r.c[0], t0, t1);
-}
-
-// Granger-Scott cyclotomic squaring (`pallas_tower.fq12_cyclo_sqr`).
-// With a = ((z0, z4, z3), (z2, z1, z5)), the Fq4 pieces (x, y) are
-// (z0, z1), (z2, z3), (z4, z5); each squares to
-// t0 = x² + ξy², t1 = (x+y)² − x² − y². The outputs are 3t − 2z, computed
-// as 2(t − z) + t, for (t0a, z0), (t0b, z4), (t0c, z3), and 3t + 2z, as
-// 2(t + z) + t, for (t1a, z1), (t1b, z5), (ξ·t1c, z2).
-__device__ __noinline__ void fq12_cyclo_sqr(Fq12& r, const Fq12& a) {
-  const Fq2* z[6] = {&a.c[0].c[0], &a.c[1].c[1], &a.c[1].c[0],
-                     &a.c[0].c[2], &a.c[0].c[1], &a.c[1].c[2]};
-  Fq2 t0[3], t1[3];
-  for (int k = 0; k < 3; ++k) {
-    const Fq2& x = *z[2 * k];
-    const Fq2& y = *z[2 * k + 1];
-    Fq2 xx, yy, ss;
-    fq2_add(ss, x, y);
-    fq2_sqr(ss, ss);
-    fq2_sqr(xx, x);
-    fq2_sqr(yy, y);
-    fq2_sub(ss, ss, xx);
-    fq2_sub(t1[k], ss, yy);
-    fq2_mul_by_xi(yy, yy);
-    fq2_add(t0[k], yy, xx);
-  }
-  fq2_mul_by_xi(t1[2], t1[2]);
-  // out[i] = 2(t ∓ z_i) + t with z[i] = z_i and its t and sign from above.
-  const Fq2* ts[6] = {&t0[0], &t1[0], &t1[2], &t0[2], &t0[1], &t1[1]};
-  const bool plus[6] = {false, true, true, false, false, true};
-  Fq2 out[6];
-  for (int i = 0; i < 6; ++i) {
-    Fq2 d;
-    if (plus[i]) {
-      fq2_add(d, *ts[i], *z[i]);
-    } else {
-      fq2_sub(d, *ts[i], *z[i]);
-    }
-    fq2_add(d, d, d);
-    fq2_add(out[i], d, *ts[i]);
-  }
-  // c0 = (z0o, z4o, z3o), c1 = (z2o, z1o, z5o).
-  r.c[0].c[0] = out[0];
-  r.c[1].c[1] = out[1];
-  r.c[1].c[0] = out[2];
-  r.c[0].c[2] = out[3];
-  r.c[0].c[1] = out[4];
-  r.c[1].c[2] = out[5];
 }
 
 // ---------------------------------------------------------------------------
@@ -535,22 +487,6 @@ __device__ __forceinline__ void f_fold_lane(const int32_t* f_in,
   load_fq12(f, f_in, n, lane);
   load_line(l, line_in, n, lane);
   fq12_mul_by_014(f, f, l.c0, l.c1, l.c4);
-  store_fq12(f_out, f, n, lane);
-}
-
-// B6 (`_k_cyclo_sqr`) and B7 (`_k_cyclo_sqr_mul`: acc²·g).
-__device__ __forceinline__ void cyclo_sqr_lane(const int32_t* f_in,
-                                               const int32_t* g_in,
-                                               int32_t* f_out, int n,
-                                               int lane) {
-  Fq12 f;
-  load_fq12(f, f_in, n, lane);
-  fq12_cyclo_sqr(f, f);
-  if (g_in != nullptr) {
-    Fq12 g;
-    load_fq12(g, g_in, n, lane);
-    fq12_mul(f, f, g);
-  }
   store_fq12(f_out, f, n, lane);
 }
 

@@ -1,20 +1,22 @@
 // The lane-group tower engine: one pairing lane spread over a group of
 // kGroup threads of one warp, on B13's register product; the bodies of B4
-// `dbl_fold` and B6 `cyclo_sqr`.
+// `dbl_fold`, B6 `cyclo_sqr` and B7 `cyclo_sqr_mul`.
 //
-// Replaces, for B4 (csrc/miller.cu `dbl_fold_kernel`) and B6
-// (csrc/fq12.cu `cyclo_sqr_group_kernel`), the one-thread-per-lane bodies
-// of tower.cuh (`dbl_fold_lane`, `cyclo_sqr_lane`), which ran the
-// formulas of threshold_crypto_tpu/device/pallas_tower.py `dbl_fold`
-// (:619-668) and `fq12_cyclo_sqr` (:540-582) as `__noinline__` calls over
-// structs in a local-memory frame (B4: 96 registers, 3,504 bytes).
+// Replaces, for B4 (csrc/miller.cu `dbl_fold_kernel`), B6 and B7
+// (csrc/fq12.cu `cyclo_sqr_group_kernel`, `cyclo_sqr_mul_group_kernel`),
+// one-thread-per-lane bodies on tower.cuh (`dbl_fold_lane`, and the
+// `cyclo_sqr_lane` that B6 and B7 ran), which ran the formulas of
+// threshold_crypto_tpu/device/pallas_tower.py `dbl_fold` (:619-668),
+// `fq12_cyclo_sqr` (:540-582) and `fq12_mul` (:492-509) as `__noinline__`
+// calls over structs in a local-memory frame (B4: 96 registers, 3,504
+// bytes).
 //
 // What bounds it. B4 is 122 Fq products a lane in four dependent layers
-// (48, 19, 16 and 39), B6 18 in one, against 3,648 and 2,304 bytes a lane:
-// the 32-bit multiply issue rate, by far. At the RLC check's widths (1,024
-// B4 lanes, 512 B6 lanes) one thread per lane fills 8 and 4 of 132 SMs
-// with 4 warps each, and a launch takes the latency of one thread's 122
-// products in series.
+// (48, 19, 16 and 39), B6 18 in one, B7 72 in two (18, 54), against 3,648,
+// 2,304 and 3,456 bytes a lane: the 32-bit multiply issue rate, by far. At
+// the RLC check's widths (1,024 B4 lanes, 512 B6 and B7 lanes) one thread
+// per lane fills 8 and 4 of 132 SMs with 4 warps each, and a launch takes
+// the latency of one thread's 122 (72) products in series.
 //
 // What this engine does about it.
 // * A lane's group of kGroup threads (kGroup divides 32, so the group is
@@ -31,7 +33,8 @@
 //   are dealt round-robin over the group (thread g runs ops g, g + kGroup,
 //   …); no op reads a slot another op of its phase writes, and the group
 //   syncs between phases. B4's products per thread fall from 122 to
-//   Σ ceil(layer / kGroup) = 16 at kGroup = 8; B6's from 18 to 3.
+//   Σ ceil(layer / kGroup) = 16 at kGroup = 8; B6's from 18 to 3, B7's
+//   from 72 to 3 + 7 = 10.
 // * The field is ladder_engine.cuh's: operands in registers and the one
 //   out-of-line carry-save product `reg::fp_mul_call`. A linear form is
 //   summed unreduced, one 64-bit column a word (one multiply-add a word
@@ -41,12 +44,13 @@
 //   is made canonical. Table-driven loops keep one copy of each piece of
 //   code.
 // * Slots are reused by liveness: B4 needs 68 (3,280 bytes a lane with the
-//   bank padding), B6 42. The launcher picks blocks of 128, 64 or 32
-//   threads, the largest that still gives at least one block per SM, and
-//   the block stages its lanes' inputs and outputs as coalesced rows.
+//   bank padding), B6 42, B7 78 (3,760 bytes). The launcher picks blocks
+//   of 128, 64 or 32 threads, the largest that still gives at least one
+//   block per SM, and the block stages its lanes' inputs and outputs as
+//   coalesced rows.
 // * Every Fq value is canonical, so every output equals the plain
 //   versions' limbs; the schedules compute the JAX package's T, line and
-//   Granger-Scott elements (tower.cuh). No branch depends on the data:
+//   Granger-Scott elements. No branch depends on the data:
 //   zero lanes and infinity points run like any other lane, and lanes past
 //   n run on zeros and are not stored.
 //
@@ -67,9 +71,10 @@ namespace tc {
 namespace grp {
 
 // Threads of a lane's group, fixed by tools/tower_variants.py's sweep
-// (G = 1, 4, 8, 16, 32 at both widths of B4 and B6): 8 is the fastest at
-// the per-pair paths' widths; 16 and 32 are faster at the RLC check's, by
-// less a check than 8 gains a per-pair check (PERF.md §6).
+// (G = 1, 4, 8, 16, 32 at both widths of B4, B6 and B7): 8 gives the
+// cheapest whole check (B4 + B6 + B7) at the per-pair paths' widths; 16
+// and 32 are faster at the RLC check's, by less a check than 8 gains a
+// per-pair or hash check (PERF.md §6).
 constexpr int kGroup = 8;
 static_assert(32 % kGroup == 0, "a group lies inside one warp");
 
@@ -573,11 +578,162 @@ __device__ const int32_t kB6Terms[] = {
 __device__ const int32_t kB6OutSlots[] = {
     30, 31, 32, 33, 34, 35, 36, 37, 38, 39, 40, 41,
 };
+// B7: 4 phases, 72 Fq products in the product phases (18, 54), 690 terms, 78 slots.
+constexpr int kB7Phases = 4;
+constexpr int kB7Slots = 78;
+constexpr int kB7Inputs = 24;
+constexpr int kB7Outputs = 12;
+__device__ const int32_t kB7PhaseOps[] = {
+    0, 18, 18, 12, 30, 54, 84, 12,
+};
+__device__ const int32_t kB7Ops[] = {
+    24, 0, 2, 2, 25, 4, 1, 1,
+    26, 6, 2, 2, 27, 10, 1, 1,
+    28, 12, 260, 260, 29, 20, 2, 2,
+    30, 24, 2, 2, 31, 28, 1, 1,
+    32, 30, 2, 2, 33, 34, 1, 1,
+    34, 36, 260, 260, 35, 44, 2, 2,
+    36, 48, 2, 2, 37, 52, 1, 1,
+    38, 54, 2, 2, 39, 58, 1, 1,
+    40, 60, 260, 260, 41, 68, 2, 2,
+    48, 72, 1287, 0, 49, 79, 1287, 0,
+    42, 86, 1284, 0, 43, 90, 1284, 0,
+    44, 94, 1284, 0, 45, 98, 1284, 0,
+    46, 102, 1284, 0, 47, 106, 1284, 0,
+    50, 110, 1284, 0, 51, 114, 1284, 0,
+    52, 118, 1284, 0, 53, 122, 1284, 0,
+    0, 126, 1, 1, 1, 128, 1, 1,
+    2, 130, 2, 2, 3, 134, 1, 1,
+    4, 136, 1, 1, 5, 138, 2, 2,
+    6, 142, 1, 1, 7, 144, 1, 1,
+    8, 146, 2, 2, 9, 150, 2, 2,
+    10, 154, 2, 2, 11, 158, 260, 260,
+    24, 166, 2, 2, 25, 170, 2, 2,
+    26, 174, 260, 260, 27, 182, 2, 2,
+    28, 186, 2, 2, 29, 190, 260, 260,
+    30, 198, 1, 1, 31, 200, 1, 1,
+    32, 202, 2, 2, 33, 206, 1, 1,
+    34, 208, 1, 1, 35, 210, 2, 2,
+    36, 214, 1, 1, 37, 216, 1, 1,
+    38, 218, 2, 2, 39, 222, 2, 2,
+    40, 226, 2, 2, 41, 230, 260, 260,
+    54, 238, 2, 2, 55, 242, 2, 2,
+    56, 246, 260, 260, 57, 254, 2, 2,
+    58, 258, 2, 2, 59, 262, 260, 260,
+    60, 270, 2, 2, 61, 274, 2, 2,
+    62, 278, 260, 260, 63, 286, 2, 2,
+    64, 290, 2, 2, 65, 294, 260, 260,
+    66, 302, 2, 2, 67, 306, 2, 2,
+    68, 310, 260, 260, 69, 318, 260, 260,
+    70, 326, 260, 260, 71, 334, 264, 264,
+    72, 350, 260, 260, 73, 358, 260, 260,
+    74, 366, 264, 264, 75, 382, 260, 260,
+    76, 390, 260, 260, 77, 398, 264, 264,
+    23, 414, 1316, 0, 21, 450, 1313, 0,
+    19, 483, 1307, 0, 18, 510, 1304, 0,
+    20, 534, 1304, 0, 22, 558, 1304, 0,
+    17, 582, 1303, 0, 15, 605, 1300, 0,
+    13, 625, 1297, 0, 12, 642, 1296, 0,
+    14, 658, 1296, 0, 16, 674, 1296, 0,
+};
+__device__ const int32_t kB7Terms[] = {
+    1, 257, 1, 511, 1, 257, 2049, 2305,
+    2049, 2559, 2049, 2305, 1, 257, 2049, 2305,
+    1, 511, 2049, 2559, 1, 2049, 257, 2305,
+    1537, 1793, 1537, 2047, 1537, 1793, 1025, 1281,
+    1025, 1535, 1025, 1281, 1025, 1281, 1537, 1793,
+    1025, 1535, 1537, 2047, 1025, 1537, 1281, 1793,
+    513, 769, 513, 1023, 513, 769, 2561, 2817,
+    2561, 3071, 2561, 2817, 513, 769, 2561, 2817,
+    513, 1023, 2561, 3071, 513, 2561, 769, 2817,
+    1538, 9469, 9478, 9981, 9990, 10243, 10746, 1794,
+    9469, 9722, 9981, 10234, 10243, 10502, 254, 6147,
+    6659, 7162, 510, 6406, 6659, 6918, 766, 7683,
+    8195, 8698, 1022, 7942, 8195, 8454, 1278, 9219,
+    9731, 10234, 1534, 9478, 9731, 9990, 2050, 6397,
+    6909, 7171, 2306, 6650, 7162, 7430, 2562, 7933,
+    8445, 8707, 2818, 8186, 8698, 8966, 10753, 3073,
+    11009, 3329, 10753, 11009, 3073, 3329, 11265, 3585,
+    11521, 3841, 11265, 11521, 3585, 3841, 11777, 4097,
+    12033, 4353, 11777, 12033, 4097, 4353, 11265, 11777,
+    3585, 4097, 11521, 12033, 3841, 4353, 11265, 11521,
+    11777, 12033, 3585, 3841, 4097, 4353, 10753, 11265,
+    3073, 3585, 11009, 11521, 3329, 3841, 10753, 11009,
+    11265, 11521, 3073, 3329, 3585, 3841, 10753, 11777,
+    3073, 4097, 11009, 12033, 3329, 4353, 10753, 11009,
+    11777, 12033, 3073, 3329, 4097, 4353, 12289, 4609,
+    12545, 4865, 12289, 12545, 4609, 4865, 12801, 5121,
+    13057, 5377, 12801, 13057, 5121, 5377, 13313, 5633,
+    13569, 5889, 13313, 13569, 5633, 5889, 12801, 13313,
+    5121, 5633, 13057, 13569, 5377, 5889, 12801, 13057,
+    13313, 13569, 5121, 5377, 5633, 5889, 12289, 12801,
+    4609, 5121, 12545, 13057, 4865, 5377, 12289, 12545,
+    12801, 13057, 4609, 4865, 5121, 5377, 12289, 13313,
+    4609, 5633, 12545, 13569, 4865, 5889, 12289, 12545,
+    13313, 13569, 4609, 4865, 5633, 5889, 10753, 12289,
+    3073, 4609, 11009, 12545, 3329, 4865, 10753, 11009,
+    12289, 12545, 3073, 3329, 4609, 4865, 11265, 12801,
+    3585, 5121, 11521, 13057, 3841, 5377, 11265, 11521,
+    12801, 13057, 3585, 3841, 5121, 5377, 11777, 13313,
+    4097, 5633, 12033, 13569, 4353, 5889, 11777, 12033,
+    13313, 13569, 4097, 4353, 5633, 5889, 11265, 11777,
+    12801, 13313, 3585, 4097, 5121, 5633, 11521, 12033,
+    13057, 13569, 3841, 4353, 5377, 5889, 11265, 11521,
+    11777, 12033, 12801, 13057, 13313, 13569, 3585, 3841,
+    4097, 4353, 5121, 5377, 5633, 5889, 10753, 11265,
+    12289, 12801, 3073, 3585, 4609, 5121, 11009, 11521,
+    12545, 13057, 3329, 3841, 4865, 5377, 10753, 11009,
+    11265, 11521, 12289, 12545, 12801, 13057, 3073, 3329,
+    3585, 3841, 4609, 4865, 5121, 5377, 10753, 11777,
+    12289, 13313, 3073, 4097, 4609, 5633, 11009, 12033,
+    12545, 13569, 3329, 4353, 4865, 5889, 10753, 11009,
+    11777, 12033, 12289, 12545, 13313, 13569, 3073, 3329,
+    4097, 4353, 4609, 4865, 5633, 5889, 255, 511,
+    513, 769, 1025, 1535, 1791, 2047, 2049, 6913,
+    7169, 7679, 7935, 8191, 8193, 8449, 8705, 9215,
+    9471, 9727, 9729, 14593, 14849, 15359, 15361, 15617,
+    16127, 16383, 16639, 16641, 16897, 17153, 17663, 19455,
+    19711, 19713, 255, 511, 513, 1023, 1279, 1281,
+    1794, 2303, 6145, 6401, 6911, 7935, 8191, 8193,
+    8703, 8959, 8961, 9474, 9983, 13825, 14081, 14591,
+    15361, 15617, 16127, 16129, 16385, 16895, 17406, 17409,
+    18687, 18943, 18945, 1, 257, 767, 1278, 1281,
+    2046, 2049, 2562, 3071, 7681, 7937, 8447, 8958,
+    8961, 9726, 9729, 10242, 10751, 15615, 15871, 15873,
+    16386, 16895, 17154, 17663, 18174, 18177, 255, 257,
+    770, 1535, 1538, 2303, 2558, 2817, 7935, 7937,
+    8450, 9215, 9218, 9983, 10238, 10497, 15361, 15871,
+    16382, 16641, 17150, 17409, 17666, 18431, 1, 511,
+    769, 1279, 1790, 2049, 6399, 6401, 7681, 8191,
+    8449, 8959, 9470, 9729, 14079, 14081, 15615, 15617,
+    16383, 16385, 16898, 17663, 18433, 18943, 1, 511,
+    1023, 1025, 1537, 2047, 7167, 7169, 7681, 8191,
+    8703, 8705, 9217, 9727, 14847, 14849, 15615, 15617,
+    16129, 16639, 17151, 17153, 19201, 19711, 1, 257,
+    767, 1023, 1279, 1281, 1537, 1793, 2303, 7167,
+    7423, 7425, 7681, 7937, 8447, 8449, 8705, 9215,
+    9726, 9729, 14079, 14335, 14337, 1, 257, 767,
+    769, 1025, 1535, 2046, 2049, 6399, 6655, 6657,
+    7935, 8191, 8193, 8706, 9215, 9474, 9983, 10494,
+    10497, 255, 511, 513, 1026, 1535, 1794, 2303,
+    2814, 2817, 7938, 8447, 8958, 8961, 9474, 9983,
+    15102, 15105, 1, 511, 1022, 1281, 1790, 2049,
+    2306, 3071, 7934, 8193, 8450, 9215, 9470, 9729,
+    14594, 15359, 255, 257, 1023, 1025, 1538, 2303,
+    6145, 6655, 7681, 8191, 8702, 8961, 9470, 9729,
+    9986, 10751, 255, 257, 769, 1279, 1791, 1793,
+    6913, 7423, 7935, 7937, 8703, 8705, 9218, 9983,
+    13825, 14335,
+};
+__device__ const int32_t kB7OutSlots[] = {
+    12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23,
+};
 // END SCHEDULE TABLES
 
-// Words of a lane's scratch in B4 and B6.
+// Words of a lane's scratch in B4, B6 and B7.
 constexpr int kB4LaneWords = lane_words(kB4Slots);
 constexpr int kB6LaneWords = lane_words(kB6Slots);
+constexpr int kB7LaneWords = lane_words(kB7Slots);
 
 // ---------------------------------------------------------------------------
 // Launch shape (nvcc only)

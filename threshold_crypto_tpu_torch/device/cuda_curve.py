@@ -8,7 +8,8 @@ Each kernel is the counterpart of one Pallas kernel of
 * B10 ``g1_madd`` / ``g2_madd`` (``_mk_madd_kernel`` :397, instances
   ``_k_g1_madd``/``_k_g2_madd`` :451-452): per lane acc ← acc + Q, the
   complete mixed add ``curve.jac_madd`` with acc Jacobian and Q affine. It
-  builds the tables of the shared MSM and of the ladders.
+  builds the tables of the shared MSM and of the ladders. It runs on B13's
+  register engine (``csrc/ladder_engine.cuh``).
 * B11 ``g1_winacc`` / ``g2_winacc`` (``_mk_winacc_kernel`` :534, launched
   by ``_winacc_impl`` :581): the whole shared-window Horner phase in one
   launch. The TPU kernel walked a sequential (window × block) grid with
@@ -25,7 +26,7 @@ Each kernel is the counterpart of one Pallas kernel of
   then T + table[d − 1] where d ≠ 0 (``curve.msm_step_w4``). The TPU ran
   one launch per digit from a ``lax.scan``; here the digit loop runs inside
   the thread, so a whole ladder is one launch, on the register engine of
-  ``csrc/ladder_engine.cuh`` (B10, B15 and B16 run on ``csrc/curve.cuh``).
+  ``csrc/ladder_engine.cuh`` (B15 and B16 run on ``csrc/curve.cuh``).
 * B15 ``g1_step`` / ``g2_step`` (``_mk_step_kernel`` :373, instances
   ``_k_g1/g2_msm_step`` :447-448): per lane and bit, T ← 2T (+ Q affine)
   (``curve.msm_step``), the bit loop inside the thread likewise.

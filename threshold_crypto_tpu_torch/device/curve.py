@@ -8,7 +8,8 @@ The counterpart of ``threshold_crypto_tpu/device/curve.py`` (``DeviceCurve``:
 point formulas of ``threshold_crypto_tpu/device/pallas_curve.py:143-370``
 (``_msm_step``, ``_jac_dbl``, ``_jac_add``, ``_jac_madd``, ``_msm_step_w4``)
 and its ``dcv_select_z``, which are the plain versions of the curve kernels
-B10, B11, B13 and B15 (``device/cuda_curve.py``, ``csrc/curve.cuh``).
+B10, B11, B13 and B15 (``device/cuda_curve.py``; ``csrc/curve.cuh``,
+``csrc/ladder_engine.cuh``).
 
 Points are Jacobian tuples ``(X, Y, Z)`` (infinity ⇔ Z == 0) of batched field
 values: int32[..., 24] Montgomery limb tensors for G1 (Fq), pairs of them

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""The static schedules of B4 (``dbl_fold``) and B6 (``cyclo_sqr``) on the
-lane-group tower engine, and the tables of ``csrc/tower_group.cuh``.
+"""The static schedules of B4 (``dbl_fold``), B6 (``cyclo_sqr``) and B7
+(``cyclo_sqr_mul``) on the lane-group tower engine, and the tables of
+``csrc/tower_group.cuh``.
 
     python3 tools/tower_group_schedule.py           # print the table block
     python3 tools/tower_group_schedule.py --write   # write it into the header
@@ -25,10 +26,12 @@ so the ops of a phase may run in any order or in parallel, and a phase
 ends at a barrier. The slots are allocated by liveness (first fit): a slot
 is free for a phase's outputs once every op that reads its value has run
 in an earlier phase. The inputs take the first slots, in the packed
-components' order (B4: f 0-11, T 12-17, P 18-19; B6: f 0-11).
+components' order (B4: f 0-11, T 12-17, P 18-19; B6: f 0-11; B7: f 0-11,
+g 12-23).
 
 B4 follows the JAX package's four product layers (`pallas_tower.dbl_fold`:
-48, 19, 16 and 39 Fq products), B6 its one layer of 18. The engine deals
+48, 19, 16 and 39 Fq products), B6 its one layer of 18, B7 B6's layer
+and then `fq12_mul`'s 54 (`pallas_tower.fq12_mul`). The engine deals
 the ops of each phase round-robin over the G threads of a lane's group:
 thread g runs ops g, g + G, …; the product phases' ops are all one
 product, the linear phases' are sorted by their cost, largest first. Each
@@ -399,7 +402,29 @@ def b6_schedule():
     (t0b, z4), (t0c, z3) and 3t + 2z for (t1a, z1), (t1b, z5),
     (ξ·t1c, z2). Input f (12), output f (12)."""
     s = Schedule("B6", 12)
-    (z0, z4, z3), (z2, z1, z5) = fq12_from(s.inputs())
+    s.output(s.linear(fq12_flat(cyclo_sqr_out(s, fq12_from(s.inputs())))))
+    return s
+
+
+def fq12_mul_reqs(a, b):
+    """`pallas_tower.fq12_mul`'s 18 Fq2 products: `_fq6_mul_parts` of
+    (a0, b0), (a1, b1) and (a0 + a1, b0 + b1)."""
+    return (fq6_mul_reqs(a[0], b[0]) + fq6_mul_reqs(a[1], b[1])
+            + fq6_mul_reqs(add6(a[0], a[1]), add6(b[0], b[1])))
+
+
+def fq12_mul_fin(t):
+    """`fq12_mul` after its products: c0 = t0 + v·t1, c1 = t3 − t0 − t1."""
+    t0 = fq6_mul_fin(t[0:6])
+    t1 = fq6_mul_fin(t[6:12])
+    t3 = fq6_mul_fin(t[12:18])
+    return (add6(t0, mul_by_v(t1)), sub6(t3, add6(t0, t1)))
+
+
+def cyclo_sqr_out(s, f):
+    """B6's Granger-Scott square of f as forms over one product phase of
+    18 Fq products (the 9 Fq2 squares) and f."""
+    (z0, z4, z3), (z2, z1, z5) = f
     pieces = ((z0, z1), (z2, z3), (z4, z5))
     reqs = []
     for x, y in pieces:
@@ -417,13 +442,25 @@ def b6_schedule():
     def plus(t, z):    # 3t + 2z
         return add2(small2(3, t), small2(2, z))
 
-    out = ((minus(t0[0], z0), minus(t0[1], z4), minus(t0[2], z3)),
-           (plus(xi(t1[2]), z2), plus(t1[0], z1), plus(t1[1], z5)))
-    s.output(s.linear(fq12_flat(out)))
+    return ((minus(t0[0], z0), minus(t0[1], z4), minus(t0[2], z3)),
+            (plus(xi(t1[2]), z2), plus(t1[0], z1), plus(t1[1], z5)))
+
+
+def b7_schedule():
+    """`pallas_tower._k_cyclo_sqr_mul`: f²·g, the square B6's, then
+    `fq12_mul` (tower.cuh `fq12_mul`): one linear phase makes the square's
+    12 components, a product phase of 54 Fq products takes the Karatsuba
+    sums of the square and g as operand forms, and a last linear phase
+    makes `_fq6_mul_fin` and c0, c1. Inputs f (12), g (12); output f (12)."""
+    s = Schedule("B7", 24)
+    x = s.inputs()
+    sq = fq12_from(s.linear(fq12_flat(cyclo_sqr_out(s, fq12_from(x[:12])))))
+    t = s.products(fq12_mul_reqs(sq, fq12_from(x[12:])))
+    s.output(s.linear(fq12_flat(fq12_mul_fin(t))))
     return s
 
 
-SCHEDULES = {"kB4": b4_schedule, "kB6": b6_schedule}
+SCHEDULES = {"kB4": b4_schedule, "kB6": b6_schedule, "kB7": b7_schedule}
 
 
 def _array(name, values, per_line):

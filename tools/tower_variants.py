@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""B4 (``dbl_fold``) and B6 (``cyclo_sqr``) on the lane-group engine
-(``csrc/tower_group.cuh``) against their old bodies and other group sizes,
-on one card.
+"""B4 (``dbl_fold``), B6 (``cyclo_sqr``) and B7 (``cyclo_sqr_mul``) on the
+lane-group engine (``csrc/tower_group.cuh``) against their old bodies and
+other group sizes, on one card.
 
     python3 tools/tower_variants.py [--split] [--parent ROOT]
 
@@ -9,22 +9,23 @@ The variants, each built with the package's nvcc flags into
 ``threshold_crypto_tpu_torch/_build/variants/``:
 
 * ``old``: the one-thread-per-lane kernels the package ran before the
-  engine (``tower.cuh`` ``dbl_fold_lane`` / ``cyclo_sqr_lane``, 128-thread
-  blocks), kept here as text;
+  engine (``tower.cuh`` ``dbl_fold_lane``, and ``cyclo_sqr_lane`` with its
+  Granger-Scott ``fq12_cyclo_sqr``, kept here as text; 128-thread blocks);
 * ``g1``, ``g4``, ``g8``, ``g16``, ``g32``: the package's ``miller.cu``
   and ``fq12.cu`` with ``tc::grp::kGroup`` set to 1, 4, 8 (the package's),
   16 or 32 threads a lane. G = 1 keeps the register product and the
   staging in shared memory without the split.
 
-For each: ptxas's registers, stack frame and spills of the B4 and B6
+For each: ptxas's registers, stack frame and spills of the B4, B6 and B7
 kernels; bit-exact against the package's kernels (which are held against
 their plain versions here too) on ``chip_smoke.tower_inputs`` (zero and
 infinity lanes) at both widths of each kernel: slice 2's (B4 16,384 pair
-lanes, B6 8192) and the RLC check's (B4 2 × RLC_CHECK_BATCH = 1,024, B6
-512); and the kernel time with CUDA events, in turns (old, g1, …, g16,
-g16, …, old) at each width, beside ``chip_smoke``'s bound: launched one by
-one from Python (``chip_smoke.cuda_time_ms``, as the path launches them)
-and replayed from a CUDA graph (the device time alone).
+lanes, B6 and B7 8192) and the RLC check's (B4 2 × RLC_CHECK_BATCH =
+1,024, B6 and B7 512); and the kernel time with CUDA events, in turns
+(old, g1, …, g16, g16, …, old) at each width, beside ``chip_smoke``'s
+bound: launched one by one from Python (``chip_smoke.cuda_time_ms``, as
+the path launches them) and replayed from a CUDA graph (the device time
+alone).
 
 With ``--split`` it builds, in place of the variants, the package's kernels
 and copies of them with one part of the work taken out (``SPLIT``: the
@@ -36,11 +37,11 @@ With ``--parent ROOT`` (another checkout: its ``chip_smoke.py`` and
 ``threshold_crypto_tpu_torch/``) it also times both checkouts' calls in
 turns, one child process per turn (parent, this, this, parent, twice):
 the RLC call (``chip_smoke.rlc_call``, N = 262,144, exponents included),
-its check stage (``verify_batch_pallas`` at 512 lanes, from
-``chip_smoke.stage_timer``'s events) and the per-pair call
-``ops.verify_batch_pallas`` at 8192 lanes. Prints one JSON line last and
-writes it to ``tower_variants.json`` beside the builds. Without CUDA it
-exits 2.
+its MSM table stages (B10, G1 and G2) and its check stage
+(``verify_batch_pallas`` at 512 lanes), from ``chip_smoke.stage_timer``'s
+events, and the per-pair call ``ops.verify_batch_pallas`` at 8192
+lanes. Prints one JSON line last and writes it to ``tower_variants.json``
+beside the builds. Without CUDA it exits 2.
 """
 
 import argparse
@@ -59,12 +60,80 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from threshold_crypto_tpu_torch import _build  # noqa: E402
 
-# The kernels B4 and B6 ran before the lane-group engine.
+# The kernels B4, B6 and B7 ran before the lane-group engine, with B6 and
+# B7's lane body and Granger-Scott square from tower.cuh.
 OLD_CU = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
 
 #include "tower.cuh"
+
+namespace tc {
+
+// Granger-Scott cyclotomic squaring (`pallas_tower.fq12_cyclo_sqr`).
+// With a = ((z0, z4, z3), (z2, z1, z5)), the Fq4 pieces (x, y) are
+// (z0, z1), (z2, z3), (z4, z5); each squares to
+// t0 = x² + ξy², t1 = (x+y)² − x² − y². The outputs are 3t − 2z, computed
+// as 2(t − z) + t, for (t0a, z0), (t0b, z4), (t0c, z3), and 3t + 2z, as
+// 2(t + z) + t, for (t1a, z1), (t1b, z5), (ξ·t1c, z2).
+__device__ __noinline__ void fq12_cyclo_sqr(Fq12& r, const Fq12& a) {
+  const Fq2* z[6] = {&a.c[0].c[0], &a.c[1].c[1], &a.c[1].c[0],
+                     &a.c[0].c[2], &a.c[0].c[1], &a.c[1].c[2]};
+  Fq2 t0[3], t1[3];
+  for (int k = 0; k < 3; ++k) {
+    const Fq2& x = *z[2 * k];
+    const Fq2& y = *z[2 * k + 1];
+    Fq2 xx, yy, ss;
+    fq2_add(ss, x, y);
+    fq2_sqr(ss, ss);
+    fq2_sqr(xx, x);
+    fq2_sqr(yy, y);
+    fq2_sub(ss, ss, xx);
+    fq2_sub(t1[k], ss, yy);
+    fq2_mul_by_xi(yy, yy);
+    fq2_add(t0[k], yy, xx);
+  }
+  fq2_mul_by_xi(t1[2], t1[2]);
+  // out[i] = 2(t ∓ z_i) + t with z[i] = z_i and its t and sign from above.
+  const Fq2* ts[6] = {&t0[0], &t1[0], &t1[2], &t0[2], &t0[1], &t1[1]};
+  const bool plus[6] = {false, true, true, false, false, true};
+  Fq2 out[6];
+  for (int i = 0; i < 6; ++i) {
+    Fq2 d;
+    if (plus[i]) {
+      fq2_add(d, *ts[i], *z[i]);
+    } else {
+      fq2_sub(d, *ts[i], *z[i]);
+    }
+    fq2_add(d, d, d);
+    fq2_add(out[i], d, *ts[i]);
+  }
+  // c0 = (z0o, z4o, z3o), c1 = (z2o, z1o, z5o).
+  r.c[0].c[0] = out[0];
+  r.c[1].c[1] = out[1];
+  r.c[1].c[0] = out[2];
+  r.c[0].c[2] = out[3];
+  r.c[0].c[1] = out[4];
+  r.c[1].c[2] = out[5];
+}
+
+// B6 (`_k_cyclo_sqr`) and B7 (`_k_cyclo_sqr_mul`: acc²·g).
+__device__ __forceinline__ void cyclo_sqr_lane(const int32_t* f_in,
+                                               const int32_t* g_in,
+                                               int32_t* f_out, int n,
+                                               int lane) {
+  Fq12 f;
+  load_fq12(f, f_in, n, lane);
+  fq12_cyclo_sqr(f, f);
+  if (g_in != nullptr) {
+    Fq12 g;
+    load_fq12(g, g_in, n, lane);
+    fq12_mul(f, f, g);
+  }
+  store_fq12(f_out, f, n, lane);
+}
+
+}  // namespace tc
 
 namespace {
 
@@ -87,6 +156,15 @@ cyclo_sqr_kernel(const int32_t* __restrict__ f, int32_t* __restrict__ fo,
   tc::cyclo_sqr_lane(f, nullptr, fo, n, lane);
 }
 
+__global__ void __launch_bounds__(kThreads)
+cyclo_sqr_mul_kernel(const int32_t* __restrict__ f,
+                     const int32_t* __restrict__ g, int32_t* __restrict__ fo,
+                     int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::cyclo_sqr_lane(f, g, fo, n, lane);
+}
+
 }  // namespace
 
 extern "C" int tc_dbl_fold(const void* f, const void* T, const void* P,
@@ -105,6 +183,16 @@ extern "C" int tc_cyclo_sqr(const void* f, void* fo, int n, void* stream) {
   cyclo_sqr_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(f), static_cast<int32_t*>(fo), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_cyclo_sqr_mul(const void* f, const void* g, void* fo, int n,
+                                void* stream) {
+  if (n <= 0) return 0;
+  cyclo_sqr_mul_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(f), static_cast<const int32_t*>(g),
+      static_cast<int32_t*>(fo), n);
   return static_cast<int>(cudaGetLastError());
 }
 """
@@ -134,18 +222,24 @@ SPLIT = {
 }
 GROUP_LINE = "constexpr int kGroup = 8;"
 GROUPS = (1, 4, 8, 16, 32)
-# The B4 and B6 kernels' names (demangled) in the variants: old, group.
-KERNEL_NAMES = ("dbl_fold_kernel", "cyclo_sqr_kernel",
-                "cyclo_sqr_group_kernel")
+# The B4, B6 and B7 kernels' names (demangled) in the variants: old, group.
+KERNEL_NAMES = ("dbl_fold_kernel", "cyclo_sqr_kernel", "cyclo_sqr_mul_kernel",
+                "cyclo_sqr_group_kernel", "cyclo_sqr_mul_group_kernel")
 WIDTHS = {"dbl_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
-          "cyclo_sqr": (cs.LANES, cs.RLC_CHECK_BATCH)}
-REPS = {"dbl_fold": 20, "cyclo_sqr": 50}
+          "cyclo_sqr": (cs.LANES, cs.RLC_CHECK_BATCH),
+          "cyclo_sqr_mul": (cs.LANES, cs.RLC_CHECK_BATCH)}
+REPS = {"dbl_fold": 20, "cyclo_sqr": 50, "cyclo_sqr_mul": 20}
+# The stages of an RLC call read in each turn (chip_smoke.stage_timer's
+# labels): the check, and the two MSM tables (B10).
+TURN_STAGES = {"check_ms": "check", "table_g1_ms": "  table (B10) G1",
+               "table_g2_ms": "  table (B10) G2"}
 # Timed calls of one turn, after a warm-up call.
 TURN_CALLS = 5
 # One turn in the checkout that is the child's working directory: its
 # kernels built (one nvcc per source, together), then TURN_CALLS RLC
-# calls, as many with the stages bracketed by events (the check stage),
-# and as many per-pair calls at 8192 lanes, each after a warm-up call.
+# calls, as many with the stages bracketed by events (TURN_STAGES, given
+# as argv[2]), and as many per-pair calls at 8192 lanes, each after a
+# warm-up call.
 TURN_CHILD = """
 import json, sys
 import torch
@@ -155,8 +249,9 @@ from threshold_crypto_tpu_torch.device import pairing as dpr
 _build.build()
 dev = torch.device("cuda", 0)
 calls = int(sys.argv[1])
+stages = json.loads(sys.argv[2])
 pk_aff, sig_aff, h_jac = cs.rlc_inputs(dev)[:3]
-rlc, check = [], []
+rlc, staged = [], {k: [] for k in stages}
 for i in range(1 + calls):
     ok, _, s = cs.rlc_call(pk_aff, sig_aff, h_jac, bytes([40 + i]) * 32)
     if not ok:
@@ -169,7 +264,9 @@ for i in range(1 + calls):
     torch.cuda.synchronize()
     if not ok:
         raise SystemExit("the valid batch was rejected")
-    check.append(sum(a.elapsed_time(b) for k, a, b in spans if k == "check"))
+    for key, label in stages.items():
+        staged[key].append(sum(a.elapsed_time(b) for k, a, b in spans
+                               if k == label))
 pk, h, sig, want = cs.build_inputs()
 args = (dpr.g1_affine_from_host(pk, device=dev),
         dpr.g2_affine_from_host(h, device=dev),
@@ -177,8 +274,8 @@ args = (dpr.g1_affine_from_host(pk, device=dev),
 want_t = torch.tensor(want, device=dev)
 pair = [cs.timed_call(ops.verify_batch_pallas, args, want_t, "pairs")[1]
         for _ in range(1 + calls)]
-print(json.dumps({"rlc_s": rlc[1:], "check_ms": check[1:],
-                  "pair_s": pair[1:]}))
+print(json.dumps({"rlc_s": rlc[1:], "pair_s": pair[1:],
+                  **{k: v[1:] for k, v in staged.items()}}))
 """
 
 
@@ -245,13 +342,12 @@ def build_variants(bdir, split):
 
 
 def load(so, fn):
-    """The library at so with fn's C signature (tc_dbl_fold or
-    tc_cyclo_sqr)."""
+    """The library at so with fn's C signature (tc_dbl_fold,
+    tc_cyclo_sqr or tc_cyclo_sqr_mul)."""
     lib = ctypes.CDLL(so)
-    getattr(lib, fn).argtypes = (
-        [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p]
-        if fn == "tc_dbl_fold" else
-        [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    pointers = {"tc_dbl_fold": 5, "tc_cyclo_sqr": 2, "tc_cyclo_sqr_mul": 3}
+    getattr(lib, fn).argtypes = ([ctypes.c_void_p] * pointers[fn]
+                                 + [ctypes.c_int, ctypes.c_void_p])
     getattr(lib, fn).restype = ctypes.c_int
     return lib
 
@@ -282,10 +378,12 @@ def turns(parent):
     """Both checkouts' calls in turns (parent, this, this, parent, twice):
     {"parent": {...}, "this": {...}}, each key a list over the turns."""
     roots = {"parent": os.path.abspath(parent), "this": ROOT}
-    out = {k: {"rlc_s": [], "check_ms": [], "pair_s": []} for k in roots}
+    keys = ["rlc_s", "pair_s", *TURN_STAGES]
+    out = {k: {key: [] for key in keys} for k in roots}
     for who in ("parent", "this", "this", "parent") * 2:
         proc = subprocess.run([sys.executable, "-c", TURN_CHILD,
-                               str(TURN_CALLS)], cwd=roots[who],
+                               str(TURN_CALLS), json.dumps(TURN_STAGES)],
+                              cwd=roots[who],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stdout[-2000:], proc.stderr[-4000:], flush=True)
@@ -296,7 +394,7 @@ def turns(parent):
         print(f"turn {who}: " + ", ".join(
             f"{k} {[round(x, 4) for x in v]}" for k, v in got.items()),
             flush=True)
-    for key in ("rlc_s", "check_ms", "pair_s"):
+    for key in keys:
         print(f"{key} in turns ({TURN_CALLS} calls a turn): " + ", ".join(
             f"{who} median {statistics.median(v[key]):.4f} (quartiles "
             f"{statistics.quantiles(v[key], n=4)[0]:.4f}-"
@@ -346,9 +444,10 @@ def main():
         res["variants"][name] = {
             "ptxas": {k: v for k, v in ptxas.items() if k in KERNEL_NAMES},
             "ms": {}}
+        fq12 = sos.get("fq12", sos["miller"])
         libs[name] = {"dbl_fold": load(sos["miller"], "tc_dbl_fold"),
-                      "cyclo_sqr": load(sos.get("fq12", sos["miller"]),
-                                        "tc_cyclo_sqr")}
+                      "cyclo_sqr": load(fq12, "tc_cyclo_sqr"),
+                      "cyclo_sqr_mul": load(fq12, "tc_cyclo_sqr_mul")}
         print(f"{name}: ptxas {res['variants'][name]['ptxas']}", flush=True)
     print(f"built {len(libs)} variants in {time.time() - t0:.1f} s",
           flush=True)
@@ -367,11 +466,17 @@ def main():
                                   fo.data_ptr(), To.data_ptr(), f.shape[1],
                                   stream())
             out = (fo, To)
-        else:
+        elif kernel == "cyclo_sqr":
             (f,) = ins
             fo = torch.empty_like(f)
             err = lib.tc_cyclo_sqr(f.data_ptr(), fo.data_ptr(), f.shape[1],
                                    stream())
+            out = (fo,)
+        else:
+            f, g = ins
+            fo = torch.empty_like(f)
+            err = lib.tc_cyclo_sqr_mul(f.data_ptr(), g.data_ptr(),
+                                       fo.data_ptr(), f.shape[1], stream())
             out = (fo,)
         if err:
             raise RuntimeError(f"{variant} {kernel}: launch error {err}")
@@ -380,9 +485,8 @@ def main():
     res["bound_ms"] = {}
     order = list(libs) + list(libs)[::-1]
     for kernel, widths in WIDTHS.items():
-        pkg = {"dbl_fold": ctw.dbl_fold, "cyclo_sqr": ctw.cyclo_sqr}[kernel]
-        plain = {"dbl_fold": ctw.dbl_fold_ref,
-                 "cyclo_sqr": ctw.cyclo_sqr_ref}[kernel]
+        pkg = getattr(ctw, kernel)
+        plain = getattr(ctw, kernel + "_ref")
         comps, out_comps, products, _ = cs.TOWER_CHECKS[kernel]
         for n in widths:
             ins = cs.tower_inputs(kernel, gen, dev, n)
