@@ -10,7 +10,14 @@ Phases, each announced on a flushed line before it starts:
    per source, all started together: seconds per source, and per kernel the
    registers, stack frame and spills that ptxas reports;
 3. kernels: each kernel on the card against its plain PyTorch version on the
-   same inputs, bit-exact, at the shapes of the main paths (the tower
+   same inputs, bit-exact, at the shapes of the main paths (B1 in Fq and Fr
+   at slice 1's widest launch, and after slice 3 at the RLC fold's first
+   level; B2 for p − 2 at 1, 512, 8192 and 32,768 lanes, for (p − 1)/2 at
+   the hash path's 65,536 and in Fr for r − 2 at 1 and 4096, beside the
+   bound of its own chain's squares and products (and, as history, of the
+   square-and-multiply count the kernel before it ran); their
+   registers, stack frame and spills; one call of each under torch's sync
+   debug mode "error"; B1 refusing a view off a 16-byte line; the tower
    kernels, B17 included, also on zero lanes and infinity points; B14 at
    4096 lanes with a duplicate pair and a zero lane; B16 at window 1 and 3
    on its special lanes; B11 also on its special lanes, T == Q followed by
@@ -317,6 +324,9 @@ def _demangle(sym):
         names.append(sym[i:i + n])
         i += n
     name = names[-1] if names else sym
+    field = re.match(r"IN2tc3reg\d+(\w+?)E(?:Li(\d+)E)?E", sym[i:])
+    if field:   # a field descriptor of the register engine (B1, B2)
+        return f"{name}<{', '.join(g for g in field.groups() if g)}>"
     targ = (re.match(r"ILi(\d+)E", sym[i:])
             or re.match(r"IN2tc\d+(\w+?)EE", sym[i:]))
     return f"{name}<{targ.group(1)}>" if targ else name
@@ -415,38 +425,155 @@ def check_mul(spec, n, rng, dev, card):
     S = spec.L // 2
     bound, by = bound_ms(n * 3 * spec.L * 4, n * (4 * S * S + S), card)
     print(f"mont_mul {spec.name} lanes={n}: bit-exact; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by})", flush=True)
+          f"plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}), "
+          f"{100 * bound / ms:.1f} % of it", flush=True)
     return dict(lanes=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by)
 
 
-def check_pow(spec, n, e, rng, dev, card, n_zero=4):
+def chain_products(e):
+    """(squares, products) of B2's chain for e (``cuda_mont.pow_chain``'s
+    windows), its table of odd powers included: one square and entries − 1
+    products build it."""
+    from threshold_crypto_tpu_torch.device import cuda_mont
+
+    steps = cuda_mont.pow_windows(e)
+    entries = max((v - 1) // 2 for _, v in steps if v is not None) + 1
+    squares = sum(sq for sq, _ in steps) + (entries > 1)
+    products = sum(v is not None for _, v in steps[1:]) + entries - 1
+    return squares, products
+
+
+def pow_bound(spec, n, e, card):
+    """B2's bound for a^e over n lanes, and which of the two it is: each
+    base read and each power written once, e's bytes, and the IMAD results
+    of the chain ``pow_chain`` builds: a square 3S² + 2S (S(S + 1)/2 word
+    products, then S reduction rounds of 2S + 1), a product 4S² + S."""
+    S = spec.L // 2
+    squares, products = chain_products(e)
+    imads = squares * (3 * S * S + 2 * S) + products * (4 * S * S + S)
+    return bound_ms(n * 2 * spec.L * 4 + (e.bit_length() + 7) // 8,
+                    n * imads, card)
+
+
+def check_pow(spec, n, e, what, rng, dev, card):
+    """B2 at n lanes against pow_fixed_ref (the first lanes the edge values
+    and, at 8 lanes or more, four zeros), timed beside its bound (the
+    chain's squares and products, ``pow_bound``) and, as history, the
+    square-and-multiply count's (a product a bit and a set bit, as the
+    kernel before the chain ran)."""
     import torch
     from threshold_crypto_tpu_torch.device import cuda_mont
 
-    a = with_edges(spec, random_fq_lanes(spec, n, rng), edge_values(spec))
-    a[-n_zero:] = 0
+    n_zero = 4 if n >= 8 else 0
+    a = random_fq_lanes(spec, n, rng)
+    if n >= 8:
+        a = with_edges(spec, a, edge_values(spec))
+        a[-n_zero:] = 0
     a = a.to(dev)
     got = cuda_mont.mont_pow(spec, a, e)
     torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
     want = cuda_mont.pow_fixed_ref(spec, a, e)
+    stop.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(stop)
     err = int((got - want).abs().max().item())
     if err != 0 or not torch.equal(got, want):
         fail(f"mont_pow {spec.name}: kernel disagrees with pow_fixed_ref at "
-             f"{n} lanes (max abs limb error {err})")
-    if e == spec.p - 2 and bool((got[-n_zero:] != 0).any()):
+             f"{n} lanes, e = {what} (max abs limb error {err})")
+    if e == spec.p - 2 and n_zero and bool((got[-n_zero:] != 0).any()):
         fail("mont_pow: inv(0) is not 0")
     ms = cuda_time_ms(lambda: cuda_mont.mont_pow(spec, a, e), 5)
-    plain_ms = cuda_time_ms(lambda: cuda_mont.pow_fixed_ref(spec, a, e), 1)
+    bound, by = pow_bound(spec, n, e, card)
+    squares, muls = chain_products(e)
     S = spec.L // 2
-    products = e.bit_length() + bin(e).count("1")
-    bound, by = bound_ms(n * 2 * spec.L * 4 + 4 * e.bit_length(),
-                         n * products * (4 * S * S + S), card)
-    print(f"mont_pow {spec.name} e=p-2 lanes={n}: bit-exact, zeros -> 0; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms "
-          f"({by})", flush=True)
-    return dict(lanes=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound, bound_by=by)
+    bits = e.bit_length() + bin(e).count("1")
+    bits_bound = bound_ms(n * 2 * spec.L * 4 + 4 * e.bit_length(),
+                          n * bits * (4 * S * S + S), card)[0]
+    print(f"mont_pow {spec.name} e={what} lanes={n}: bit-exact"
+          f"{', zeros -> 0' if e == spec.p - 2 and n_zero else ''}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms, bound {bound:.4f} ms ({by}; "
+          f"the chain's {squares} squares + {muls} products), "
+          f"{ms / bound:.2f}× it; square and multiply ({bits} products) "
+          f"{bits_bound:.4f} ms", flush=True)
+    return dict(lanes=n, e=what, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, chain_squares=squares,
+                chain_products=muls, square_and_multiply_bound_ms=bits_bound)
+
+
+def check_mont(ptxas, rng, dev, card):
+    """B1 and B2 at the paths' widths, both fields: B1 at slice 1's widest
+    launch (13 Fq2 products over 2 pairs of 8192 lanes); B2 for p − 2 at
+    the RLC path's 1 and RLC_CHECK_BATCH lanes and slice 1's LANES (and 4×),
+    for (p − 1)/2 at the hash path's Euler width (HASH_N · HASH_ATTEMPTS),
+    and in Fr for r − 2 at 1 and COMBINE_N. Then the kernels' ptxas figures,
+    one call of each wrapper under torch's sync debug mode "error" (a
+    wrapper that synchronises the stream fails the run), and B1 on a view
+    4 bytes off a 16-byte line: the wrapper must raise, ``mont.mul`` must
+    give the product. Returns the results of B1 and B2 (their first width
+    the kernels line's)."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_mont, mont
+
+    FQ, FR = mont.FQ, mont.FR
+    widest_mul = 78 * LANES  # 13 Fq2 (39 Fq) products over 2 pairs
+    mul = check_mul(FQ, widest_mul, rng, dev, card)
+    mul["widths"] = [dict(mul, field="Fq"),
+                     dict(check_mul(FR, widest_mul, rng, dev, card),
+                          field="Fr")]
+    pows = [(FQ, LANES, FQ.p - 2, "p-2"), (FQ, 1, FQ.p - 2, "p-2"),
+            (FQ, RLC_CHECK_BATCH, FQ.p - 2, "p-2"),
+            (FQ, 4 * LANES, FQ.p - 2, "p-2"),
+            (FQ, HASH_N * HASH_ATTEMPTS, (FQ.p - 1) // 2, "(p-1)/2"),
+            (FR, 1, FR.p - 2, "r-2"), (FR, COMBINE_N, FR.p - 2, "r-2")]
+    widths = [dict(check_pow(spec, n, e, what, rng, dev, card),
+                   field=spec.name) for spec, n, e, what in pows]
+    pw = dict(widths[0], widths=widths)
+    for res, kernels in ((mul, ("mont_mul_kernel<",)),
+                         (pw, ("mont_pow_kernel<", "mont_pow_group_kernel<"))):
+        res["ptxas"] = {}
+        for name, figures in ptxas.items():
+            if name.startswith(kernels):
+                res["ptxas"][name] = dict(zip(
+                    ("registers", "stack_frame", "spill_stores",
+                     "spill_loads"), figures))
+                print(f"{name} (mont.cu, the register product): "
+                      f"{figures[0]} registers, {figures[1]} bytes stack "
+                      f"frame, {figures[2]} bytes spill stores, {figures[3]} "
+                      f"bytes spill loads", flush=True)
+        if not res["ptxas"]:
+            fail(f"no ptxas figures for {kernels}")
+    for spec in (FQ, FR):
+        a = random_fq_lanes(spec, RLC_CHECK_BATCH, rng).to(dev)
+        off = torch.empty(a.numel() + 1, dtype=torch.int32, device=dev)
+        off = off[1:].view(a.shape)          # 4 bytes off a 16-byte line
+        off.copy_(a)
+        try:
+            cuda_mont.mont_mul(spec, off, a)
+            fail("mont_mul took a tensor that is not 16-byte aligned")
+        except ValueError:
+            pass
+        if not torch.equal(mont.mul(spec, off, a),
+                           cuda_mont.mul_ref(spec, a, a)):
+            fail("mont.mul of a view off a 16-byte line differs")
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cuda_mont.mont_pow(spec, a, spec.p - 2)
+            cuda_mont.mont_mul(spec, a, a)
+        except RuntimeError as exc:
+            fail(f"a B1 / B2 wrapper synchronised the stream: {exc}")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    print("mont_pow and mont_mul wrappers: no stream synchronisation (torch "
+          "sync debug mode 'error'), Fq and Fr; mont_mul refuses a tensor "
+          "off a 16-byte line, and mont.mul copies it first (bit-exact)",
+          flush=True)
+    return mul, pw
 
 
 def random_packed(k, n, gen, dev):
@@ -1391,10 +1518,14 @@ def run_rlc(dev, results):
           f"{list(RLC_DEAD)} with pk and sig at infinity, built in "
           f"{time.time() - t0:.1f} s", flush=True)
 
+    from threshold_crypto_tpu_torch.device import cuda_mont
+
     reset_counts()
     ok, r, first_s = rlc_call(pk_aff, sig_aff, h_jac, b"\x01" * 32)
     launches = read_counts()
-    print(f"rlc first call {first_s:.2f} s; launches per call {launches}",
+    widest_mul = cuda_mont.MUL.widest
+    print(f"rlc first call {first_s:.2f} s; launches per call {launches}; "
+          f"widest B1 launch {widest_mul} lanes (the G2 fold's first level)",
           flush=True)
     expect = rlc_launches(RLC_N)
     got = {k: launches[k] for k in expect}
@@ -1463,8 +1594,9 @@ def run_rlc(dev, results):
     with stage_timer(stages):
         _, _, swall = rlc_call(pk_aff, sig_aff, h_jac, b"\x08" * 32)
     split = print_split("rlc", stages, swall)
-    return dict(launches=launches, wall_s=wall, per_s=RLC_N / wall,
-                kernel_s=kernel_s, timed_wall_s=kwall, split_ms=split,
+    return dict(launches=launches, widest_mul=widest_mul, wall_s=wall,
+                per_s=RLC_N / wall, kernel_s=kernel_s, timed_wall_s=kwall,
+                split_ms=split,
                 kernel_ms=per_kernel, wall_s_per_accumulators=per_a,
                 ladder=ladder)
 
@@ -2847,11 +2979,8 @@ def main():
     phase("kernels against their plain versions (bit-exact)")
     rng = np.random.default_rng(SEED)
     widest_mul = 78 * LANES  # 13 Fq2 (39 Fq) products over 2 pairs
-    results = {"mont_mul": check_mul(mont.FQ, widest_mul, rng, dev, card)}
-    check_mul(mont.FR, widest_mul, rng, dev, card)
-    results["mont_pow"] = check_pow(mont.FQ, LANES, mont.FQ.p - 2, rng, dev,
-                                    card)
-    check_pow(mont.FQ, 4 * LANES, mont.FQ.p - 2, rng, dev, card)
+    results = dict(zip(("mont_mul", "mont_pow"),
+                       check_mont(ptxas, rng, dev, card)))
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED)
     for name in TOWER_CHECKS:
@@ -2913,6 +3042,10 @@ def main():
     phase(f"slice 3: the RLC path at N = {RLC_N} (ops.rlc_exponents -> "
           f"ops.verify_sig_shares_rlc_pallas)")
     rlc = run_rlc(dev, results)
+    for spec in (mont.FQ, mont.FR):
+        at = check_mul(spec, rlc["widest_mul"], rng, dev, card)
+        results["mont_mul"]["widths"].append(
+            dict(at, field=spec.name, where="the RLC fold's first level"))
     rlc_bound = sum(results[k]["bound_ms"] * rlc["launches"][k]
                     for k in ("g1_madd", "g2_madd", "g1_winacc", "g2_winacc",
                               "sha3_chunks"))
@@ -2984,7 +3117,7 @@ def main():
             entry["digits"] = res["digits"]
         if "plain_lanes" in res:
             entry["plain_lanes"] = res["plain_lanes"]
-        for key in ("dkg_shape", "ptxas", "lanes_check_width",
+        for key in ("dkg_shape", "ptxas", "widths", "lanes_check_width",
                     "ms_check_width", "plain_ms_check_width",
                     "bound_ms_check_width"):
             if key in res:

@@ -33,10 +33,12 @@ BUILD_TIMEOUT_S = 600
 # C signatures of each library's launchers: (name, argtypes).
 _VP, _INT = ctypes.c_void_p, ctypes.c_int
 _U32P = ctypes.POINTER(ctypes.c_uint32)
+_U16P = ctypes.POINTER(ctypes.c_uint16)
 SIGNATURES = {
     "mont": [
         ("tc_mont_mul", [_VP, _VP, _VP, _INT, _INT, _U32P, _VP]),
-        ("tc_mont_pow", [_VP, _VP, _INT, _VP, _INT, _INT, _U32P, _VP]),
+        ("tc_mont_pow", [_VP, _VP, _INT, _U16P, _INT, _INT, _INT, _INT,
+                         _U32P, _VP]),
     ],
     "miller": [
         ("tc_dbl_fold", [_VP] * 5 + [_INT, _VP]),

@@ -1,6 +1,6 @@
 // B3, the engine: per-lane Montgomery arithmetic over BLS12-381 Fq (and,
-// for B1/B2, any field of S 32-bit words), shared by every kernel of the
-// package.
+// for B14's Fr in fr.cuh, any field of S 32-bit words), shared by the
+// tower and curve kernels.
 //
 // Replaces the stacked in-kernel engine of threshold_crypto_tpu/device/
 // pallas_tower.py: `_k_mul16` (:140) / `_k_mul13` (:197) and `k_add`,
@@ -20,7 +20,7 @@
 // function instead of tens of thousands of unrolled ones; the price is
 // operands in local memory (L1-cached) and a call per operation.
 //
-// Layouts. B1/B2 read lanes row-major ([N, 2S] int32 16-bit limbs); the
+// Layouts. B14 reads lanes row-major ([N, 2S] int32 16-bit limbs); the
 // tower kernels read the packed limb-major layout [k·24, N] (row c·24 + l
 // holds limb l of component c for every lane), so neighbouring threads read
 // neighbouring addresses. Two 16-bit limbs become one 32-bit word on load;

@@ -16,22 +16,28 @@
 //
 // Layout. Fr values are the public row-major int32[N, 16] of 16-bit limbs
 // (load_row / store_row of fq.cuh pack two limbs into a word).
+//
+// The field's constants (r, −r⁻¹ mod 2^32, R mod r) are those of
+// ladder_engine.cuh's `reg::FrField`, the descriptor B1 and B2 use.
 
 #pragma once
 
 #include "fq.cuh"
+#include "ladder_engine.cuh"
 
 namespace tc {
 
-constexpr int kFrWords = 8;
-constexpr int kFrLimbs = 16;  // 16-bit limbs of the public layout
+using reg::FrField;
+
+constexpr int kFrWords = FrField::kWords;
+constexpr int kFrLimbs = 2 * kFrWords;  // 16-bit limbs of the public layout
 
 __constant__ Modulus<kFrWords> kFr = {
-    {0x00000001u, 0xffffffffu, 0xfffe5bfeu, 0x53bda402u, 0x09a1d805u,
-     0x3339d808u, 0x299d7d48u, 0x73eda753u},
-    0xffffffffu,
-    {0xfffffffeu, 0x00000001u, 0x00034802u, 0x5884b7fau, 0xecbc4ff5u,
-     0x998c4fefu, 0xacc5056fu, 0x1824b159u},
+    {FrField::p(0), FrField::p(1), FrField::p(2), FrField::p(3),
+     FrField::p(4), FrField::p(5), FrField::p(6), FrField::p(7)},
+    FrField::kN0,
+    {FrField::one(0), FrField::one(1), FrField::one(2), FrField::one(3),
+     FrField::one(4), FrField::one(5), FrField::one(6), FrField::one(7)},
 };
 
 struct Fr {

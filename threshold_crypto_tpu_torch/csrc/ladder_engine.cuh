@@ -1,5 +1,6 @@
 // B13's register-resident G1/G2 engine, and the lane bodies on it: B13's
-// `step4_lane_r`, B11's `winacc_lane_r` and B10's `madd_lane_r`.
+// `step4_lane_r`, B11's `winacc_lane_r` and B10's `madd_lane_r`; its field
+// product and square also carry B1 and B2 (csrc/mont.cu), in Fq and Fr.
 //
 // Replaces, for kernels B13 (csrc/ladder.cu `step4_kernel`), B11 and B10
 // (csrc/msm.cu `winacc_kernel`, `madd_kernel`), the formulas of
@@ -37,11 +38,23 @@
 //   whose high word waits in h_{j+1} for the next step. The twelve words
 //   of a step do not depend on one another, where a carry chain through
 //   the words (mad.lo.cc / madc.hi.cc) serialises all of them. t_0 is
-//   exact, so q = t_0·n0 is CIOS's. p < 2^381, so the running sum stays
-//   below 2^414 and fits 13 words; one carry chain folds h in at the end
-//   (the sum < 2p fits 12 words) and one conditional subtract gives the
-//   canonical product, the value fq.cuh's mont_mul gives. Add and sub are
-//   carry chains with one conditional subtract or add of p.
+//   exact, so q = t_0·n0 is CIOS's. One carry chain folds h in at the end
+//   and one conditional subtract gives the canonical product, the value
+//   fq.cuh's mont_mul gives. Add and sub are carry chains with one
+//   conditional subtract or add of p.
+// * The product is a template over a field descriptor (`FqField`, S = 12
+//   words; `FrField`, S = 8, for B1 and B2 in csrc/mont.cu): its words,
+//   modulus words, n0 = −m⁻¹ mod 2^32 and R mod m. The bound, for a
+//   modulus m of S words: a round starts from a sum V < 2m (V_0 = 0) and
+//   adds a·b_i < 2^32·m, then q·m < 2^32·m, so the running sum stays below
+//   (2^33 + 2)·m, and (V + a·b_i + q·m)/2^32 < 2m again. It must fit S + 1
+//   words, and the top word t_S + h_S ≤ V / 2^(32 S) with it: for p <
+//   0.82·2^381 that is < 2^414 (13 words hold 2^416); for r < 0.91·2^255
+//   it is < 0.91·2^288 (9 words hold 2^288). Each multiply-add
+//   x_j·y + t_j + h_j ≤ (2^32 − 1)² + 2(2^32 − 1) < 2^64. The final sum
+//   < 2m fits S words in both (2p < 2^382, 2r < 2^256), so the carry chain
+//   that folds h in has no carry out. Fq's instance is the code B10, B11
+//   and B13 ran before the template: the same steps in the same order.
 // * One copy of the product: inlined at the ladder's 23 product sites (the
 //   doubling's 7, the add's 16), the unrolled product makes ~22 k SASS
 //   instructions of G1 kernel, and instruction fetch rather than the
@@ -85,7 +98,7 @@ constexpr int kLimbs = 24;  // 16-bit limbs of the packed layout
 constexpr uint32_t kN0 = 0xfffcfffdu;  // -p^-1 mod 2^32
 
 // The BLS12-381 base field modulus p, word j.
-__device__ __forceinline__ constexpr uint32_t p_word(int j) {
+__host__ __device__ __forceinline__ constexpr uint32_t p_word(int j) {
   switch (j) {
     case 0: return 0xffffaaabu;
     case 1: return 0xb9feffffu;
@@ -103,7 +116,7 @@ __device__ __forceinline__ constexpr uint32_t p_word(int j) {
 }
 
 // R mod p (1 in Montgomery form, R = 2^384), word j.
-__device__ __forceinline__ constexpr uint32_t one_word(int j) {
+__host__ __device__ __forceinline__ constexpr uint32_t one_word(int j) {
   switch (j) {
     case 0: return 0x0002fffdu;
     case 1: return 0x76090000u;
@@ -218,55 +231,196 @@ struct Fp {
   uint32_t w[kWords];
 };
 
+// The fields of the engine's product: words S, modulus word j, −m⁻¹ mod
+// 2^32 and R mod m (R = 2^(32 S)) word j.
+struct FqField {
+  static constexpr int kWords = reg::kWords;
+  static constexpr uint32_t kN0 = reg::kN0;
+  static __host__ __device__ __forceinline__ constexpr uint32_t p(int j) {
+    return p_word(j);
+  }
+  static __host__ __device__ __forceinline__ constexpr uint32_t one(int j) {
+    return one_word(j);
+  }
+};
+
+// The BLS12-381 scalar field modulus r and R mod r (R = 2^256).
+struct FrField {
+  static constexpr int kWords = 8;
+  static constexpr uint32_t kN0 = 0xffffffffu;
+  static __host__ __device__ __forceinline__ constexpr uint32_t p(int j) {
+    switch (j) {
+      case 0: return 0x00000001u;
+      case 1: return 0xffffffffu;
+      case 2: return 0xfffe5bfeu;
+      case 3: return 0x53bda402u;
+      case 4: return 0x09a1d805u;
+      case 5: return 0x3339d808u;
+      case 6: return 0x299d7d48u;
+      default: return 0x73eda753u;
+    }
+  }
+  static __host__ __device__ __forceinline__ constexpr uint32_t one(int j) {
+    switch (j) {
+      case 0: return 0xfffffffeu;
+      case 1: return 0x00000001u;
+      case 2: return 0x00034802u;
+      case 3: return 0x5884b7fau;
+      case 4: return 0xecbc4ff5u;
+      case 5: return 0x998c4fefu;
+      case 6: return 0xacc5056fu;
+      default: return 0x1824b159u;
+    }
+  }
+};
+
 // One step of a carry-save round: for every word j at once,
 // s_j = x_j·y + t_j + h_j < 2^64, t_j <- lo s_j, h_{j+1} <- hi s_j; the top
-// word t_12 takes h_12 (the sum stays below 2^414, so it cannot carry).
-__device__ __forceinline__ void cs_step(uint32_t (&t)[kWords + 1],
-                                        uint32_t (&h)[kWords + 1],
-                                        const uint32_t (&x)[kWords],
-                                        uint32_t y) {
-  uint32_t hn[kWords + 1];
+// word t_S takes h_S (the sum stays below 2^(32(S+1)), so it cannot carry).
+template <int S>
+__device__ __forceinline__ void cs_step(uint32_t (&t)[S + 1],
+                                        uint32_t (&h)[S + 1],
+                                        const uint32_t (&x)[S], uint32_t y) {
+  uint32_t hn[S + 1];
   hn[0] = 0;
 #pragma unroll
-  for (int j = 0; j < kWords; ++j)
+  for (int j = 0; j < S; ++j)
     mad_wide(t[j], hn[j + 1], x[j], y, t[j], h[j]);
-  t[kWords] += h[kWords];
+  t[S] += h[S];
 #pragma unroll
-  for (int j = 0; j <= kWords; ++j) h[j] = hn[j];
+  for (int j = 0; j <= S; ++j) h[j] = hn[j];
 }
 
-// r = a·b·R^-1 mod p, canonical, for canonical a, b: CIOS in carry-save
+// One reduction round of the carry-save sum: t += q·m with q = t_0·n0
+// (word 0 becomes 0), then the shift by one word. After a step of a·b_i,
+// h_0 is 0 and t_0 is word 0; with kPending, word 0 is t_0 + h_0 mod 2^32.
+template <class Fd, bool kPending = false>
+__device__ __forceinline__ void cs_reduce_round(
+    uint32_t (&t)[Fd::kWords + 1], uint32_t (&h)[Fd::kWords + 1],
+    const uint32_t (&pw)[Fd::kWords]) {
+  constexpr int S = Fd::kWords;
+  const uint32_t w0 = kPending ? t[0] + h[0] : t[0];
+  cs_step<S>(t, h, pw, w0 * Fd::kN0);       // word 0 becomes 0
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    t[j] = t[j + 1];
+    h[j] = h[j + 1];
+  }
+  t[S] = h[S] = 0;
+}
+
+// r = t + h − m if that is ≥ 0, else t + h, for a carry-save sum < 2m.
+template <class Fd>
+__device__ __forceinline__ void cs_finish(
+    uint32_t (&r)[Fd::kWords], uint32_t (&t)[Fd::kWords + 1],
+    const uint32_t (&h)[Fd::kWords + 1]) {
+  constexpr int S = Fd::kWords;
+  Chain c;
+  uint32_t d[S];
+  t[0] = c.add_cc(t[0], h[0]);
+#pragma unroll
+  for (int j = 1; j < S; ++j) t[j] = c.addc_cc(t[j], h[j]);
+  d[0] = c.sub_cc(t[0], Fd::p(0));
+#pragma unroll
+  for (int j = 1; j < S; ++j) d[j] = c.subc_cc(t[j], Fd::p(j));
+  const uint32_t borrow = c.subc(0u, 0u);  // 0 or all ones
+#pragma unroll
+  for (int j = 0; j < S; ++j) r[j] = borrow ? t[j] : d[j];
+}
+
+// r = a·b·R^-1 mod m, canonical, for canonical a, b: CIOS in carry-save
 // rounds. t + h is the running sum, word j worth t_j + h_j (each < 2^32).
+// r may alias a or b: it is written last.
+template <class Fd>
+__device__ __forceinline__ void mont_mul_words(
+    uint32_t (&r)[Fd::kWords], const uint32_t (&a)[Fd::kWords],
+    const uint32_t (&b)[Fd::kWords]) {
+  constexpr int S = Fd::kWords;
+  uint32_t t[S + 1], h[S + 1], pw[S];
+#pragma unroll
+  for (int j = 0; j <= S; ++j) t[j] = h[j] = 0;
+#pragma unroll
+  for (int j = 0; j < S; ++j) pw[j] = Fd::p(j);
+#pragma unroll
+  for (int i = 0; i < S; ++i) {
+    cs_step<S>(t, h, a, b[i]);
+    cs_reduce_round<Fd>(t, h, pw);
+  }
+  cs_finish<Fd>(r, t, h);
+}
+
+// r = a²·R^-1 mod m, canonical, for canonical a, the value of
+// mont_mul_words(r, a, a) with S(S + 1)/2 word products in place of S²:
+// the cross products a_i·a_j (i < j) in carry-save rows, the sum made
+// exact, doubled and given the squares a_i² (T = a², 2S words); then S
+// reduction rounds on T's low half, V = (T_lo + M·m)/R ≤ m, and
+// V + T_hi = (T + M·m)/R < (m² + R·m)/R < 2m, one conditional subtract.
+// The rounds' running sum stays below R + 2^32·m, which fits S + 1 words
+// (2^384 + 2^413 for p, 2^256 + 0.91·2^287 for r). r may alias a.
+template <class Fd>
+__device__ __forceinline__ void mont_sqr_words(
+    uint32_t (&r)[Fd::kWords], const uint32_t (&a)[Fd::kWords]) {
+  constexpr int S = Fd::kWords;
+  // Cross products: row i adds a_i·a_j at word i + j for j > i; word k
+  // takes the pending high word h_k and leaves its own high word at k + 1.
+  uint32_t t[2 * S], h[2 * S];
+#pragma unroll
+  for (int k = 0; k < 2 * S; ++k) t[k] = h[k] = 0;
+#pragma unroll
+  for (int i = 0; i < S - 1; ++i) {
+    uint32_t up = 0;
+#pragma unroll
+    for (int j = i + 1; j < S; ++j) {
+      uint32_t hi;
+      mad_wide(t[i + j], hi, a[i], a[j], t[i + j], h[i + j]);
+      h[i + j] = up;
+      up = hi;
+    }
+    h[i + S] = up;
+  }
+  // The exact sum of the cross products (< 2^(64S − 1)), doubled.
+  Chain c;
+  uint32_t u[2 * S];
+  u[0] = c.add_cc(t[0], h[0]);
+#pragma unroll
+  for (int k = 1; k < 2 * S - 1; ++k) u[k] = c.addc_cc(t[k], h[k]);
+  u[2 * S - 1] = c.addc(t[2 * S - 1], h[2 * S - 1]);
+#pragma unroll
+  for (int k = 2 * S - 1; k > 0; --k) u[k] = (u[k] << 1) | (u[k - 1] >> 31);
+  u[0] <<= 1;
+  // + a_i² at words 2i, 2i + 1: T = a² < 2^(64 S). The squares first:
+  // mad_wide's own carry chain must not fall inside this one.
+  uint32_t sq[2 * S];
+#pragma unroll
+  for (int i = 0; i < S; ++i) mad_wide(sq[2 * i], sq[2 * i + 1], a[i], a[i],
+                                       0u, 0u);
+  u[0] = c.add_cc(u[0], sq[0]);
+#pragma unroll
+  for (int k = 1; k < 2 * S - 1; ++k) u[k] = c.addc_cc(u[k], sq[k]);
+  u[2 * S - 1] = c.addc(u[2 * S - 1], sq[2 * S - 1]);
+  // Reduction rounds on T_lo, in carry-save form.
+  uint32_t v[S + 1], g[S + 1], pw[S];
+#pragma unroll
+  for (int j = 0; j < S; ++j) {
+    v[j] = u[j];
+    g[j] = 0;
+    pw[j] = Fd::p(j);
+  }
+  v[S] = g[S] = 0;
+#pragma unroll
+  for (int i = 0; i < S; ++i) cs_reduce_round<Fd, true>(v, g, pw);
+  // + T_hi, then the canonical value.
+  v[0] = c.add_cc(v[0], u[S]);
+#pragma unroll
+  for (int j = 1; j < S; ++j) v[j] = c.addc_cc(v[j], u[S + j]);
+  cs_finish<Fd>(r, v, g);
+}
+
+// r = a·b·R^-1 mod p for Fq: the product B10, B11 and B13 call.
 // r may alias a or b: it is written last.
 __device__ __forceinline__ void fp_mul_body(Fp& r, const Fp& a,
                                             const Fp& b) {
-  uint32_t t[kWords + 1], h[kWords + 1], pw[kWords];
-#pragma unroll
-  for (int j = 0; j <= kWords; ++j) t[j] = h[j] = 0;
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) pw[j] = p_word(j);
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) {
-    cs_step(t, h, a.w, b.w[i]);
-    cs_step(t, h, pw, t[0] * kN0);     // t_0 becomes 0
-#pragma unroll
-    for (int j = 0; j < kWords; ++j) {
-      t[j] = t[j + 1];
-      h[j] = h[j + 1];
-    }
-    t[kWords] = h[kWords] = 0;
-  }
-  Chain c;
-  uint32_t d[kWords];
-  t[0] = c.add_cc(t[0], h[0]);
-#pragma unroll
-  for (int j = 1; j < kWords; ++j) t[j] = c.addc_cc(t[j], h[j]);
-  d[0] = c.sub_cc(t[0], p_word(0));
-#pragma unroll
-  for (int j = 1; j < kWords; ++j) d[j] = c.subc_cc(t[j], p_word(j));
-  const uint32_t borrow = c.subc(0u, 0u);  // 0 or all ones
-#pragma unroll
-  for (int j = 0; j < kWords; ++j) r.w[j] = borrow ? t[j] : d[j];
+  mont_mul_words<FqField>(r.w, a.w, b.w);
 }
 
 // The product's one copy in the kernel; operands and result in registers.

@@ -1,12 +1,30 @@
 """The Montgomery kernels of ``csrc/mont.cu``: wrappers and plain versions.
 
-Two kernels, each the counterpart of one Pallas kernel of the JAX package:
+Two kernels, each the counterpart of one Pallas kernel of the JAX package,
+both on B13's carry-save register product (``csrc/ladder_engine.cuh``,
+instantiated for Fq and Fr):
 
 * ``mont_mul`` replaces ``threshold_crypto_tpu/device/pallas_mont.py``
-  ``_mul_kernel``: a·b·R⁻¹ mod p per lane, canonical output;
-* ``mont_pow`` replaces ``pallas_mont._pow_kernel``: aⁿ for a fixed public
-  exponent, the whole MSB-first square-and-multiply chain in one launch
-  (Fermat inversion with n = p − 2, so 0 ↦ 0).
+  ``_mul_kernel``: a·b·R⁻¹ mod p per lane, canonical output. A block's 128
+  lanes of a and b come into shared memory by one bulk copy each and go
+  out by 16-byte vector stores, so device memory is read and written
+  whole; the bytes bound it. The tensors must be 16-byte aligned (it
+  raises otherwise; :func:`.mont.mul` copies a view that is not).
+* ``mont_pow`` replaces ``pallas_mont._pow_kernel``: aᵉ for a fixed public
+  exponent, the whole chain in one launch (Fermat inversion with e = p − 2,
+  so 0 ↦ 0). ``pow_chain`` cuts e into sliding windows of at most
+  ``WINDOW`` bits; the kernel builds the odd powers a, a³, … it reads and
+  runs the chain with a dedicated square. The chain travels by value in the
+  kernel's parameters: no copy to the card, no synchronisation. An
+  exponent e ≥ p is reduced mod p − 1 first (p − 1 where that is 0), the
+  same aᵉ for every a, 0 included. The chain's length times one product's
+  latency bounds it at the paths' widths up to 8192 lanes (the RLC path's
+  inversions have 1 and 512): there one lane runs over ``GROUP`` = 4
+  threads of a warp (``pow_group``, up to 8192 lanes in Fq and 4096 in
+  Fr, the measured crossovers), which share each product; above, one
+  thread a lane with a dedicated square (the hash path's 65,536 lanes,
+  where the card is full: about 1.7× the bound of the chain's multiply
+  count).
 
 Both take ``int32[N, L]`` contiguous CUDA tensors of 16-bit limbs (the
 public layout of :mod:`.mont`) and allocate their output with
@@ -16,13 +34,15 @@ Each wrapper counts its launches in a plain integer, ``MUL.launches`` /
 ``KERNELS`` lists both with their plain versions and counts.
 
 ``mul_ref`` / ``pow_fixed_ref`` are the same functions in plain PyTorch
-(int64 outer products and column sums). :mod:`.mont` sends CPU tensors
-there; the tests and ``chip_smoke.py`` hold the kernels against them.
+(int64 outer products and column sums; the power bit by bit). :mod:`.mont`
+sends CPU tensors there; the tests and ``chip_smoke.py`` hold the kernels
+against them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple
 
 import torch
@@ -68,14 +88,77 @@ MUL = KernelCount()
 POW = KernelCount()
 
 
+@functools.lru_cache(maxsize=None)
 def _modulus_arg(spec):
-    """p, −p⁻¹ mod 2³² and R mod p as the kernel's 32-bit words."""
+    """p as the kernel's 32-bit words (the launcher checks it against the
+    field it was built for), built once per field."""
     words = spec.L // 2
-    p_words = [(spec.p >> (32 * k)) & 0xFFFFFFFF for k in range(words)]
-    n0 = (-pow(spec.p, -1, 1 << 32)) % (1 << 32)
-    one_words = [(spec.one_mont >> (32 * k)) & 0xFFFFFFFF
-                 for k in range(words)]
-    return (ctypes.c_uint32 * (2 * words + 1))(*p_words, n0, *one_words)
+    return (ctypes.c_uint32 * words)(
+        *[(spec.p >> (32 * k)) & 0xFFFFFFFF for k in range(words)])
+
+
+# Sliding windows of at most WINDOW bits: 2^(WINDOW − 1) odd powers at most.
+WINDOW = 5
+ENTRY_BITS = 5                  # csrc/mont.cu kEntryBits
+NO_ENTRY = (1 << ENTRY_BITS) - 1
+MAX_STEPS = 384                 # csrc/mont.cu kMaxSteps
+MAX_ENTRIES = 16                # csrc/mont.cu kMaxEntries
+
+
+def pow_windows(e: int, window: int = WINDOW):
+    """e > 0 as a sliding-window chain, MSB first: [(squarings, odd
+    value)], odd value None for squarings alone. The first window's
+    squarings are 0; a window starts and ends with a 1 and spans at most
+    ``window`` bits, and e = fold(acc ↦ acc·2^squarings + value)."""
+    if e <= 0:
+        raise ValueError("a chain needs a positive exponent")
+    bits = bin(e)[2:]
+    steps, pending, i = [], 0, 0
+    while i < len(bits):
+        if bits[i] == "0":
+            pending, i = pending + 1, i + 1
+            continue
+        j = min(i + window, len(bits))
+        while bits[j - 1] == "0":
+            j -= 1
+        steps.append((pending + j - i if steps else 0, int(bits[i:j], 2)))
+        pending, i = 0, j
+    if pending:
+        steps.append((pending, None))
+    return steps
+
+
+# Threads a lane of B2: GROUP up to the field's GROUP_MAX_LANES lanes (a
+# launch that leaves the card idle: the product's latency sets its pace,
+# and G threads share it), one above (the dedicated square, and no
+# shuffles, where the card is full). The crossovers are measured
+# (tools/mont_variants.py --group-sweep, NVIDIA H100 80GB HBM3, 700 W):
+# G = 4 ahead up to 8192 lanes in Fq and 4096 in Fr, G = 1 from the next
+# power of two.
+GROUP = 4
+GROUP_MAX_LANES = {"Fq": 8192, "Fr": 4096}
+
+
+def pow_group(spec, n: int) -> int:
+    """Threads a lane of a B2 launch over n lanes of ``spec``'s field."""
+    return GROUP if n <= GROUP_MAX_LANES[spec.name] else 1
+
+
+@functools.lru_cache(maxsize=64)
+def pow_chain(spec, e: int, window: int = WINDOW):
+    """The kernel's chain for a^e in ``spec``'s field: (uint16 steps as a
+    ctypes array, their number, odd powers read). Each step is squarings
+    << ENTRY_BITS | (value − 1)/2, or NO_ENTRY for squarings alone."""
+    if e >= spec.p:
+        e = e % (spec.p - 1) or spec.p - 1
+    steps = pow_windows(e, window)
+    entries = max((v - 1) // 2 for _, v in steps if v is not None) + 1
+    if len(steps) > MAX_STEPS or entries > MAX_ENTRIES:
+        raise ValueError(f"a chain of {len(steps)} steps and {entries} odd "
+                         f"powers does not fit the kernel")
+    words = [s << ENTRY_BITS | (NO_ENTRY if v is None else (v - 1) // 2)
+             for s, v in steps]
+    return (ctypes.c_uint16 * len(words))(*words), len(words), entries
 
 
 def _check(spec, x, name):
@@ -94,26 +177,40 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher(lib, fn):
+    return getattr(_build.library(lib), fn)
+
+
 def launch(lib, fn, count, tensors, *ints, lanes):
     """Call the launcher ``fn`` of ``csrc/<lib>.cu`` with the tensors' data
     pointers, then the ints, then the current stream of the first tensor's
     device; raise if the launch was refused, else count it (``lanes`` wide).
+    The device is made current only where it is not already.
     """
     dev = tensors[0].device
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(_build.library(lib), fn)(
-            *(t.data_ptr() for t in tensors), *ints, stream)
+    call = _launcher(lib, fn)
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        err = call(*(t.data_ptr() for t in tensors), *ints,
+                   torch.cuda.current_stream(dev).cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = call(*(t.data_ptr() for t in tensors), *ints,
+                       torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, fn)
     count.add(lanes)
 
 
 def mont_mul(spec, a, b):
-    """Kernel B1: int32[N, L] Montgomery product on the card."""
+    """Kernel B1: int32[N, L] Montgomery product on the card. a and b must
+    start on 16-byte boundaries (the kernel's bulk copies read whole tiles):
+    a fresh tensor does; a view that does not raises."""
     _check(spec, a, "a")
     _check(spec, b, "b")
     if a.shape != b.shape or a.device != b.device:
         raise ValueError("a and b must have one shape and one device")
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("mont_mul: a and b must be 16-byte aligned")
     out = torch.empty_like(a)
     n = a.shape[0]
     if n:
@@ -131,10 +228,9 @@ def mont_pow(spec, a, e: int):
     n = a.shape[0]
     if n == 0:
         return out
-    bits = torch.tensor([int(c) for c in bin(e)[2:]], dtype=torch.int32,
-                        device=a.device)
-    launch("mont", "tc_mont_pow", POW, (a, out), n, bits.data_ptr(),
-           bits.numel(), spec.L // 2, _modulus_arg(spec), lanes=n)
+    steps, nsteps, entries = pow_chain(spec, e)
+    launch("mont", "tc_mont_pow", POW, (a, out), n, steps, nsteps, entries,
+           pow_group(spec, n), spec.L // 2, _modulus_arg(spec), lanes=n)
     return out
 
 

@@ -235,6 +235,10 @@ def mul(spec: FpSpec, a, b):
     a = a.reshape(-1, spec.L).contiguous()
     b = b.reshape(-1, spec.L).contiguous()
     if on_card(a):
+        # the kernel copies whole tiles from 16-byte boundaries: a view
+        # off one (a flat view at an odd offset) goes to it as a copy
+        a = a if a.data_ptr() % 16 == 0 else a.clone()
+        b = b if b.data_ptr() % 16 == 0 else b.clone()
         out = cuda_mont.mont_mul(spec, a, b)
     else:
         out = cuda_mont.mul_ref(spec, a, b)
