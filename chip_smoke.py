@@ -22,10 +22,11 @@ Phases, each announced on a flushed line before it starts:
    4096 lanes with a duplicate pair and a zero lane; B16 at window 1 and 3
    on its special lanes; B11 also on its special lanes, T == Q followed by
    another add in the window among them, against the host's partial sums;
-   B4, B6 and B7, on the lane-group engine, also at the RLC check's
-   widths, 1,024, 512 and 512 lanes, with their registers, stack frame and
-   spills; B10 also timed on the table build's first launch, where every
-   lane takes the doubling branch), timed with CUDA events beside the plain
+   B4-B8, on the lane-group engine, also at the RLC check's widths (B4
+   and B5 1,024 pair lanes, B6-B8 512), with their registers, stack frame
+   and spills (a frame or a spill fails the run), and B9 at 512; B10 also
+   timed on the table build's first launch, where every lane takes the
+   doubling branch), timed with CUDA events beside the plain
    version and the kernel's bound; B13 G1 also at the DKG's launch shape
    (2^19 lanes x 64 digits over the dealing's 3,741 gathered points), and
    B10's, B11's and B13's registers, stack frame and spills;
@@ -590,12 +591,13 @@ def random_packed(k, n, gen, dev):
 
 
 # Per tower kernel: its operands (packed components each), the components
-# of its outputs, and its Fq products per lane as csrc/tower.cuh runs them
-# (B4: 36 for f², 47 for the doubling and its line, 39 for the fold; B5:
-# 41 + 39; B6: 9 Fq2 squares of 2; B7: 18 + 54; B8: 18 Fq2 products of 3;
-# B9: 12 of 3; B17: B4 and B5 cut at the line, dbl_step 47, f_sqr_fold
-# 36 + 39, add_step 41, f_fold 39). fq_engine: 12 components, one product
-# each. The Miller kernels run at slice 2's pair width.
+# of its outputs, and its Fq products per lane (B4: 36 for f², 47 for the
+# doubling and its line, 39 for the fold; B5: 41 for the addition and its
+# line, 39 for the fold; B6: 9 Fq2 squares of 2; B7: 18 + 54; B8: 18 Fq2
+# products of 3; B9: 12 of 3; B17: B4 and B5 cut at the line, dbl_step
+# 47, f_sqr_fold 36 + 39, add_step 41, f_fold 39). fq_engine: 12
+# components, one product each. The Miller kernels run at slice 2's pair
+# width.
 TOWER_CHECKS = {
     "fq_engine": ((12, 12), 5 * 12, 12, 16384),
     "dbl_fold": ((12, 6, 2), 12 + 6, 122, 2 * LANES),
@@ -614,17 +616,23 @@ TOWER_CHECKS = {
 B17_KERNELS = ("dbl_step", "add_step", "f_sqr_fold", "f_fold")
 
 
-# B4, B6 and B7 on the lane-group engine (csrc/tower_group.cuh) are also
-# held at the RLC check's widths: its 2-pair check replicated to
-# RLC_CHECK_BATCH lanes runs B4 on 2 × RLC_CHECK_BATCH pair lanes and B6
-# and B7 on RLC_CHECK_BATCH; their kernels' ptxas figures (csrc/miller.cu,
-# csrc/fq12.cu).
+# The check's kernels are also held at the RLC check's widths: its 2-pair
+# check replicated to RLC_CHECK_BATCH lanes runs B4 and B5 on
+# 2 × RLC_CHECK_BATCH pair lanes and B6-B9 on RLC_CHECK_BATCH. B4-B8 run on
+# the lane-group engine (csrc/tower_group.cuh): their kernels' ptxas
+# figures (csrc/miller.cu, csrc/fq12.cu), where a stack frame or a spill
+# fails the run.
 CHECK_WIDTHS = {"dbl_fold": 2 * RLC_CHECK_BATCH,
+                "add_fold": 2 * RLC_CHECK_BATCH,
                 "cyclo_sqr": RLC_CHECK_BATCH,
-                "cyclo_sqr_mul": RLC_CHECK_BATCH}
+                "cyclo_sqr_mul": RLC_CHECK_BATCH,
+                "fq12_mul": RLC_CHECK_BATCH,
+                "fq12_sqr": RLC_CHECK_BATCH}
 GROUP_KERNELS = {"dbl_fold": ("miller.cu", "dbl_fold_kernel"),
+                 "add_fold": ("miller.cu", "add_fold_kernel"),
                  "cyclo_sqr": ("fq12.cu", "cyclo_sqr_group_kernel"),
-                 "cyclo_sqr_mul": ("fq12.cu", "cyclo_sqr_mul_group_kernel")}
+                 "cyclo_sqr_mul": ("fq12.cu", "cyclo_sqr_mul_group_kernel"),
+                 "fq12_mul": ("fq12.cu", "fq12_mul_group_kernel")}
 
 
 def tower_inputs(name, gen, dev, n=None):
@@ -2987,18 +2995,23 @@ def main():
         results[name] = check_tower(name, gen, dev, card)
     for name, n in CHECK_WIDTHS.items():
         at = check_tower(name, gen, dev, card, n)
-        source, fn = GROUP_KERNELS[name]
-        figures = ptxas[fn]
         results[name].update(
             lanes_check_width=n, ms_check_width=at["ms"],
             plain_ms_check_width=at["plain_ms"],
-            bound_ms_check_width=at["bound_ms"],
-            ptxas=dict(zip(("registers", "stack_frame", "spill_stores",
-                            "spill_loads"), figures)))
+            bound_ms_check_width=at["bound_ms"])
+        if name not in GROUP_KERNELS:
+            continue
+        source, fn = GROUP_KERNELS[name]
+        figures = ptxas[fn]
+        results[name]["ptxas"] = dict(zip(
+            ("registers", "stack_frame", "spill_stores", "spill_loads"),
+            figures))
         print(f"{name} ({source} {fn}, lane-group engine): {figures[0]} "
               f"registers, {figures[1]} bytes stack frame, {figures[2]} "
               f"bytes spill stores, {figures[3]} bytes spill loads",
               flush=True)
+        if any(figures[1:]):
+            fail(f"{fn}: a stack frame or spills on the lane-group engine")
     for g2 in (False, True):
         results["g2_madd" if g2 else "g1_madd"] = check_madd(g2, gen, dev,
                                                              card)

@@ -1,8 +1,9 @@
 """The lane-group tower engine (``csrc/tower_group.cuh``), compiled for the
-host, against the plain versions of B4, B6 and B7.
+host, against the plain versions of B4, B5, B6, B7 and B8.
 
-On the card one lane of B4 ``dbl_fold`` / B6 ``cyclo_sqr`` / B7
-``cyclo_sqr_mul`` runs on a group of ``kGroup`` threads: the block stages its lanes' inputs into shared
+On the card one lane of B4 ``dbl_fold`` / B5 ``add_fold`` / B6
+``cyclo_sqr`` / B7 ``cyclo_sqr_mul`` / B8 ``fq12_mul`` runs on a group of
+``kGroup`` threads: the block stages its lanes' inputs into shared
 memory, each phase of the static schedule is dealt over the group's
 threads with a barrier after it, and the block writes its outputs. Here
 g++ compiles the header with CUDA's qualifiers defined away and a serial
@@ -10,14 +11,14 @@ loop over the threads stands in for the block, calling the same stage and
 phase functions in the barriers' order:
 
 * the bodies bit-exact with ``cuda_tower.dbl_fold_ref`` /
-  ``cyclo_sqr_ref`` / ``cyclo_sqr_mul_ref`` at the kernel's group size and
-  at others, on zero f, g and T and infinity P lanes, lanes of p − 1,
-  random lanes and (B6, B7) cyclotomic lanes, over blocks whose last one
-  is ragged;
+  ``add_fold_ref`` / ``cyclo_sqr_ref`` / ``cyclo_sqr_mul_ref`` /
+  ``fq12_mul_ref`` at the kernel's group size and at others, on zero f, g
+  and T and infinity P and Q lanes, lanes of p − 1, random lanes and (B6,
+  B7) cyclotomic lanes, over blocks whose last one is ragged;
 * the dealing: each op of each phase runs on exactly one thread of the
-  group, the product phases hold the 122 (B4: 48, 19, 16, 39), 18 (B6)
-  and 72 (B7: 18, 54) Fq products, and a thread runs Σ ceil(layer / G) of
-  them;
+  group, the product phases hold the 122 (B4: 48, 19, 16, 39), 80 (B5: 6,
+  14, 48, 12), 18 (B6), 72 (B7: 18, 54) and 54 (B8) Fq products, and a
+  thread runs Σ ceil(layer / G) of them;
 * a linear form reduced as its steps say (canonical when stored; as a
   product's operand, the bound the product needs) on edge and random
   slots, and the product canonical on operands up to that bound;
@@ -66,13 +67,17 @@ struct Sched {
   const int32_t *phase_ops, *ops, *terms, *out_slots;
   int phases, slots, lane_words;
 };
-static const Sched kS[3] = {
+static const Sched kS[5] = {
     {kB4PhaseOps, kB4Ops, kB4Terms, kB4OutSlots, kB4Phases, kB4Slots,
      kB4LaneWords},
     {kB6PhaseOps, kB6Ops, kB6Terms, kB6OutSlots, kB6Phases, kB6Slots,
      kB6LaneWords},
     {kB7PhaseOps, kB7Ops, kB7Terms, kB7OutSlots, kB7Phases, kB7Slots,
-     kB7LaneWords}};
+     kB7LaneWords},
+    {kB8PhaseOps, kB8Ops, kB8Terms, kB8OutSlots, kB8Phases, kB8Slots,
+     kB8LaneWords},
+    {kB5PhaseOps, kB5Ops, kB5Terms, kB5OutSlots, kB5Phases, kB5Slots,
+     kB5LaneWords}};
 
 static std::vector<int32_t> rd(size_t count) {
   std::vector<int32_t> v(count);
@@ -114,6 +119,7 @@ static void emulate(const Sched& s, const std::vector<const int32_t*>& in,
 
 // stdin: int32 op, G, shift, n, then the inputs; stdout: the outputs.
 // op 0: B4 (f, T, P -> f, T); op 1: B6 (f -> f); op 6: B7 (f, g -> f);
+// op 7: B8 (a, b -> a·b); op 8: B5 (f, T, Q, P -> f, T);
 // op 10 + s: for schedule s, a scratch of random values, then per phase
 // its op count, its product flag and per thread g the slots thread g's
 // share of it writes; op 4: n forms (words, first terms, `shift` terms)
@@ -140,6 +146,20 @@ int main() {
     emulate(kS[2], {f.data(), g.data()}, {12, 12}, {fo.data()}, {12}, n, G,
             shift);
     fwrite(fo.data(), 4, fo.size(), stdout);
+  } else if (op == 7) {
+    auto a = rd(288ul * n), b = rd(288ul * n);
+    std::vector<int32_t> fo(288ul * n);
+    emulate(kS[3], {a.data(), b.data()}, {12, 12}, {fo.data()}, {12}, n, G,
+            shift);
+    fwrite(fo.data(), 4, fo.size(), stdout);
+  } else if (op == 8) {
+    auto f = rd(288ul * n), T = rd(144ul * n), Q = rd(96ul * n),
+         P = rd(48ul * n);
+    std::vector<int32_t> fo(288ul * n), To(144ul * n);
+    emulate(kS[4], {f.data(), T.data(), Q.data(), P.data()}, {12, 6, 4, 2},
+            {fo.data(), To.data()}, {12, 6}, n, G, shift);
+    fwrite(fo.data(), 4, fo.size(), stdout);
+    fwrite(To.data(), 4, To.size(), stdout);
   } else if (op == 4) {  // n forms over a scratch of G slots
     auto init = rd(static_cast<size_t>(G) * kWords);
     auto words = rd(n);
@@ -165,7 +185,7 @@ int main() {
       out.insert(out.end(), r.w, r.w + kWords);
     }
     fwrite(out.data(), 4, out.size(), stdout);
-  } else if (op >= 10 && op < 13) {
+  } else if (op >= 10 && op < 15) {
     const Sched& s = kS[op - 10];
     auto init = rd(static_cast<size_t>(s.slots) * kWords);
     std::vector<int32_t> out;
@@ -197,7 +217,8 @@ N = 22          # lanes: blocks of 4 (shift 2), the last one ragged
 SHIFT = 2
 GROUP = 8       # the kernel's kGroup
 PRODUCTS = {"dbl_fold": [48, 19, 16, 39], "cyclo_sqr": [18],
-            "cyclo_sqr_mul": [18, 54]}
+            "cyclo_sqr_mul": [18, 54], "fq12_mul": [54],
+            "add_fold": [6, 14, 48, 12]}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -336,6 +357,63 @@ def test_cyclo_sqr_mul_group_body_matches_plain_version(harness, G):
             _flat12(htw.fq12_mul(htw.fq12_sqr(e), h))
 
 
+def _add_fold_inputs(seed):
+    """f, T, Q, P with lanes 0-1 all zero, 2-3 P = (0, 0) (infinity), 4-5
+    T = 0, 6 every component p − 1, 7-8 Q = (0, 0) (infinity), 9 f = 0,
+    the rest random."""
+    rnd = random.Random(seed)
+    f, T, Q, P = (_random(rnd, k) for k in (12, 6, 4, 2))
+    zero = {0: (f, T, Q, P), 1: (f, T, Q, P), 2: (P,), 3: (P,), 4: (T,),
+            5: (T,), 7: (Q,), 8: (Q,), 9: (f,)}
+    for lane, xs in zero.items():
+        for x in xs:
+            for c in x:
+                c[lane] = 0
+    for x in (f, T, Q, P):
+        for c in x:
+            c[6] = FQ.p - 1
+    return tuple(_packed(x) for x in (f, T, Q, P))
+
+
+@pytest.mark.parametrize("G", [GROUP, 4, 16])
+def test_add_fold_group_body_matches_plain_version(harness, G):
+    """B5: T + Q and f·l_chord(P) on zero, infinity, p − 1 and random
+    lanes, the last block ragged."""
+    ins = _add_fold_inputs(0xB5 + G)
+    out = _run(harness, 8, G, N, [x.numpy().tobytes() for x in ins])
+    fo = torch.from_numpy(out[:288 * N].reshape(288, N).copy())
+    To = torch.from_numpy(out[288 * N:].reshape(144, N).copy())
+    want_f, want_T = ctw.add_fold_ref(*ins)
+    assert torch.equal(fo, want_f)
+    assert torch.equal(To, want_T)
+
+
+@pytest.mark.parametrize("G", [GROUP, 4, 16])
+def test_fq12_mul_group_body_matches_plain_version(harness, G):
+    """B8: a·b with a zero on lanes 0-1, b zero on lanes 0 and 3, both p − 1
+    on lane 4 (every component) and random elsewhere, against the plain
+    version and, on the random lanes, the host tower."""
+    rnd = random.Random(0xB8 + G)
+    a_host, b_host = _random(rnd, 12), _random(rnd, 12)
+    for c in a_host:
+        c[0] = c[1] = 0
+    for c in b_host:
+        c[0] = c[3] = 0
+    for x in (a_host, b_host):
+        for c in x:
+            c[4] = FQ.p - 1
+    a, b = _packed(a_host), _packed(b_host)
+    out = _run(harness, 7, G, N, [a.numpy().tobytes(), b.numpy().tobytes()])
+    fo = torch.from_numpy(out.reshape(288, N).copy())
+    assert torch.equal(fo, ctw.fq12_mul_ref(a, b))
+    got = [mont.unstack_mont(FQ, c) for c in pk_unpack(fo)]
+    for lane in range(5, 10):
+        e, h = (_fq12([x[i][lane] for i in range(12)])
+                for x in (a_host, b_host))
+        assert [got[i][lane] for i in range(12)] == \
+            _flat12(htw.fq12_mul(e, h))
+
+
 def _fq12(x):
     """12 Fq components in the packed order -> a host Fq12."""
     fq2 = [(x[2 * i], x[2 * i + 1]) for i in range(6)]
@@ -349,15 +427,17 @@ def pk_unpack(packed):
 
 
 @pytest.mark.parametrize("name,sched", [("dbl_fold", 0), ("cyclo_sqr", 1),
-                                        ("cyclo_sqr_mul", 2)])
+                                        ("cyclo_sqr_mul", 2), ("fq12_mul", 3),
+                                        ("add_fold", 4)])
 @pytest.mark.parametrize("G", [GROUP, 4])
 def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
     """Thread g's share of a phase writes the slots of ops g, g + G, …:
     over the group the shares are disjoint and cover every op of the
-    phase once; the product phases hold the 122 (B4), 18 (B6) or 72 (B7)
-    Fq products, and the busiest thread runs Σ ceil(layer / G) of them."""
+    phase once; the product phases hold the 122 (B4), 18 (B6), 72 (B7),
+    54 (B8) or 80 (B5) Fq products, and the busiest thread runs
+    Σ ceil(layer / G) of them."""
     text = open(os.path.join(_build.CSRC, "tower_group.cuh")).read()
-    prefix = ("kB4", "kB6", "kB7")[sched]
+    prefix = ("kB4", "kB6", "kB7", "kB8", "kB5")[sched]
     slots = int(re.search(rf"constexpr int {prefix}Slots = (\d+);",
                           text).group(1))
     rnd = random.Random(sched)
@@ -381,7 +461,8 @@ def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
     assert busiest == sum(-(-c // G) for c in PRODUCTS[name])
     if G == GROUP:
         assert busiest == {"dbl_fold": 16, "cyclo_sqr": 3,
-                           "cyclo_sqr_mul": 10}[name]
+                           "cyclo_sqr_mul": 10, "fq12_mul": 7,
+                           "add_fold": 11}[name]
 
 
 def _gen():
@@ -474,20 +555,28 @@ def test_header_tables_are_the_generators():
     assert gen.header_with(text, gen.block()) == text
     assert [s().product_counts() for s in gen.SCHEDULES.values()] == [
         PRODUCTS["dbl_fold"], PRODUCTS["cyclo_sqr"],
-        PRODUCTS["cyclo_sqr_mul"]]
+        PRODUCTS["cyclo_sqr_mul"], PRODUCTS["fq12_mul"],
+        PRODUCTS["add_fold"]]
+    assert list(gen.SCHEDULES) == ["kB4", "kB6", "kB7", "kB8", "kB5"]
 
 
 def test_cpu_tensors_take_the_plain_versions():
     """The dispatch sends a CPU tensor to the plain version, without a
     launch; the wrapper itself takes CUDA tensors only."""
     f, T, P = _dbl_fold_inputs(7)
-    counts = (ctw.DBL_FOLD, ctw.CYCLO_SQR, ctw.CYCLO_SQR_MUL)
+    _, _, Q, _ = _add_fold_inputs(7)
+    counts = (ctw.DBL_FOLD, ctw.ADD_FOLD, ctw.CYCLO_SQR, ctw.CYCLO_SQR_MUL,
+              ctw.FQ12_MUL)
     before = [c.launches for c in counts]
     got = ctw.p_dbl_fold(f, T, P)
     want = ctw.dbl_fold_ref(f, T, P)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+    got = ctw.p_add_fold(f, T, Q, P)
+    want = ctw.add_fold_ref(f, T, Q, P)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert torch.equal(ctw.p_cyclo_sqr(f), ctw.cyclo_sqr_ref(f))
     assert torch.equal(ctw.p_cyclo_sqr_mul(f, f), ctw.cyclo_sqr_mul_ref(f, f))
+    assert torch.equal(ctw.p_fq12_mul(f, f), ctw.fq12_mul_ref(f, f))
     assert [c.launches for c in counts] == before
     with pytest.raises(ValueError, match="CUDA"):
         ctw.dbl_fold(f, T, P)
@@ -495,3 +584,7 @@ def test_cpu_tensors_take_the_plain_versions():
         ctw.cyclo_sqr(f)
     with pytest.raises(ValueError, match="CUDA"):
         ctw.cyclo_sqr_mul(f, f)
+    with pytest.raises(ValueError, match="CUDA"):
+        ctw.add_fold(f, T, Q, P)
+    with pytest.raises(ValueError, match="CUDA"):
+        ctw.fq12_mul(f, f)

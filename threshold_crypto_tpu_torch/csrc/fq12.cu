@@ -9,9 +9,10 @@
 // block's shared memory. B7 `cyclo_sqr_mul_group_kernel` replaces
 // `_k_cyclo_sqr_mul` (:932), acc²·g, the 1-bit step of exp-by-x, on the
 // same engine: B6's 18 products, then the Fq12 product's 54 (3 + 7 a
-// thread). B8 `fq12_mul_kernel` replaces
-// `_k_fq12_mul` (:960); without a second operand it is B9, `_k_fq12_sqr`
-// (:964). `engine_kernel`
+// thread). B8 `fq12_mul_group_kernel` replaces `_k_fq12_mul` (:960) on the
+// same engine: B7's second half, the 54 products in one phase (7 a
+// thread). B9 `fq12_mul_kernel` without a second operand replaces
+// `_k_fq12_sqr` (:964), one thread a lane on tower.cuh. `engine_kernel`
 // runs B3 (fq.cuh, replacing `_k_mul16`/`_k_mul13` and `k_add`, `k_sub`,
 // `k_neg`, `k_small`, :140-323) on its own: B3 has no launch of its own on
 // the path, so this entry is how it is held against the plain field
@@ -24,10 +25,12 @@
 // against 2 × 1,152 bytes, B7 72 products against 3 × 1,152 bytes, B8 54
 // against 3 × 1,152 and B9 36 against 2 × 1,152: on an H100 SXM the
 // multiply issue rate bounds B7-B9, and B6 sits near the balance point
-// (its bytes take about as long as its products). In B8 and B9 (tower.cuh)
-// f and every intermediate stay in the thread's registers and local
-// memory; at 8,192 lanes and 128 threads per block the grid is 64 blocks
-// on 132 SMs.
+// (its bytes take about as long as its products). On the lane-group
+// engine a group of 8 threads runs a lane's products, so the RLC check's
+// 512-lane launches of B6-B8 run 128 blocks of 32 threads (4 lanes each)
+// where one thread a lane filled 4 SMs. In B9 (tower.cuh) f and every
+// intermediate stay in the thread's registers and local memory; at 8,192
+// lanes and 128 threads per block the grid is 64 blocks on 132 SMs.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0.
@@ -83,7 +86,29 @@ cyclo_sqr_mul_group_kernel(const int32_t* __restrict__ f,
             kB7LaneWords);
 }
 
-// b == nullptr: B9; else B8.
+// B8: a in slots 0-11, b in 12-23.
+__global__ void __launch_bounds__(tc::grp::kMaxThreads, tc::grp::kMinBlocks)
+fq12_mul_group_kernel(const int32_t* __restrict__ a,
+                      const int32_t* __restrict__ b,
+                      int32_t* __restrict__ fo, int n, int lane_shift) {
+  using namespace tc::grp;
+  extern __shared__ uint4 fq12_mul_scratch[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(fq12_mul_scratch);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane0 = blockIdx.x << lane_shift;
+  stage_in(a, 12, 0, n, lane0, lane_shift, tid, nthreads, smem,
+           kB8LaneWords);
+  stage_in(b, 12, 12, n, lane0, lane_shift, tid, nthreads, smem,
+           kB8LaneWords);
+  __syncthreads();
+  run_schedule(kB8PhaseOps, kB8Ops, kB8Terms, kB8Phases,
+               smem + (tid / kGroup) * kB8LaneWords);
+  __syncthreads();
+  stage_out(fo, kB8OutSlots, 12, n, lane0, lane_shift, tid, nthreads, smem,
+            kB8LaneWords);
+}
+
+// B9: a², one thread a lane (launched with b == nullptr).
 __global__ void __launch_bounds__(kThreads)
 fq12_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                 int32_t* __restrict__ fo, int n) {
@@ -104,14 +129,6 @@ inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
 
 const int32_t* in(const void* p) { return static_cast<const int32_t*>(p); }
 int32_t* out(void* p) { return static_cast<int32_t*>(p); }
-
-int launch_mul(const void* a, const void* b, void* fo, int n, void* stream) {
-  if (n <= 0) return 0;
-  fq12_mul_kernel<<<grid_for(n), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(in(a), in(b),
-                                                         out(fo), n);
-  return static_cast<int>(cudaGetLastError());
-}
 
 }  // namespace
 
@@ -146,11 +163,25 @@ extern "C" int tc_cyclo_sqr_mul(const void* f, const void* g, void* fo, int n,
 
 extern "C" int tc_fq12_mul(const void* a, const void* b, void* fo, int n,
                            void* stream) {
-  return launch_mul(a, b, fo, n, stream);
+  if (n <= 0) return 0;
+  static int allowed = 0;
+  const tc::grp::Shape s = tc::grp::group_shape(n, tc::grp::kB8LaneWords);
+  const int err = tc::grp::allow_scratch(
+      reinterpret_cast<const void*>(fq12_mul_group_kernel), s.bytes,
+      allowed);
+  if (err != 0) return err;
+  fq12_mul_group_kernel<<<s.blocks, s.threads, s.bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      in(a), in(b), out(fo), n, s.shift);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tc_fq12_sqr(const void* a, void* fo, int n, void* stream) {
-  return launch_mul(a, nullptr, fo, n, stream);
+  if (n <= 0) return 0;
+  fq12_mul_kernel<<<grid_for(n), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(in(a), nullptr,
+                                                         out(fo), n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int tc_fq_engine(const void* a, const void* b, void* out_, int m,

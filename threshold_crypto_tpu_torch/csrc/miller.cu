@@ -10,22 +10,23 @@
 // Layout. Packed limb-major int32[k·24, n] (tower.cuh): f k = 12, T k = 6,
 // Q k = 4, P k = 2. Outputs are separate tensors.
 //
-// B4 runs on the lane-group engine of tower_group.cuh: one lane over a
-// group of tc::grp::kGroup threads, its 122 Fq products (four dependent
-// layers of 48, 19, 16 and 39) dealt over the group from a static
-// schedule, the operands in registers and the values in the block's
-// shared memory; the block stages its lanes' f, T and P as coalesced rows
-// in and f, T out. What bounds it: 122 products (71,736 32-bit IMAD
-// results) against 3,648 bytes a lane, the multiply issue rate by about
-// 3.9× over the bytes on an H100 SXM; one thread a lane left the check's
-// 1,024-lane launches on 8 SMs at the latency of 122 products in series,
-// where a group runs 16 of them a thread.
+// B4 and B5 run on the lane-group engine of tower_group.cuh: one lane
+// over a group of tc::grp::kGroup threads, its Fq products dealt over the
+// group from a static schedule, the operands in registers and the values
+// in the block's shared memory; the block stages its lanes' f, T (Q) and
+// P as coalesced rows in and f, T out. What bounds them: B4 runs 122
+// products (71,736 32-bit IMAD results) in four dependent layers (48, 19,
+// 16, 39) against 3,648 bytes a lane, B5 80 (6, 14, 48, 12: `add_step`'s
+// layers, the line product's 39 in the third) against 4,032, the
+// multiply issue rate by about 3.9× and 2.3× over the bytes on an H100
+// SXM; one thread a lane left the check's 1,024-lane launches on 8 SMs at
+// the latency of 122 (80) products in series, where a group runs 16 (11)
+// of them a thread.
 //
-// B5 and B17 run one thread per lane on tower.cuh (`__noinline__` tower
+// B17 runs one thread per lane on tower.cuh (`__noinline__` tower
 // functions over the engine of fq.cuh), every intermediate in the thread's
-// registers and local memory: one read and one write of f and T per
-// iteration. B5 runs 80 products (41 + 39) against 4,032 bytes, bound by
-// the multiplies (2.3×).
+// registers and local memory: one read and one write of T and the line
+// per piece.
 //
 // B17 replaces the four unfused pieces of the same file: `_k_dbl_step`
 // (:886, T ← 2T and the tangent line out), `_k_add_step` (:895, T ← T + Q
@@ -81,13 +82,33 @@ dbl_fold_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ T,
             smem, kB4LaneWords);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// B5: f in slots 0-11, T 12-17, Q 18-21, P 22-23.
+__global__ void __launch_bounds__(tc::grp::kMaxThreads, tc::grp::kMinBlocks)
 add_fold_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ T,
                 const int32_t* __restrict__ Q, const int32_t* __restrict__ P,
-                int32_t* __restrict__ fo, int32_t* __restrict__ To, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  tc::add_fold_lane(f, T, Q, P, fo, To, n, lane);
+                int32_t* __restrict__ fo, int32_t* __restrict__ To, int n,
+                int lane_shift) {
+  using namespace tc::grp;
+  extern __shared__ uint4 add_fold_scratch[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(add_fold_scratch);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane0 = blockIdx.x << lane_shift;
+  stage_in(f, 12, 0, n, lane0, lane_shift, tid, nthreads, smem,
+           kB5LaneWords);
+  stage_in(T, 6, 12, n, lane0, lane_shift, tid, nthreads, smem,
+           kB5LaneWords);
+  stage_in(Q, 4, 18, n, lane0, lane_shift, tid, nthreads, smem,
+           kB5LaneWords);
+  stage_in(P, 2, 22, n, lane0, lane_shift, tid, nthreads, smem,
+           kB5LaneWords);
+  __syncthreads();
+  run_schedule(kB5PhaseOps, kB5Ops, kB5Terms, kB5Phases,
+               smem + (tid / kGroup) * kB5LaneWords);
+  __syncthreads();
+  stage_out(fo, kB5OutSlots, 12, n, lane0, lane_shift, tid, nthreads, smem,
+            kB5LaneWords);
+  stage_out(To, kB5OutSlots + 12, 6, n, lane0, lane_shift, tid, nthreads,
+            smem, kB5LaneWords);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -149,9 +170,14 @@ extern "C" int tc_add_fold(const void* f, const void* T, const void* Q,
                            const void* P, void* fo, void* To, int n,
                            void* stream) {
   if (n <= 0) return 0;
-  add_fold_kernel<<<grid_for(n), kThreads, 0,
+  static int allowed = 0;
+  const tc::grp::Shape s = tc::grp::group_shape(n, tc::grp::kB5LaneWords);
+  const int err = tc::grp::allow_scratch(
+      reinterpret_cast<const void*>(add_fold_kernel), s.bytes, allowed);
+  if (err != 0) return err;
+  add_fold_kernel<<<s.blocks, s.threads, s.bytes,
                     static_cast<cudaStream_t>(stream)>>>(
-      in(f), in(T), in(Q), in(P), out(fo), out(To), n);
+      in(f), in(T), in(Q), in(P), out(fo), out(To), n, s.shift);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,9 @@
 // The BLS12-381 tower Fq2/Fq6/Fq12 and the Miller-loop step formulas as
 // per-lane device functions over the engine of fq.cuh, and the per-lane
-// bodies of the tower kernels B5, B8, B9 and B17. B4, B6 and B7 run on the
-// lane-group engine of tower_group.cuh; `dbl_fold_lane`, B4's body before
-// it, is run by no launcher.
+// bodies of the tower kernels B9 and B17. B4-B8 run on the lane-group
+// engine of tower_group.cuh; `dbl_fold_lane` and `add_fold_lane`, B4's and
+// B5's bodies before it, are run by no launcher, and `fq12_mul_lane` runs
+// B9 only (its a·b form was B8's body).
 //
 // Replaces the in-kernel tower of threshold_crypto_tpu/device/
 // pallas_tower.py (:376-697): Karatsuba Fq2 products, the Toom/Karatsuba

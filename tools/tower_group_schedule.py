@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""The static schedules of B4 (``dbl_fold``), B6 (``cyclo_sqr``) and B7
-(``cyclo_sqr_mul``) on the lane-group tower engine, and the tables of
-``csrc/tower_group.cuh``.
+"""The static schedules of B4 (``dbl_fold``), B5 (``add_fold``), B6
+(``cyclo_sqr``), B7 (``cyclo_sqr_mul``) and B8 (``fq12_mul``) on the
+lane-group tower engine, and the tables of ``csrc/tower_group.cuh``.
 
     python3 tools/tower_group_schedule.py           # print the table block
     python3 tools/tower_group_schedule.py --write   # write it into the header
@@ -26,12 +26,14 @@ so the ops of a phase may run in any order or in parallel, and a phase
 ends at a barrier. The slots are allocated by liveness (first fit): a slot
 is free for a phase's outputs once every op that reads its value has run
 in an earlier phase. The inputs take the first slots, in the packed
-components' order (B4: f 0-11, T 12-17, P 18-19; B6: f 0-11; B7: f 0-11,
-g 12-23).
+components' order (B4: f 0-11, T 12-17, P 18-19; B5: f 0-11, T 12-17,
+Q 18-21, P 22-23; B6: f 0-11; B7: f 0-11, g 12-23; B8: a 0-11, b 12-23).
 
 B4 follows the JAX package's four product layers (`pallas_tower.dbl_fold`:
-48, 19, 16 and 39 Fq products), B6 its one layer of 18, B7 B6's layer
-and then `fq12_mul`'s 54 (`pallas_tower.fq12_mul`). The engine deals
+48, 19, 16 and 39 Fq products), B5 `add_step`'s four (6, 14, 9, 12) with
+the line product's 39 in the third, B6 its one layer of 18, B7 B6's layer
+and then `fq12_mul`'s 54 (`pallas_tower.fq12_mul`), B8 those 54 alone.
+The engine deals
 the ops of each phase round-robin over the G threads of a lane's group:
 thread g runs ops g, g + G, …; the product phases' ops are all one
 product, the linear phases' are sorted by their cost, largest first. Each
@@ -460,7 +462,67 @@ def b7_schedule():
     return s
 
 
-SCHEDULES = {"kB4": b4_schedule, "kB6": b6_schedule, "kB7": b7_schedule}
+def b8_schedule():
+    """`pallas_tower._k_fq12_mul` (tower.cuh `fq12_mul`): a·b, B7's second
+    half. One product phase of 54 Fq products takes the Karatsuba sums of
+    a and b as operand forms, one linear phase makes `_fq6_mul_fin` and
+    c0, c1. Inputs a (12), b (12); output a·b (12)."""
+    s = Schedule("B8", 24)
+    x = s.inputs()
+    t = s.products(fq12_mul_reqs(fq12_from(x[:12]), fq12_from(x[12:])))
+    s.output(s.linear(fq12_flat(fq12_mul_fin(t))))
+    return s
+
+
+def b5_schedule():
+    """`pallas_tower.add_fold` (tower.cuh `add_step`, `fq12_mul_by_014`):
+    T ← T + Q, f ← f·l_chord(P). Inputs f (12), T (6), Q (4), P (2);
+    outputs f (12), then T (6)."""
+    s = Schedule("B5", 24)
+    x = s.inputs()
+    f = fq12_from(x[:12])
+    X, Y, Z = (x[12], x[13]), (x[14], x[15]), (x[16], x[17])
+    x2, y2 = (x[18], x[19]), (x[20], x[21])
+    xp, yp = x[22], x[23]
+
+    # Layer 1: y2·Z, x2·Z; u = y2·Z − Y, v = x2·Z − X.
+    yZ, xZ = s.products([mul2(y2, Z), mul2(x2, Z)])
+    u, v = s.linear2([sub2(yZ, Y), sub2(xZ, X)])
+
+    # Layer 2: v², u², u·x2, v·y2 and the line's c1 = −u·xp, c4 = v·yp;
+    # c0 = u·x2 − v·y2.
+    vv, uu, ux2, vy2, c1, c4 = s.products(
+        [sqr2(v), sqr2(u), mul2(u, x2), mul2(v, y2),
+         scale2(small2(-1, u), xp), scale2(v, yp)])
+    (c0,) = s.linear2([sub2(ux2, vy2)])
+
+    # Layer 3: v³, Rr = v²·X, u²·Z, and the 39 products of
+    # `fq12_mul_by_014(f, c0, c1, c4)`, which need only f and the line.
+    f0, f1 = f
+    o = add2(c1, c4)
+    t = s.products([mul2(v, vv), mul2(vv, X), mul2(uu, Z)]
+                   + sparse01_reqs(f0, c0, c1)
+                   + [mul2(f1[2], c4), mul2(f1[0], c4), mul2(f1[1], c4)]
+                   + sparse01_reqs(add6(f0, f1), c0, o))
+    vvv, Rr, uuZ = t[:3]
+    t0 = sparse01_fin(t[3:8])
+    t1 = (xi(t[8]), t[9], t[10])
+    t3 = sparse01_fin(t[11:16])
+    # f's fin, and A = u²Z − v³ − 2Rr and Rr − A, in one linear phase.
+    A = sub2(sub2(uuZ, vvv), small2(2, Rr))
+    m = s.linear(fq12_flat((add6(t0, mul_by_v(t1)), sub6(t3, add6(t0, t1))))
+                 + list(A) + list(sub2(Rr, A)))
+    fo, A, RA = m[:12], (m[12], m[13]), (m[14], m[15])
+
+    # Layer 4: X' = v·A, Y' = u(Rr − A) − v³·Y, Z' = v³·Z.
+    Xo, uRA, vvvY, Zo = s.products([mul2(v, A), mul2(u, RA), mul2(vvv, Y),
+                                    mul2(vvv, Z)])
+    s.output(fo + s.linear(list(Xo) + list(sub2(uRA, vvvY)) + list(Zo)))
+    return s
+
+
+SCHEDULES = {"kB4": b4_schedule, "kB6": b6_schedule, "kB7": b7_schedule,
+             "kB8": b8_schedule, "kB5": b5_schedule}
 
 
 def _array(name, values, per_line):

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""B4 (``dbl_fold``), B6 (``cyclo_sqr``) and B7 (``cyclo_sqr_mul``) on the
-lane-group engine (``csrc/tower_group.cuh``) against their old bodies and
-other group sizes, on one card.
+"""B4 (``dbl_fold``), B5 (``add_fold``), B6 (``cyclo_sqr``), B7
+(``cyclo_sqr_mul``) and B8 (``fq12_mul``) on the lane-group engine
+(``csrc/tower_group.cuh``) against their old bodies and other group sizes,
+on one card.
 
     python3 tools/tower_variants.py [--split] [--parent ROOT]
 
@@ -9,19 +10,21 @@ The variants, each built with the package's nvcc flags into
 ``threshold_crypto_tpu_torch/_build/variants/``:
 
 * ``old``: the one-thread-per-lane kernels the package ran before the
-  engine (``tower.cuh`` ``dbl_fold_lane``, and ``cyclo_sqr_lane`` with its
-  Granger-Scott ``fq12_cyclo_sqr``, kept here as text; 128-thread blocks);
+  engine (``tower.cuh`` ``dbl_fold_lane``, ``add_fold_lane`` and
+  ``fq12_mul_lane``, and ``cyclo_sqr_lane`` with its Granger-Scott
+  ``fq12_cyclo_sqr``, kept here as text; 128-thread blocks);
 * ``g1``, ``g4``, ``g8``, ``g16``, ``g32``: the package's ``miller.cu``
   and ``fq12.cu`` with ``tc::grp::kGroup`` set to 1, 4, 8 (the package's),
   16 or 32 threads a lane. G = 1 keeps the register product and the
   staging in shared memory without the split.
 
-For each: ptxas's registers, stack frame and spills of the B4, B6 and B7
+For each: ptxas's registers, stack frame and spills of the B4-B8
 kernels; bit-exact against the package's kernels (which are held against
 their plain versions here too) on ``chip_smoke.tower_inputs`` (zero and
-infinity lanes) at both widths of each kernel: slice 2's (B4 16,384 pair
-lanes, B6 and B7 8192) and the RLC check's (B4 2 × RLC_CHECK_BATCH =
-1,024, B6 and B7 512); and the kernel time with CUDA events, in turns
+infinity lanes) at both widths of each kernel: slice 2's (B4 and B5
+16,384 pair lanes, B6-B8 8192) and the RLC check's (B4 and B5
+2 × RLC_CHECK_BATCH = 1,024, B6-B8 512); and the kernel time with CUDA
+events, in turns
 (old, g1, …, g16, g16, …, old) at each width, beside ``chip_smoke``'s
 bound: launched one by one from Python (``chip_smoke.cuda_time_ms``, as
 the path launches them) and replayed from a CUDA graph (the device time
@@ -39,8 +42,11 @@ turns, one child process per turn (parent, this, this, parent, twice):
 the RLC call (``chip_smoke.rlc_call``, N = 262,144, exponents included),
 its MSM table stages (B10, G1 and G2) and its check stage
 (``verify_batch_pallas`` at 512 lanes), from ``chip_smoke.stage_timer``'s
-events, and the per-pair call ``ops.verify_batch_pallas`` at 8192
-lanes. Prints one JSON line last and writes it to ``tower_variants.json``
+events, B5's and B8's launches in it (``chip_smoke.kernel_event_timer``),
+the per-pair call ``ops.verify_batch_pallas`` at 8192 lanes with its B5
+and B8 launches the same way, and that call alone at the check's 512
+lanes (the per-pair inputs' first RLC_CHECK_BATCH lanes), CHECK_CALLS
+times a turn. Prints one JSON line last and writes it to ``tower_variants.json``
 beside the builds. Without CUDA it exits 2.
 """
 
@@ -60,8 +66,9 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from threshold_crypto_tpu_torch import _build  # noqa: E402
 
-# The kernels B4, B6 and B7 ran before the lane-group engine, with B6 and
-# B7's lane body and Granger-Scott square from tower.cuh.
+# The kernels B4-B8 ran before the lane-group engine: tower.cuh's lane
+# bodies, and B6 and B7's lane body and Granger-Scott square from
+# tower.cuh before the engine.
 OLD_CU = r"""
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -149,6 +156,23 @@ dbl_fold_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ T,
 }
 
 __global__ void __launch_bounds__(kThreads)
+add_fold_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ T,
+                const int32_t* __restrict__ Q, const int32_t* __restrict__ P,
+                int32_t* __restrict__ fo, int32_t* __restrict__ To, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::add_fold_lane(f, T, Q, P, fo, To, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+fq12_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                int32_t* __restrict__ fo, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::fq12_mul_lane(a, b, fo, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
 cyclo_sqr_kernel(const int32_t* __restrict__ f, int32_t* __restrict__ fo,
                  int n) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
@@ -175,6 +199,28 @@ extern "C" int tc_dbl_fold(const void* f, const void* T, const void* P,
       static_cast<const int32_t*>(f), static_cast<const int32_t*>(T),
       static_cast<const int32_t*>(P), static_cast<int32_t*>(fo),
       static_cast<int32_t*>(To), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_add_fold(const void* f, const void* T, const void* Q,
+                           const void* P, void* fo, void* To, int n,
+                           void* stream) {
+  if (n <= 0) return 0;
+  add_fold_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(f), static_cast<const int32_t*>(T),
+      static_cast<const int32_t*>(Q), static_cast<const int32_t*>(P),
+      static_cast<int32_t*>(fo), static_cast<int32_t*>(To), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_fq12_mul(const void* a, const void* b, void* fo, int n,
+                           void* stream) {
+  if (n <= 0) return 0;
+  fq12_mul_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
+      static_cast<int32_t*>(fo), n);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -222,24 +268,43 @@ SPLIT = {
 }
 GROUP_LINE = "constexpr int kGroup = 8;"
 GROUPS = (1, 4, 8, 16, 32)
-# The B4, B6 and B7 kernels' names (demangled) in the variants: old, group.
-KERNEL_NAMES = ("dbl_fold_kernel", "cyclo_sqr_kernel", "cyclo_sqr_mul_kernel",
-                "cyclo_sqr_group_kernel", "cyclo_sqr_mul_group_kernel")
+# The B4-B8 kernels' names (demangled) in the variants: old, group
+# (fq12_mul_kernel: old B8, and B9 in the package's builds).
+KERNEL_NAMES = ("dbl_fold_kernel", "add_fold_kernel", "cyclo_sqr_kernel",
+                "cyclo_sqr_mul_kernel", "fq12_mul_kernel",
+                "cyclo_sqr_group_kernel", "cyclo_sqr_mul_group_kernel",
+                "fq12_mul_group_kernel")
 WIDTHS = {"dbl_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
+          "add_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
           "cyclo_sqr": (cs.LANES, cs.RLC_CHECK_BATCH),
-          "cyclo_sqr_mul": (cs.LANES, cs.RLC_CHECK_BATCH)}
-REPS = {"dbl_fold": 20, "cyclo_sqr": 50, "cyclo_sqr_mul": 20}
+          "cyclo_sqr_mul": (cs.LANES, cs.RLC_CHECK_BATCH),
+          "fq12_mul": (cs.LANES, cs.RLC_CHECK_BATCH)}
+REPS = {"dbl_fold": 20, "add_fold": 20, "cyclo_sqr": 50,
+        "cyclo_sqr_mul": 20, "fq12_mul": 20}
+# Per kernel: its C entry, and its input and output tensors.
+ENTRIES = {"dbl_fold": ("miller", "tc_dbl_fold", 3, 2),
+           "add_fold": ("miller", "tc_add_fold", 4, 2),
+           "cyclo_sqr": ("fq12", "tc_cyclo_sqr", 1, 1),
+           "cyclo_sqr_mul": ("fq12", "tc_cyclo_sqr_mul", 2, 1),
+           "fq12_mul": ("fq12", "tc_fq12_mul", 2, 1)}
 # The stages of an RLC call read in each turn (chip_smoke.stage_timer's
 # labels): the check, and the two MSM tables (B10).
 TURN_STAGES = {"check_ms": "check", "table_g1_ms": "  table (B10) G1",
                "table_g2_ms": "  table (B10) G2"}
-# Timed calls of one turn, after a warm-up call.
+# Kernels summed from chip_smoke.kernel_event_timer's events in each turn's
+# RLC and per-pair calls: B5 and B8.
+TURN_KERNELS = {"b5": "add_fold", "b8": "fq12_mul"}
+# Timed calls of one turn, after a warm-up call; of the check's width
+# alone, which is short and spreads widely, CHECK_CALLS.
 TURN_CALLS = 5
+CHECK_CALLS = 20
 # One turn in the checkout that is the child's working directory: its
 # kernels built (one nvcc per source, together), then TURN_CALLS RLC
 # calls, as many with the stages bracketed by events (TURN_STAGES, given
-# as argv[2]), and as many per-pair calls at 8192 lanes, each after a
-# warm-up call.
+# as argv[2]), as many with the kernels of TURN_KERNELS (argv[3])
+# bracketed, and as many per-pair calls at 8192 lanes, then as many with
+# those kernels bracketed, and CHECK_CALLS (argv[4]) per-pair calls at
+# RLC_CHECK_BATCH lanes, each after a warm-up call.
 TURN_CHILD = """
 import json, sys
 import torch
@@ -250,6 +315,18 @@ _build.build()
 dev = torch.device("cuda", 0)
 calls = int(sys.argv[1])
 stages = json.loads(sys.argv[2])
+kernels = json.loads(sys.argv[3])
+check_calls = int(sys.argv[4])
+
+
+def kernel_ms(call, out):
+    spans = []
+    with cs.kernel_event_timer(spans):
+        call()
+    torch.cuda.synchronize()
+    for key, name in kernels.items():
+        out.setdefault(key, []).append(
+            sum(a.elapsed_time(b) for k, a, b in spans if k == name))
 pk_aff, sig_aff, h_jac = cs.rlc_inputs(dev)[:3]
 rlc, staged = [], {k: [] for k in stages}
 for i in range(1 + calls):
@@ -274,8 +351,26 @@ args = (dpr.g1_affine_from_host(pk, device=dev),
 want_t = torch.tensor(want, device=dev)
 pair = [cs.timed_call(ops.verify_batch_pallas, args, want_t, "pairs")[1]
         for _ in range(1 + calls)]
+
+def cut(x):
+    if isinstance(x, tuple):
+        return tuple(cut(y) for y in x)
+    return x[:cs.RLC_CHECK_BATCH].contiguous()
+
+
+args_c, want_c = cut(args), want_t[:cs.RLC_CHECK_BATCH]
+check = [cs.timed_call(ops.verify_batch_pallas, args_c, want_c, "check")[1]
+         for _ in range(1 + check_calls)]
+rlc_k, pair_k = {}, {}
+for i in range(1 + calls):
+    kernel_ms(lambda: cs.rlc_call(pk_aff, sig_aff, h_jac,
+                                  bytes([120 + i]) * 32), rlc_k)
+    kernel_ms(lambda: ops.verify_batch_pallas(*args), pair_k)
 print(json.dumps({"rlc_s": rlc[1:], "pair_s": pair[1:],
-                  **{k: v[1:] for k, v in staged.items()}}))
+                  "check512_s": check[1:],
+                  **{k: v[1:] for k, v in staged.items()},
+                  **{f"rlc_{k}_ms": v[1:] for k, v in rlc_k.items()},
+                  **{f"pair_{k}_ms": v[1:] for k, v in pair_k.items()}}))
 """
 
 
@@ -341,15 +436,15 @@ def build_variants(bdir, split):
     return procs
 
 
-def load(so, fn):
-    """The library at so with fn's C signature (tc_dbl_fold,
-    tc_cyclo_sqr or tc_cyclo_sqr_mul)."""
-    lib = ctypes.CDLL(so)
-    pointers = {"tc_dbl_fold": 5, "tc_cyclo_sqr": 2, "tc_cyclo_sqr_mul": 3}
-    getattr(lib, fn).argtypes = ([ctypes.c_void_p] * pointers[fn]
-                                 + [ctypes.c_int, ctypes.c_void_p])
-    getattr(lib, fn).restype = ctypes.c_int
-    return lib
+def load(so, kernel):
+    """The C entry of kernel (ENTRIES) in the library at so, with its
+    signature: the input and output pointers, n, the stream."""
+    _, fn, n_in, n_out = ENTRIES[kernel]
+    entry = getattr(ctypes.CDLL(so), fn)
+    entry.argtypes = ([ctypes.c_void_p] * (n_in + n_out)
+                      + [ctypes.c_int, ctypes.c_void_p])
+    entry.restype = ctypes.c_int
+    return entry
 
 
 def graph_time_ms(fn, reps):
@@ -378,11 +473,13 @@ def turns(parent):
     """Both checkouts' calls in turns (parent, this, this, parent, twice):
     {"parent": {...}, "this": {...}}, each key a list over the turns."""
     roots = {"parent": os.path.abspath(parent), "this": ROOT}
-    keys = ["rlc_s", "pair_s", *TURN_STAGES]
+    keys = ["rlc_s", "pair_s", "check512_s", *TURN_STAGES,
+            *(f"{w}_{k}_ms" for w in ("rlc", "pair") for k in TURN_KERNELS)]
     out = {k: {key: [] for key in keys} for k in roots}
     for who in ("parent", "this", "this", "parent") * 2:
         proc = subprocess.run([sys.executable, "-c", TURN_CHILD,
-                               str(TURN_CALLS), json.dumps(TURN_STAGES)],
+                               str(TURN_CALLS), json.dumps(TURN_STAGES),
+                               json.dumps(TURN_KERNELS), str(CHECK_CALLS)],
                               cwd=roots[who],
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
@@ -395,7 +492,8 @@ def turns(parent):
             f"{k} {[round(x, 4) for x in v]}" for k, v in got.items()),
             flush=True)
     for key in keys:
-        print(f"{key} in turns ({TURN_CALLS} calls a turn): " + ", ".join(
+        calls = CHECK_CALLS if key == "check512_s" else TURN_CALLS
+        print(f"{key} in turns ({calls} calls a turn): " + ", ".join(
             f"{who} median {statistics.median(v[key]):.4f} (quartiles "
             f"{statistics.quantiles(v[key], n=4)[0]:.4f}-"
             f"{statistics.quantiles(v[key], n=4)[2]:.4f})"
@@ -444,10 +542,8 @@ def main():
         res["variants"][name] = {
             "ptxas": {k: v for k, v in ptxas.items() if k in KERNEL_NAMES},
             "ms": {}}
-        fq12 = sos.get("fq12", sos["miller"])
-        libs[name] = {"dbl_fold": load(sos["miller"], "tc_dbl_fold"),
-                      "cyclo_sqr": load(fq12, "tc_cyclo_sqr"),
-                      "cyclo_sqr_mul": load(fq12, "tc_cyclo_sqr_mul")}
+        libs[name] = {k: load(sos.get(src, sos["miller"]), k)
+                      for k, (src, _, _, _) in ENTRIES.items()}
         print(f"{name}: ptxas {res['variants'][name]['ptxas']}", flush=True)
     print(f"built {len(libs)} variants in {time.time() - t0:.1f} s",
           flush=True)
@@ -458,26 +554,10 @@ def main():
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     def run(variant, kernel, ins):
-        lib = libs[variant][kernel]
-        if kernel == "dbl_fold":
-            f, T, P = ins
-            fo, To = torch.empty_like(f), torch.empty_like(T)
-            err = lib.tc_dbl_fold(f.data_ptr(), T.data_ptr(), P.data_ptr(),
-                                  fo.data_ptr(), To.data_ptr(), f.shape[1],
-                                  stream())
-            out = (fo, To)
-        elif kernel == "cyclo_sqr":
-            (f,) = ins
-            fo = torch.empty_like(f)
-            err = lib.tc_cyclo_sqr(f.data_ptr(), fo.data_ptr(), f.shape[1],
-                                   stream())
-            out = (fo,)
-        else:
-            f, g = ins
-            fo = torch.empty_like(f)
-            err = lib.tc_cyclo_sqr_mul(f.data_ptr(), g.data_ptr(),
-                                       fo.data_ptr(), f.shape[1], stream())
-            out = (fo,)
+        # outputs: f (the first input's shape), then T (the second's)
+        out = tuple(torch.empty_like(x) for x in ins[:ENTRIES[kernel][3]])
+        err = libs[variant][kernel](*(x.data_ptr() for x in (*ins, *out)),
+                                    ins[0].shape[1], stream())
         if err:
             raise RuntimeError(f"{variant} {kernel}: launch error {err}")
         return out
