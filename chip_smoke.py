@@ -20,11 +20,14 @@ Phases, each announced on a flushed line before it starts:
    debug mode "error"; B1 refusing a view off a 16-byte line; the tower
    kernels, B17 included, also on zero lanes and infinity points; B14 at
    4096 lanes with a duplicate pair and a zero lane; B16 at window 1 and 3
-   on its special lanes; B11 also on its special lanes, T == Q followed by
-   another add in the window among them, against the host's partial sums;
-   B4-B8, on the lane-group engine, also at the RLC check's widths (B4
-   and B5 1,024 pair lanes, B6-B8 512), with their registers, stack frame
-   and spills (a frame or a spill fails the run), and B9 at 512; B10 also
+   on its special lanes, with its registers, stack frame and spills and a
+   latency yardstick beside its bound (its general path's products times
+   the per-product latency of B2's one-lane chain in this run); B11 also
+   on its special lanes, T == Q followed by another add in the window
+   among them, against the host's partial sums; B4-B9, on the lane-group
+   engine, also at the RLC check's widths (B4 and B5 1,024 pair lanes,
+   B6-B9 512), with their registers, stack frame and spills (a frame or a
+   spill fails the run); B10 also
    timed on the table build's first launch, where every lane takes the
    doubling branch), timed with CUDA events beside the plain
    version and the kernel's bound; B13 G1 also at the DKG's launch shape
@@ -618,7 +621,7 @@ B17_KERNELS = ("dbl_step", "add_step", "f_sqr_fold", "f_fold")
 
 # The check's kernels are also held at the RLC check's widths: its 2-pair
 # check replicated to RLC_CHECK_BATCH lanes runs B4 and B5 on
-# 2 × RLC_CHECK_BATCH pair lanes and B6-B9 on RLC_CHECK_BATCH. B4-B8 run on
+# 2 × RLC_CHECK_BATCH pair lanes and B6-B9 on RLC_CHECK_BATCH. B4-B9 run on
 # the lane-group engine (csrc/tower_group.cuh): their kernels' ptxas
 # figures (csrc/miller.cu, csrc/fq12.cu), where a stack frame or a spill
 # fails the run.
@@ -632,7 +635,8 @@ GROUP_KERNELS = {"dbl_fold": ("miller.cu", "dbl_fold_kernel"),
                  "add_fold": ("miller.cu", "add_fold_kernel"),
                  "cyclo_sqr": ("fq12.cu", "cyclo_sqr_group_kernel"),
                  "cyclo_sqr_mul": ("fq12.cu", "cyclo_sqr_mul_group_kernel"),
-                 "fq12_mul": ("fq12.cu", "fq12_mul_group_kernel")}
+                 "fq12_mul": ("fq12.cu", "fq12_mul_group_kernel"),
+                 "fq12_sqr": ("fq12.cu", "fq12_sqr_group_kernel")}
 
 
 def tower_inputs(name, gen, dev, n=None):
@@ -2138,11 +2142,37 @@ def b16_inputs(g2, window, n, gen, dev):
     return acc, table, digits
 
 
-def check_b16(g2, gen, dev, card):
+def product_latency_ms(pow_result):
+    """The time of one Fq product in series: B2's one-lane chain for
+    p − 2 (``check_pow``'s result at 1 lane, a lane over the 4 threads of
+    ``mont_pow_group_kernel``) over its squares and products. B16's
+    latency yardstick is its general path's products times this."""
+    return pow_result["ms"] / (pow_result["chain_squares"]
+                               + pow_result["chain_products"])
+
+
+def b16_bounds(g2, nonzero, accs, window, card):
+    """B16's bounds at one launch over ``accs`` accumulators: selmadd's
+    general path on the ``nonzero`` lanes with a digit (the accumulator
+    read and written, the digits, one entry a nonzero lane), and dblw's
+    ``window`` doublings a lane (the accumulator read and written)."""
+    k = 2 if g2 else 1
+    rows = 3 * k * 24
+    sel = bound_ms(2 * rows * 4 * accs + 4 * accs + rows * 4 * nonzero,
+                   nonzero * ADD_FQ_PRODUCTS[k - 1] * FQ_PRODUCT_IMADS, card)
+    dbl = bound_ms(2 * rows * 4 * accs, accs * window
+                   * DBL_FQ_PRODUCTS[k - 1] * FQ_PRODUCT_IMADS, card)
+    return sel, dbl
+
+
+def check_b16(g2, gen, dev, card, ptxas, product_ms):
     """B16 selmadd and dblw against their plain versions at window 1 and 3
     on the special lanes of ``b16_inputs``, every block of a ragged table
     of B16_TABLE_N lanes (the last block's padding has digit 0); timed at
-    the bitscan path's shape (window 1, A = 1024, table 4096 lanes)."""
+    the bitscan path's shape (window 1, A = 1024, table 4096 lanes) beside
+    the throughput bound and the latency yardstick (the general path's
+    products, one after another, at ``product_ms`` each); the kernels'
+    ptxas figures (csrc/shared.cu on the register engine)."""
     import torch
     from threshold_crypto_tpu_torch.device import cuda_curve as ccv
 
@@ -2180,25 +2210,36 @@ def check_b16(g2, gen, dev, card):
     sel_ms = cuda_time_ms(lambda: sel.launch(acc, table, digits, 0), 20)
     dbl_ms = cuda_time_ms(lambda: dbl.launch(acc, 1), 20)
     nonzero = int((digits[:A] != 0).sum().item())
-    sel_bound = bound_ms(2 * rows * 4 * A + 4 * A + rows * 4 * nonzero,
-                         nonzero * ADD_FQ_PRODUCTS[k - 1] * FQ_PRODUCT_IMADS,
-                         card)
-    dbl_bound = bound_ms(2 * rows * 4 * A,
-                         A * DBL_FQ_PRODUCTS[k - 1] * FQ_PRODUCT_IMADS, card)
+    sel_bound, dbl_bound = b16_bounds(g2, nonzero, A, 1, card)
+    sel_lat = ADD_FQ_PRODUCTS[k - 1] * product_ms
+    dbl_lat = DBL_FQ_PRODUCTS[k - 1] * product_ms
     print(f"{sel.name} / {dbl.name} acc [{rows}, {A}]: bit-exact at window 1 "
           f"and 3 on every block of a {B16_TABLE_N}-lane table (infinity, "
           f"T == Q, T == -Q, Q at infinity, digit 0 and padding lanes); at "
           f"window 1 selmadd {sel_ms:.4f} ms (plain {sel_plain_ms:.1f} ms, "
           f"bound {sel_bound[0]:.4f} ms, {sel_bound[1]}, {nonzero} nonzero "
-          f"digits, {sel_ms / sel_bound[0]:.1f}x), dblw {dbl_ms:.4f} ms "
+          f"digits, {sel_ms / sel_bound[0]:.1f}x; latency yardstick "
+          f"{sel_lat:.4f} ms, {sel_ms / sel_lat:.2f}x), dblw {dbl_ms:.4f} ms "
           f"(plain {dbl_plain_ms:.1f} ms, bound {dbl_bound[0]:.4f} ms, "
-          f"{dbl_bound[1]}, {dbl_ms / dbl_bound[0]:.1f}x)", flush=True)
+          f"{dbl_bound[1]}, {dbl_ms / dbl_bound[0]:.1f}x; latency yardstick "
+          f"{dbl_lat:.4f} ms, {dbl_ms / dbl_lat:.2f}x)", flush=True)
+    figures = {}
+    for kind in ("selmadd", "dblw"):
+        fn = f"{kind}_kernel<{'Fq2' if g2 else 'Fq'}>"
+        figures[kind] = dict(zip(("registers", "stack_frame", "spill_stores",
+                                  "spill_loads"), ptxas[fn]))
+        print(f"g{1 + g2}_{kind} (shared.cu {fn}, the register engine): "
+              f"{ptxas[fn][0]} registers, {ptxas[fn][1]} bytes stack frame, "
+              f"{ptxas[fn][2]} bytes spill stores, {ptxas[fn][3]} bytes "
+              f"spill loads", flush=True)
     return {sel.name: dict(lanes=A, max_abs_err=err["selmadd"], ms=sel_ms,
                            plain_ms=sel_plain_ms, bound_ms=sel_bound[0],
-                           bound_by=sel_bound[1], window=1),
+                           bound_by=sel_bound[1], window=1,
+                           latency_ms=sel_lat, ptxas=figures["selmadd"]),
             dbl.name: dict(lanes=A, max_abs_err=err["dblw"], ms=dbl_ms,
                            plain_ms=dbl_plain_ms, bound_ms=dbl_bound[0],
-                           bound_by=dbl_bound[1], window=1)}
+                           bound_by=dbl_bound[1], window=1,
+                           latency_ms=dbl_lat, ptxas=figures["dblw"])}
 
 
 # ---------------------------------------------------------------------------
@@ -3037,8 +3078,13 @@ def main():
                   flush=True)
     torch.cuda.empty_cache()
     results["lagrange_rowprod"] = check_rowprod(dev, card)
+    product_ms = product_latency_ms(next(
+        w for w in results["mont_pow"]["widths"]
+        if w["lanes"] == 1 and w["field"] == "Fq"))
+    print(f"one Fq product in series (B2's one-lane chain): "
+          f"{1e3 * product_ms:.3f} us", flush=True)
     for g2 in (False, True):
-        results.update(check_b16(g2, gen, dev, card))
+        results.update(check_b16(g2, gen, dev, card, ptxas, product_ms))
     torch.cuda.empty_cache()
 
     old, new, pair_args = run_slices(dev)
@@ -3132,7 +3178,7 @@ def main():
             entry["plain_lanes"] = res["plain_lanes"]
         for key in ("dkg_shape", "ptxas", "widths", "lanes_check_width",
                     "ms_check_width", "plain_ms_check_width",
-                    "bound_ms_check_width"):
+                    "bound_ms_check_width", "latency_ms"):
             if key in res:
                 entry[key] = res[key]
         if "accumulators" in res:

@@ -1,15 +1,15 @@
 """The curve and SHA3 kernels' CUDA sources, compiled for the host, against
 their plain versions and ``hashlib``.
 
-The per-lane bodies of B15 and B16 (``csrc/curve.cuh``: the doubling,
-the complete add, the bit ladder of one lane, and the gated table add and
-the w doublings of one accumulator lane), of B10, B11 and B13
-(``csrc/ladder_engine.cuh``: the complete mixed add of one lane, the
-Horner loop of one accumulator, the digit ladder of one lane) and of B12
-(``csrc/keccak.cuh``) are plain C++ behind CUDA's
-function qualifiers. Here g++ compiles them with the qualifiers defined
-away, and a serial loop over the lanes (or accumulators, or chunks) stands
-in for the grid: the same integer arithmetic the kernels run on the card,
+The per-lane bodies of B15 (``csrc/curve.cuh``: the doubling and the bit
+ladder of one lane), of B10, B11, B13 and B16 (``csrc/ladder_engine.cuh``:
+the complete add, with its T == Q case a branch into the doubling, the
+complete mixed add of one lane, the Horner loop of one accumulator, the
+digit ladder of one lane, and the gated table add and the w doublings of
+one accumulator lane) and of B12 (``csrc/keccak.cuh``) are plain C++
+behind CUDA's function qualifiers. Here g++ compiles them with the
+qualifiers defined away, and a serial loop over the lanes (or
+accumulators, or chunks) stands in for the grid: the same integer arithmetic the kernels run on the card,
 on the packed layout, checked bit-exact against the plain versions
 (``device/curve.py``, ``device/cuda_curve.py``, ``device/keccak.py``) on
 seeded points with the special lanes T == Q, T == −Q and infinity on
@@ -17,9 +17,11 @@ either side (for the ladders: 16T == ±table[d − 1], 2T == ±Q, T at
 infinity and digit or bit 0; for B10 also zero and p − 1 lanes, and the
 table build's six launches from acc = Q with Z = 1; for B11 T == Q
 followed by another add in the same window and digits outside 1..7; for
-B16 the block's first lane and a ragged last block whose padding has
-digit 0), and against ``hashlib.sha3_256``. Without g++ the tests skip
-(the kernels themselves run only on the card, in ``chip_smoke.py``).
+B16 the block's first lane, T == Q on the first lane of a later block,
+digits outside 1..nent, a ragged last block whose padding has digit 0, and
+0, 1 and 3 doublings), and against ``hashlib.sha3_256``. Without g++ the
+tests skip (the kernels themselves run only on the card, in
+``chip_smoke.py``).
 """
 
 import hashlib
@@ -73,20 +75,31 @@ void run(int op, int n, int accs, int ndig, int window, int start) {
     out.resize(P * n);
     for (int l = 0; l < n; ++l)
       tc::madd_lane_r<F>(acc.data(), q.data(), out.data(), n, l);
-  } else if (op == 1 || op == 2) {  // dbl, add
+  } else if (op == 1) {  // dbl (curve.cuh, B15's)
     auto a = rd(P * n);
-    auto b = op == 2 ? rd(P * n) : std::vector<int32_t>();
     out.resize(P * n);
     for (int l = 0; l < n; ++l) {
-      tc::Jac<F> T, Q;
+      tc::Jac<F> T;
       tc::load_jac(T, a.data(), 0, n, l);
-      if (op == 1) {
-        tc::jac_dbl(T, T);
-      } else {
-        tc::load_jac(Q, b.data(), 0, n, l);
-        tc::jac_add(T, T, Q);
-      }
+      tc::jac_dbl(T, T);
       tc::store_jac(out.data(), T, n, l);
+    }
+  } else if (op == 2) {  // add: the register engine's, 2T where it says
+    using R = typename tc::reg::Field<F>::type;
+    constexpr int kc = tc::reg::Field<F>::k;
+    auto a = rd(P * n), b = rd(P * n);
+    out.resize(P * n);
+    for (int l = 0; l < n; ++l) {
+      tc::reg::Jac<R> T;
+      tc::reg::f_load(T.X, a.data(), 0, n, l);
+      tc::reg::f_load(T.Y, a.data(), kc, n, l);
+      tc::reg::f_load(T.Z, a.data(), 2 * kc, n, l);
+      int dbl = 0;
+      tc::reg::jac_add(T, b.data(), 0, kc, n, l, dbl);
+      if (dbl) tc::reg::jac_dbl(T);
+      tc::reg::f_store(out.data(), T.X, 0, n, l);
+      tc::reg::f_store(out.data(), T.Y, kc, n, l);
+      tc::reg::f_store(out.data(), T.Z, 2 * kc, n, l);
     }
   } else if (op == 3) {  // winacc
     auto table = rd(((1ul << window) - 1) * P * n), digits = rd(ndig * n);
@@ -98,13 +111,13 @@ void run(int op, int n, int accs, int ndig, int window, int start) {
     auto acc = rd(P * accs), table = rd(window * P * n), digits = rd(n);
     out.resize(P * accs);
     for (int j = 0; j < accs; ++j)
-      tc::selmadd_lane<F>(acc.data(), table.data(), digits.data(),
-                          out.data(), accs, n, window, start, j);
+      tc::selmadd_lane_r<F>(acc.data(), table.data(), digits.data(),
+                            out.data(), accs, n, window, start, j);
   } else if (op == 8) {  // dblw (B16)
     auto acc = rd(P * n);
     out.resize(P * n);
     for (int l = 0; l < n; ++l)
-      tc::dblw_lane<F>(acc.data(), out.data(), n, window, l);
+      tc::dblw_lane_r<F>(acc.data(), out.data(), n, window, l);
   } else if (op == 5) {  // step (B15): acc, q affine, bits
     auto acc = rd(P * n), q = rd(2 * P / 3 * n), bits = rd(ndig * n);
     out.resize(P * n);
@@ -475,9 +488,63 @@ def test_selmadd_body_matches_plain_version(harness, group, nent):
             assert torch.equal(want[:, 5], acc[:, 5])       # digit 0
 
 
-@pytest.mark.parametrize("window", [1, 3])
+def test_selmadd_body_reads_entry_0_for_digits_out_of_range(harness, group):
+    """A digit outside 1..nent (nent + 1, 8, 100, −1, −7) selects entry 0,
+    as the TPU's select chain does: against the plain version and the
+    host's T + entry 0, with window 3's seven entries."""
+    curve, host, T, Q = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    nent, A, n = 7, 8, 8
+    rng = np.random.default_rng(0xD16)
+    acc = ccv.pack_point(T)[:, 5:5 + A].contiguous()
+    qp = ccv.pack_point(Q)
+    table = torch.cat([qp[:, torch.from_numpy(rng.integers(5, N, n))]
+                       for _ in range(nent)]).contiguous()
+    digits = torch.tensor([nent + 1, 8, 100, -1, -7, 3, 0, 1],
+                          dtype=torch.int32)
+    got = _run(harness, "selmadd", g2, n, [acc, table, digits], (rows, A),
+               accs=A, window=nent)
+    want = ccv._selmadd_ref(g2, acc, table, digits, 0)
+    assert torch.equal(got, want)
+    pts = curve.to_host_affine(ccv.unpack_jac(want, g2))
+    tin = curve.to_host_affine(ccv.unpack_jac(acc, g2))
+    entry0 = curve.to_host_affine(ccv.unpack_jac(table[:rows], g2))
+    assert pts[:5] == [host.add(t, e) for t, e in zip(tin[:5], entry0[:5])]
+    assert torch.equal(want[:, 6], acc[:, 6])           # digit 0
+
+
+def test_selmadd_body_doubles_on_the_first_lane_of_a_later_block(harness,
+                                                                 group):
+    """T == Q on lane 0 of the blocks that start at A and 2A (the add's
+    doubling branch where ``start`` is not 0), beside random lanes:
+    against the plain version and the host's 2T."""
+    curve, host, T, Q = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    A, n = 4, 12
+    rng = np.random.default_rng(0xB16)
+    acc = ccv.pack_point(T)[:, 5:5 + A].contiguous()
+    qp = ccv.pack_point(Q)
+    for start in (A, 2 * A):
+        digits = torch.from_numpy(rng.integers(1, 4, n).astype(np.int32))
+        entries = [qp[:, torch.from_numpy(rng.integers(5, N, n))]
+                   for _ in range(3)]
+        entries[int(digits[start]) - 1][:, start] = acc[:, 0]
+        table = torch.cat(entries).contiguous()
+        got = _run(harness, "selmadd", g2, n, [acc, table, digits],
+                   (rows, A), accs=A, window=3, start=start)
+        want = ccv._selmadd_ref(g2, acc, table, digits, start)
+        assert torch.equal(got, want)
+        pts = curve.to_host_affine(ccv.unpack_jac(want, g2))
+        tin = curve.to_host_affine(ccv.unpack_jac(acc, g2))
+        assert pts[0] == host.double(tin[0])
+
+
+@pytest.mark.parametrize("window", [1, 3, 0])
 def test_dblw_body_matches_plain_version(harness, group, window):
-    """B16's w doublings per lane, infinity lanes included."""
+    """B16's w doublings per lane, infinity lanes included; at window 0
+    the accumulator unchanged."""
     curve, host, T, _ = group
     g2 = curve is dcv.G2
     rows = (6 if g2 else 3) * 24
@@ -485,6 +552,8 @@ def test_dblw_body_matches_plain_version(harness, group, window):
                window=window)
     want = ccv._dblw_ref(g2, ccv.pack_point(T), window)
     assert torch.equal(got, want)
+    if window == 0:
+        assert torch.equal(got, ccv.pack_point(T))
     assert curve.to_host_affine(ccv.unpack_jac(want, g2)) == [
         None if t is None else host.mul(t, 1 << window)
         for t in curve.to_host_affine(T)]

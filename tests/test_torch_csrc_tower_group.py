@@ -1,8 +1,9 @@
 """The lane-group tower engine (``csrc/tower_group.cuh``), compiled for the
-host, against the plain versions of B4, B5, B6, B7 and B8.
+host, against the plain versions of B4, B5, B6, B7, B8 and B9.
 
 On the card one lane of B4 ``dbl_fold`` / B5 ``add_fold`` / B6
-``cyclo_sqr`` / B7 ``cyclo_sqr_mul`` / B8 ``fq12_mul`` runs on a group of
+``cyclo_sqr`` / B7 ``cyclo_sqr_mul`` / B8 ``fq12_mul`` / B9 ``fq12_sqr``
+runs on a group of
 ``kGroup`` threads: the block stages its lanes' inputs into shared
 memory, each phase of the static schedule is dealt over the group's
 threads with a barrier after it, and the block writes its outputs. Here
@@ -12,16 +13,18 @@ phase functions in the barriers' order:
 
 * the bodies bit-exact with ``cuda_tower.dbl_fold_ref`` /
   ``add_fold_ref`` / ``cyclo_sqr_ref`` / ``cyclo_sqr_mul_ref`` /
-  ``fq12_mul_ref`` at the kernel's group size and at others, on zero f, g
-  and T and infinity P and Q lanes, lanes of p − 1, random lanes and (B6,
-  B7) cyclotomic lanes, over blocks whose last one is ragged;
+  ``fq12_mul_ref`` / ``fq12_sqr_ref`` at the kernel's group size and at
+  others, on zero f, g and T and infinity P and Q lanes, lanes of p − 1,
+  (B9) lanes of one, random lanes and (B6, B7) cyclotomic lanes, over
+  blocks whose last one is ragged;
 * the dealing: each op of each phase runs on exactly one thread of the
   group, the product phases hold the 122 (B4: 48, 19, 16, 39), 80 (B5: 6,
-  14, 48, 12), 18 (B6), 72 (B7: 18, 54) and 54 (B8) Fq products, and a
-  thread runs Σ ceil(layer / G) of them;
+  14, 48, 12), 18 (B6), 72 (B7: 18, 54), 54 (B8) and 36 (B9) Fq products,
+  and a thread runs Σ ceil(layer / G) of them;
 * a linear form reduced as its steps say (canonical when stored; as a
   product's operand, the bound the product needs) on edge and random
-  slots, and the product canonical on operands up to that bound;
+  slots, B9's schedule's own forms among them, and the product canonical
+  on operands up to that bound;
 * the tables in the header are the generator's
   (``tools/tower_group_schedule.py``);
 * a wrapper's dispatch sends a CPU tensor to the plain version.
@@ -67,7 +70,7 @@ struct Sched {
   const int32_t *phase_ops, *ops, *terms, *out_slots;
   int phases, slots, lane_words;
 };
-static const Sched kS[5] = {
+static const Sched kS[6] = {
     {kB4PhaseOps, kB4Ops, kB4Terms, kB4OutSlots, kB4Phases, kB4Slots,
      kB4LaneWords},
     {kB6PhaseOps, kB6Ops, kB6Terms, kB6OutSlots, kB6Phases, kB6Slots,
@@ -77,7 +80,9 @@ static const Sched kS[5] = {
     {kB8PhaseOps, kB8Ops, kB8Terms, kB8OutSlots, kB8Phases, kB8Slots,
      kB8LaneWords},
     {kB5PhaseOps, kB5Ops, kB5Terms, kB5OutSlots, kB5Phases, kB5Slots,
-     kB5LaneWords}};
+     kB5LaneWords},
+    {kB9PhaseOps, kB9Ops, kB9Terms, kB9OutSlots, kB9Phases, kB9Slots,
+     kB9LaneWords}};
 
 static std::vector<int32_t> rd(size_t count) {
   std::vector<int32_t> v(count);
@@ -119,7 +124,7 @@ static void emulate(const Sched& s, const std::vector<const int32_t*>& in,
 
 // stdin: int32 op, G, shift, n, then the inputs; stdout: the outputs.
 // op 0: B4 (f, T, P -> f, T); op 1: B6 (f -> f); op 6: B7 (f, g -> f);
-// op 7: B8 (a, b -> a·b); op 8: B5 (f, T, Q, P -> f, T);
+// op 7: B8 (a, b -> a·b); op 8: B5 (f, T, Q, P -> f, T); op 9: B9 (a -> a²);
 // op 10 + s: for schedule s, a scratch of random values, then per phase
 // its op count, its product flag and per thread g the slots thread g's
 // share of it writes; op 4: n forms (words, first terms, `shift` terms)
@@ -160,6 +165,11 @@ int main() {
             {fo.data(), To.data()}, {12, 6}, n, G, shift);
     fwrite(fo.data(), 4, fo.size(), stdout);
     fwrite(To.data(), 4, To.size(), stdout);
+  } else if (op == 9) {
+    auto a = rd(288ul * n);
+    std::vector<int32_t> fo(288ul * n);
+    emulate(kS[5], {a.data()}, {12}, {fo.data()}, {12}, n, G, shift);
+    fwrite(fo.data(), 4, fo.size(), stdout);
   } else if (op == 4) {  // n forms over a scratch of G slots
     auto init = rd(static_cast<size_t>(G) * kWords);
     auto words = rd(n);
@@ -185,7 +195,7 @@ int main() {
       out.insert(out.end(), r.w, r.w + kWords);
     }
     fwrite(out.data(), 4, out.size(), stdout);
-  } else if (op >= 10 && op < 15) {
+  } else if (op >= 10 && op < 16) {
     const Sched& s = kS[op - 10];
     auto init = rd(static_cast<size_t>(s.slots) * kWords);
     std::vector<int32_t> out;
@@ -218,7 +228,7 @@ SHIFT = 2
 GROUP = 8       # the kernel's kGroup
 PRODUCTS = {"dbl_fold": [48, 19, 16, 39], "cyclo_sqr": [18],
             "cyclo_sqr_mul": [18, 54], "fq12_mul": [54],
-            "add_fold": [6, 14, 48, 12]}
+            "add_fold": [6, 14, 48, 12], "fq12_sqr": [36]}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -414,6 +424,36 @@ def test_fq12_mul_group_body_matches_plain_version(harness, G):
             _flat12(htw.fq12_mul(e, h))
 
 
+@pytest.mark.parametrize("G", [GROUP, 4, 16])
+def test_fq12_sqr_group_body_matches_plain_version(harness, G):
+    """B9: a² with a zero on lanes 0-1, one (the Fq12 identity) on lanes
+    2-3, p − 1 in every component on lane 4, one Fq6 half zero on lanes 5
+    (a1) and 6 (a0), and random elsewhere, against the plain version and
+    the host tower on every lane."""
+    rnd = random.Random(0xB9 + G)
+    a_host = _random(rnd, 12)
+    for c in a_host:
+        c[0] = c[1] = 0
+        c[2] = c[3] = 0
+        c[4] = FQ.p - 1
+    for c in a_host[:1]:
+        c[2] = c[3] = 1
+    for c in a_host[6:]:
+        c[5] = 0
+    for c in a_host[:6]:
+        c[6] = 0
+    a = _packed(a_host)
+    out = _run(harness, 9, G, N, [a.numpy().tobytes()])
+    fo = torch.from_numpy(out.reshape(288, N).copy())
+    assert torch.equal(fo, ctw.fq12_sqr_ref(a))
+    got = [mont.unstack_mont(FQ, c) for c in pk_unpack(fo)]
+    for lane in range(N):
+        e = _fq12([a_host[i][lane] for i in range(12)])
+        assert [got[i][lane] for i in range(12)] == _flat12(htw.fq12_sqr(e))
+    assert [got[i][2] for i in range(12)] == [1] + [0] * 11
+    assert all(got[i][0] == 0 for i in range(12))
+
+
 def _fq12(x):
     """12 Fq components in the packed order -> a host Fq12."""
     fq2 = [(x[2 * i], x[2 * i + 1]) for i in range(6)]
@@ -428,16 +468,16 @@ def pk_unpack(packed):
 
 @pytest.mark.parametrize("name,sched", [("dbl_fold", 0), ("cyclo_sqr", 1),
                                         ("cyclo_sqr_mul", 2), ("fq12_mul", 3),
-                                        ("add_fold", 4)])
+                                        ("add_fold", 4), ("fq12_sqr", 5)])
 @pytest.mark.parametrize("G", [GROUP, 4])
 def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
     """Thread g's share of a phase writes the slots of ops g, g + G, …:
     over the group the shares are disjoint and cover every op of the
     phase once; the product phases hold the 122 (B4), 18 (B6), 72 (B7),
-    54 (B8) or 80 (B5) Fq products, and the busiest thread runs
+    54 (B8), 80 (B5) or 36 (B9) Fq products, and the busiest thread runs
     Σ ceil(layer / G) of them."""
     text = open(os.path.join(_build.CSRC, "tower_group.cuh")).read()
-    prefix = ("kB4", "kB6", "kB7", "kB8", "kB5")[sched]
+    prefix = ("kB4", "kB6", "kB7", "kB8", "kB5", "kB9")[sched]
     slots = int(re.search(rf"constexpr int {prefix}Slots = (\d+);",
                           text).group(1))
     rnd = random.Random(sched)
@@ -462,7 +502,7 @@ def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
     if G == GROUP:
         assert busiest == {"dbl_fold": 16, "cyclo_sqr": 3,
                            "cyclo_sqr_mul": 10, "fq12_mul": 7,
-                           "add_fold": 11}[name]
+                           "add_fold": 11, "fq12_sqr": 5}[name]
 
 
 def _gen():
@@ -482,20 +522,44 @@ def _int(ws):
     return sum(int(w) << (32 * j) for j, w in enumerate(ws))
 
 
-@pytest.mark.parametrize("steps", ["product", "stored"])
+def _schedule_forms(gen, make):
+    """Every form of a schedule's ops, in op order, as (slot: coefficient,
+    word, "stored" for a linear op's form or "operand" for a product's)."""
+    terms, ops, _, _, _ = make().tables()
+    out = []
+    for _, t0, fa, fb in ops:
+        for start, word in ((t0, fa), (t0 + (fa & 0xFF), fb)):
+            if word == 0:
+                continue
+            f = {t >> 8: (t & 0xFF) - ((t & 0x80) << 1)
+                 for t in terms[start:start + (word & 0xFF)]}
+            out.append((f, word, "operand" if fb else "stored"))
+    return out
+
+
+@pytest.mark.parametrize("steps", ["product", "stored", "kB9"])
 def test_forms_reduce_as_their_steps_say(harness, steps):
     """A form Σ c·slot with the generator's reduction steps: stored, the
     canonical value; as a product operand, its value mod p below 2^384
     (below 3p after QSTEP) and within the weight bound the product needs.
     Slots of 0, 1, p − 1, p − 2 and random values; 1 to 24 terms with
-    coefficients up to ±127, all of one sign among them."""
+    coefficients up to ±127, all of one sign among them; or ("kB9") the
+    forms of B9's schedule over its 48 slots, each product's two operands
+    within a·b < R·p."""
     gen = _gen()
     P = FQ.p
     rnd = random.Random(0xF0 + len(steps))
-    vals = [0, 1, P - 1, P - 2] + [rnd.randrange(P) for _ in range(12)]
+    if steps == "kB9":
+        sched = _schedule_forms(gen, gen.SCHEDULES["kB9"])
+        n_slots = 1 + max(s for f, _, _ in sched for s in f)
+        vals = [0, 1, P - 1, P - 2] + [rnd.randrange(P)
+                                       for _ in range(n_slots - 4)]
+        vals[rnd.randrange(4, n_slots)] = P - 1
+    else:
+        vals = [0, 1, P - 1, P - 2] + [rnd.randrange(P) for _ in range(12)]
     init = np.array([w for v in vals for w in _words(v)], np.uint32)
-    forms = []
-    for i in range(300):
+    forms, whats = [], []
+    for i in range(0 if steps == "kB9" else 300):
         nt = rnd.randint(1, 24)
         slots = rnd.sample(range(len(vals)), min(nt, len(vals)))
         sign = [1, -1, 0][i % 3]
@@ -512,21 +576,38 @@ def test_forms_reduce_as_their_steps_say(harness, steps):
         starts.append(len(terms))
         terms += [s << 8 | (c & 0xFF) for s, c in f.items()]
         words.append(len(f) | red << 8)
+        whats.append(steps)
+    if steps == "kB9":
+        for f, word, what in sched:
+            forms.append(f)
+            starts.append(len(terms))
+            terms += [s << 8 | (c & 0xFF) for s, c in sorted(f.items())]
+            words.append(word)
+            whats.append(what)
     blobs = [init.tobytes(), np.array(words, np.int32).tobytes(),
              np.array(starts, np.int32).tobytes(),
              np.array(terms, np.int32).tobytes()]
     out = _run(harness, 4, len(vals), len(forms), blobs, shift=len(terms))
     got = [_int(r) for r in out.view(np.uint32).reshape(-1, 12)]
-    for f, g, w in zip(forms, got, words):
+    bound = []
+    for f, g, w, what in zip(forms, got, words, whats):
         want = sum(c * vals[s] for s, c in f.items()) % P
         assert g % P == want
         weight = sum(abs(c) for c in f.values())
-        if steps == "stored":
+        if what == "stored":
             assert g == want
         elif w >> 8:
             assert g < 3 * P
+            bound.append(3)
         else:
             assert g <= weight * P
+            bound.append(weight)
+    if steps == "kB9":
+        # a product's two operands (consecutive forms, each below its bound
+        # times p) within the product's bound a·b < R·p
+        assert len(bound) == 2 * 36
+        for ba, bb in zip(bound[::2], bound[1::2]):
+            assert ba * bb * P < 1 << 384
 
 
 def test_product_is_canonical_below_its_bound(harness):
@@ -556,8 +637,8 @@ def test_header_tables_are_the_generators():
     assert [s().product_counts() for s in gen.SCHEDULES.values()] == [
         PRODUCTS["dbl_fold"], PRODUCTS["cyclo_sqr"],
         PRODUCTS["cyclo_sqr_mul"], PRODUCTS["fq12_mul"],
-        PRODUCTS["add_fold"]]
-    assert list(gen.SCHEDULES) == ["kB4", "kB6", "kB7", "kB8", "kB5"]
+        PRODUCTS["add_fold"], PRODUCTS["fq12_sqr"]]
+    assert list(gen.SCHEDULES) == ["kB4", "kB6", "kB7", "kB8", "kB5", "kB9"]
 
 
 def test_cpu_tensors_take_the_plain_versions():

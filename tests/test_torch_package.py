@@ -116,7 +116,7 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
                                          ("ladder", "curve.cuh"),
                                          ("ladder", "ladder_engine.cuh"),
                                          ("fr", "fr.cuh"),
-                                         ("shared", "curve.cuh"),
+                                         ("shared", "ladder_engine.cuh"),
                                          ("miller", "tower_group.cuh"),
                                          ("fq12", "tower_group.cuh")])
 def test_msm_and_keccak_sources_build_alone(name, header):
@@ -266,3 +266,43 @@ def test_ops_export_the_dkg_and_rlc_names():
         for method in ("generator", "neg", "eq", "scalar_mul",
                        "msm_scalarwise", "fold_axis"):
             assert callable(getattr(curve, method))
+
+
+# The JAX ``ops`` names with no counterpart in the port: its jit, AOT-cache
+# and stepwise wrappers (``ops/threshold.py``'s module docstring).
+NO_COUNTERPART = ("set_aot_cache", "verify_batch_pallas_jit",
+                  "verify_batch_stepwise", "combine_batch_stepwise",
+                  "verify_sig_shares_rlc_stepwise")
+
+
+def test_ops_export_every_name_of_the_jax_ops():
+    """Every name the JAX ``ops/__init__.py`` imports (read from its text,
+    JAX not imported) is in the port's ``ops``, but the five wrappers the
+    port documents as having no counterpart; ``ops.poly_eval`` evaluates
+    as ``ops.fr.poly_eval`` and the host's Horner."""
+    import ast
+
+    from threshold_crypto_tpu_torch import ops
+    from threshold_crypto_tpu_torch.device import mont
+    from threshold_crypto_tpu_torch.device.mont import FR
+    from threshold_crypto_tpu_torch.ops import threshold
+
+    path = os.path.join(REPO, "threshold_crypto_tpu", "ops", "__init__.py")
+    tree = ast.parse(open(path).read())
+    names = [a.asname or a.name for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert "poly_eval" in names and set(NO_COUNTERPART) <= set(names)
+    missing = [n for n in names
+               if n not in NO_COUNTERPART and not hasattr(ops, n)]
+    assert missing == []
+    assert all(n in ops.__all__ for n in names
+               if n not in NO_COUNTERPART and n not in ("fr", "threshold"))
+    assert all(n in threshold.__doc__ for n in NO_COUNTERPART)
+    coeffs, xs = [5, 7, FR.p - 1], [0, 1, 3, FR.p - 2]
+    c = torch.from_numpy(mont.stack_mont(FR, coeffs))
+    x = torch.from_numpy(mont.stack_mont(FR, xs))
+    got = ops.poly_eval(c, x)
+    assert torch.equal(got, ops.fr.poly_eval(c, x))
+    assert mont.unstack_mont(FR, got) == [
+        sum(k * pow(v, i, FR.p) for i, k in enumerate(coeffs)) % FR.p
+        for v in xs]

@@ -1,16 +1,13 @@
 // Jacobian G1/G2 point formulas of the curve kernels as per-lane device
-// functions, and the per-lane bodies of B15 (step) and B16 (selmadd,
-// dblw). B10 (madd), B11 (winacc) and B13 (step4) run on
-// ladder_engine.cuh.
+// functions, and the per-lane body of B15 (step). B10 (madd), B11
+// (winacc), B13 (step4) and B16 (selmadd, dblw) run on ladder_engine.cuh.
 //
 // Replaces the in-kernel formulas of threshold_crypto_tpu/device/
-// pallas_curve.py (:143-370): `_jac_dbl` (7 products), `_jac_add` (the
-// complete Jacobian + Jacobian add, 23 products, 16 of them on the general
-// path) and `_msm_step` (a doubling and a gated complete mixed add with
-// its own doubling of 2T, 25 products, 18 of them on the general path),
-// written for G1 over Fq and G2 over Fq2 as one template over the
-// field. The formulas are the JAX ones value for
-// value: the same products, the same small multiples (2·x as x + x, 3·x,
+// pallas_curve.py (:143-370) that B15 runs: `_jac_dbl` (7 products) and
+// `_msm_step` (a doubling and a gated complete mixed add with its own
+// doubling of 2T, 25 products, 18 of them on the general path), written
+// for G1 over Fq and G2 over Fq2 as one template over the field. The
+// formulas are the JAX ones value for value: the same products, the same small multiples (2·x as x + x, 3·x,
 // 8·x by fq_small's addition tree) and the same select order (T == Q, then
 // T == −Q, then the infinity cases). Every coordinate is canonical, so the
 // limbs equal the TPU kernels' and the plain versions' (device/curve.py).
@@ -136,7 +133,7 @@ __device__ __forceinline__ void store_jac(int32_t* dst, const Jac<F>& p,
 }
 
 // ---------------------------------------------------------------------------
-// The formulas (pallas_curve.py `_jac_dbl`, `_jac_add`, `_msm_step`)
+// The formulas (pallas_curve.py `_jac_dbl`, `_msm_step`)
 // ---------------------------------------------------------------------------
 
 // A = X², B = Y², S = Y·Z, E = 3A, C = B², D = 2((X + B)² − A − C);
@@ -162,78 +159,6 @@ __device__ __noinline__ void jac_dbl(Jac<F>& r, const Jac<F>& T) {
   f_small(u, C, 8);
   f_sub(r.Y, t, u);                      // Yd = E(D − Xd) − 8C
   f_small(r.Z, S, 2);                    // Zd = 2S
-}
-
-// The complete add T + Q: the general chord, the doubling of T (for
-// T == Q), infinity for T == −Q, and either operand at infinity.
-template <class F>
-__device__ __noinline__ void jac_add(Jac<F>& r, const Jac<F>& T,
-                                     const Jac<F>& Q) {
-  F z1z, z2z, Z1Z2, u1, u2, z2c, z1c, h, s1, s2, hh, A, B, S, rr_, XpB, E;
-  F hhh, v, rr, Zo, C, XB2, E2, Xo, D, Xd, Yo, Yd, Zd, t, u;
-  // L1
-  f_sqr(z1z, T.Z);
-  f_sqr(z2z, Q.Z);
-  f_mul(Z1Z2, T.Z, Q.Z);
-  // L2
-  f_mul(u1, T.X, z2z);
-  f_mul(u2, Q.X, z1z);
-  f_mul(z2c, z2z, Q.Z);
-  f_mul(z1c, z1z, T.Z);
-  f_sub(h, u2, u1);
-  // L3: the chord products and layer 1 of dbl(T)
-  f_mul(s1, T.Y, z2c);
-  f_mul(s2, Q.Y, z1c);
-  f_sqr(hh, h);
-  f_sqr(A, T.X);
-  f_sqr(B, T.Y);
-  f_mul(S, T.Y, T.Z);
-  f_sub(rr_, s2, s1);                    // r
-  f_add(XpB, T.X, B);
-  f_small(E, A, 3);
-  // L4
-  f_mul(hhh, h, hh);
-  f_mul(v, u1, hh);
-  f_sqr(rr, rr_);
-  f_mul(Zo, Z1Z2, h);
-  f_sqr(C, B);
-  f_sqr(XB2, XpB);
-  f_sqr(E2, E);
-  f_sub(t, rr, hhh);
-  f_small(u, v, 2);
-  f_sub(Xo, t, u);                       // Xo = r² − hhh − 2v
-  f_sub(t, XB2, A);
-  f_sub(t, t, C);
-  f_small(D, t, 2);
-  f_small(t, D, 2);
-  f_sub(Xd, E2, t);                      // Xd = E² − 2D
-  // L5
-  f_sub(t, v, Xo);
-  f_mul(t, rr_, t);                      // r(v − Xo)
-  f_mul(u, s1, hhh);
-  f_sub(Yo, t, u);
-  f_sub(t, D, Xd);
-  f_mul(t, E, t);
-  f_small(u, C, 8);
-  f_sub(Yd, t, u);
-  f_small(Zd, S, 2);
-
-  const bool inf1 = f_is_zero(T.Z);
-  const bool inf2 = f_is_zero(Q.Z);
-  const bool h0 = f_is_zero(h);
-  const bool r0 = f_is_zero(rr_);
-  Jac<F> out;
-  out.X = Xo;
-  out.Y = Yo;
-  out.Z = Zo;
-  select3(out, h0 && r0, Xd, Yd, Zd);    // T == Q  -> 2T
-  F one, zero;
-  f_set(one, true);
-  f_set(zero, false);
-  select3(out, h0 && !r0, one, one, zero);  // T == -Q -> infinity
-  select3(out, inf2, T.X, T.Y, T.Z);     // T + 0
-  select3(out, inf1, Q.X, Q.Y, Q.Z);     // 0 + Q
-  r = out;
 }
 
 // One set bit of the per-lane ladder (`_msm_step` with do_add): r = 2T + Q
@@ -353,43 +278,6 @@ __device__ __forceinline__ void step_lane(const int32_t* acc_in,
     else
       jac_dbl(T, T);
   }
-  store_jac(out, T, n, lane);
-}
-
-// B16 selmadd (`_mk_selmadd_kernel`), one accumulator lane j of `accs`:
-// acc + table[d − 1] of lane start + j of the n, with the complete add,
-// where d = digits[start + j] is not 0; the accumulator unchanged where it
-// is. A lane start + j ≥ n (the padding of the last block) has digit 0.
-// table: entries 1P..(nent)P of 3k components each, [nent·3k·24, n];
-// digits [n] (one window); acc and out [3k·24, accs]. A digit outside
-// 1..nent reads entry 0, as the TPU's select chain does.
-template <class F>
-__device__ __forceinline__ void selmadd_lane(const int32_t* acc_in,
-                                             const int32_t* table,
-                                             const int32_t* digits,
-                                             int32_t* out, int accs, int n,
-                                             int nent, int start, int j) {
-  Jac<F> T, Q;
-  load_jac(T, acc_in, 0, accs, j);
-  const int lane = start + j;
-  const int d = lane < n ? digits[lane] : 0;
-  if (d != 0) {
-    const int e = (d >= 1 && d <= nent) ? d - 1 : 0;
-    load_jac(Q, table, e * 3 * Comps<F>::k, n, lane);
-    jac_add(T, T, Q);
-  }
-  store_jac(out, T, accs, j);
-}
-
-// B16 dblw (`_mk_dblw_kernel`): acc <- 2^window·acc, `window` doublings of
-// each lane of acc [3k·24, n].
-template <class F>
-__device__ __forceinline__ void dblw_lane(const int32_t* acc_in,
-                                          int32_t* out, int n, int window,
-                                          int lane) {
-  Jac<F> T;
-  load_jac(T, acc_in, 0, n, lane);
-  for (int i = 0; i < window; ++i) jac_dbl(T, T);
   store_jac(out, T, n, lane);
 }
 

@@ -11,8 +11,9 @@
 // same engine: B6's 18 products, then the Fq12 product's 54 (3 + 7 a
 // thread). B8 `fq12_mul_group_kernel` replaces `_k_fq12_mul` (:960) on the
 // same engine: B7's second half, the 54 products in one phase (7 a
-// thread). B9 `fq12_mul_kernel` without a second operand replaces
-// `_k_fq12_sqr` (:964), one thread a lane on tower.cuh. `engine_kernel`
+// thread). B9 `fq12_sqr_group_kernel` replaces `_k_fq12_sqr` (:964), the
+// complex square, on the same engine: B4's first layer without the
+// doubling, 36 products in one phase (5 a thread). `engine_kernel`
 // runs B3 (fq.cuh, replacing `_k_mul16`/`_k_mul13` and `k_add`, `k_sub`,
 // `k_neg`, `k_small`, :140-323) on its own: B3 has no launch of its own on
 // the path, so this entry is how it is held against the plain field
@@ -27,10 +28,10 @@
 // multiply issue rate bounds B7-B9, and B6 sits near the balance point
 // (its bytes take about as long as its products). On the lane-group
 // engine a group of 8 threads runs a lane's products, so the RLC check's
-// 512-lane launches of B6-B8 run 128 blocks of 32 threads (4 lanes each)
-// where one thread a lane filled 4 SMs. In B9 (tower.cuh) f and every
-// intermediate stay in the thread's registers and local memory; at 8,192
-// lanes and 128 threads per block the grid is 64 blocks on 132 SMs.
+// 512-lane launches of B6-B9 run 128 blocks of 32 threads (4 lanes each)
+// where one thread a lane filled 4 SMs, and a launch takes the latency of
+// 3 (B6), 10 (B7), 7 (B8) or 5 (B9) products in series where one thread
+// took 18, 72, 54 or 36.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0.
@@ -108,13 +109,23 @@ fq12_mul_group_kernel(const int32_t* __restrict__ a,
             kB8LaneWords);
 }
 
-// B9: a², one thread a lane (launched with b == nullptr).
-__global__ void __launch_bounds__(kThreads)
-fq12_mul_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                int32_t* __restrict__ fo, int n) {
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  tc::fq12_mul_lane(a, b, fo, n, lane);
+// B9: a in slots 0-11.
+__global__ void __launch_bounds__(tc::grp::kMaxThreads, tc::grp::kMinBlocks)
+fq12_sqr_group_kernel(const int32_t* __restrict__ a,
+                      int32_t* __restrict__ fo, int n, int lane_shift) {
+  using namespace tc::grp;
+  extern __shared__ uint4 fq12_sqr_scratch[];
+  uint32_t* smem = reinterpret_cast<uint32_t*>(fq12_sqr_scratch);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int lane0 = blockIdx.x << lane_shift;
+  stage_in(a, 12, 0, n, lane0, lane_shift, tid, nthreads, smem,
+           kB9LaneWords);
+  __syncthreads();
+  run_schedule(kB9PhaseOps, kB9Ops, kB9Terms, kB9Phases,
+               smem + (tid / kGroup) * kB9LaneWords);
+  __syncthreads();
+  stage_out(fo, kB9OutSlots, 12, n, lane0, lane_shift, tid, nthreads, smem,
+            kB9LaneWords);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -178,9 +189,15 @@ extern "C" int tc_fq12_mul(const void* a, const void* b, void* fo, int n,
 
 extern "C" int tc_fq12_sqr(const void* a, void* fo, int n, void* stream) {
   if (n <= 0) return 0;
-  fq12_mul_kernel<<<grid_for(n), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(in(a), nullptr,
-                                                         out(fo), n);
+  static int allowed = 0;
+  const tc::grp::Shape s = tc::grp::group_shape(n, tc::grp::kB9LaneWords);
+  const int err = tc::grp::allow_scratch(
+      reinterpret_cast<const void*>(fq12_sqr_group_kernel), s.bytes,
+      allowed);
+  if (err != 0) return err;
+  fq12_sqr_group_kernel<<<s.blocks, s.threads, s.bytes,
+                          static_cast<cudaStream_t>(stream)>>>(
+      in(a), out(fo), n, s.shift);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,17 +1,20 @@
 // B13's register-resident G1/G2 engine, and the lane bodies on it: B13's
-// `step4_lane_r`, B11's `winacc_lane_r` and B10's `madd_lane_r`; its field
-// product and square also carry B1 and B2 (csrc/mont.cu), in Fq and Fr.
+// `step4_lane_r`, B11's `winacc_lane_r`, B10's `madd_lane_r` and B16's
+// `selmadd_lane_r` and `dblw_lane_r`; its field product and square also
+// carry B1 and B2 (csrc/mont.cu), in Fq and Fr.
 //
 // Replaces, for kernels B13 (csrc/ladder.cu `step4_kernel`), B11 and B10
-// (csrc/msm.cu `winacc_kernel`, `madd_kernel`), the formulas of
+// (csrc/msm.cu `winacc_kernel`, `madd_kernel`) and B16 (csrc/shared.cu
+// `selmadd_kernel`, `dblw_kernel`), the formulas of
 // threshold_crypto_tpu/device/pallas_curve.py `_msm_step_w4` (:355; kernel
 // `_mk_step4_kernel` :385): per lane and base-16 digit d, T <- 16T, then
 // T + table[d − 1] with the complete Jacobian add where d != 0; of
 // `_mk_winacc_kernel` (:534): per window w doublings, then the complete
 // add of table[d − 1] for each lane an accumulator owns; and of
 // `_mk_madd_kernel` (:397): per lane T + Q with `_jac_madd` (:305), the
-// complete mixed add, Q affine. The other curve kernels (B15, B16) keep
-// curve.cuh.
+// complete mixed add, Q affine; and of `_mk_selmadd_kernel` (:410) and
+// `_mk_dblw_kernel` (:433): per accumulator lane one gated complete add,
+// or w doublings. The other curve kernel, B15, keeps curve.cuh.
 //
 // What bounds it. Per digit 4 doublings (7 Fq products each in G1, 16 in
 // G2) and, for d != 0, the general path of the complete add (16 / 44),
@@ -805,6 +808,61 @@ __device__ __forceinline__ void winacc_lane_r(const int32_t* table,
   reg::f_store(out, T.X, 0, accs, j);
   reg::f_store(out, T.Y, kc, accs, j);
   reg::f_store(out, T.Z, 2 * kc, accs, j);
+}
+
+// B16 selmadd (`_mk_selmadd_kernel`, through `_selmadd_impl`) on the
+// register engine, one accumulator lane j of `accs`: acc + table[d − 1] of
+// lane start + j of the n, with the complete add, where
+// d = digits[start + j] is not 0; the accumulator unchanged where it is. A
+// lane start + j ≥ n (the padding of the last block) has digit 0, and a
+// digit outside 1..nent reads entry 0, as the TPU's select chain does.
+// table: entries 1P..(nent)P of 3k components each, [nent·3k·24, n];
+// digits [n] (one window); acc and out [3k·24, accs]. Where T == Q
+// `jac_add` leaves T and sets `dbl`, and one `jac_dbl` gives 2T: the add's
+// Xd, Yd, Zd, the limbs of curve.cuh's select.
+template <class F>
+__device__ __forceinline__ void selmadd_lane_r(const int32_t* acc_in,
+                                               const int32_t* table,
+                                               const int32_t* digits,
+                                               int32_t* out, int accs, int n,
+                                               int nent, int start, int j) {
+  using R = typename reg::Field<F>::type;
+  constexpr int kc = reg::Field<F>::k;
+  reg::Jac<R> T;
+  reg::f_load(T.X, acc_in, 0, accs, j);
+  reg::f_load(T.Y, acc_in, kc, accs, j);
+  reg::f_load(T.Z, acc_in, 2 * kc, accs, j);
+  const int lane = start + j;
+  const int d = lane < n ? digits[lane] : 0;
+  if (d != 0) {
+    const int e = (d >= 1 && d <= nent) ? d - 1 : 0;
+    int dbl = 0;
+    reg::jac_add(T, table, e * 3 * kc, kc, n, lane, dbl);
+    if (dbl) reg::jac_dbl(T);
+  }
+  reg::f_store(out, T.X, 0, accs, j);
+  reg::f_store(out, T.Y, kc, accs, j);
+  reg::f_store(out, T.Z, 2 * kc, accs, j);
+}
+
+// B16 dblw (`_mk_dblw_kernel`, through `_dblw_impl`) on the register
+// engine: acc <- 2^window·acc, `window` doublings of each lane of acc
+// [3k·24, n].
+template <class F>
+__device__ __forceinline__ void dblw_lane_r(const int32_t* acc_in,
+                                            int32_t* out, int n, int window,
+                                            int lane) {
+  using R = typename reg::Field<F>::type;
+  constexpr int kc = reg::Field<F>::k;
+  reg::Jac<R> T;
+  reg::f_load(T.X, acc_in, 0, n, lane);
+  reg::f_load(T.Y, acc_in, kc, n, lane);
+  reg::f_load(T.Z, acc_in, 2 * kc, n, lane);
+#pragma unroll 1
+  for (int i = 0; i < window; ++i) reg::jac_dbl(T);
+  reg::f_store(out, T.X, 0, n, lane);
+  reg::f_store(out, T.Y, kc, n, lane);
+  reg::f_store(out, T.Z, 2 * kc, n, lane);
 }
 
 // B10 (`_k_g1_madd` / `_k_g2_madd`) on the register engine: acc [3k·24, n]

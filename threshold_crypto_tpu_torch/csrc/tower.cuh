@@ -1,9 +1,11 @@
 // The BLS12-381 tower Fq2/Fq6/Fq12 and the Miller-loop step formulas as
 // per-lane device functions over the engine of fq.cuh, and the per-lane
-// bodies of the tower kernels B9 and B17. B4-B8 run on the lane-group
-// engine of tower_group.cuh; `dbl_fold_lane` and `add_fold_lane`, B4's and
-// B5's bodies before it, are run by no launcher, and `fq12_mul_lane` runs
-// B9 only (its a·b form was B8's body).
+// bodies of the tower kernels B17. B4-B9 run on the lane-group engine of
+// tower_group.cuh; `dbl_fold_lane`, `add_fold_lane` and `fq12_mul_lane`,
+// B4's, B5's, B8's and B9's bodies before it, are run by no launcher: they
+// stay as the reference bodies of the g++ harness
+// (tests/test_torch_csrc_host.py) and of tools/tower_variants.py's old
+// kernels.
 //
 // Replaces the in-kernel tower of threshold_crypto_tpu/device/
 // pallas_tower.py (:376-697): Karatsuba Fq2 products, the Toom/Karatsuba
@@ -491,7 +493,8 @@ __device__ __forceinline__ void f_fold_lane(const int32_t* f_in,
   store_fq12(f_out, f, n, lane);
 }
 
-// B8 (`_k_fq12_mul`) and B9 (`_k_fq12_sqr`, b == nullptr).
+// B8 (`_k_fq12_mul`) and B9 (`_k_fq12_sqr`, b == nullptr) before the
+// lane-group engine.
 __device__ __forceinline__ void fq12_mul_lane(const int32_t* a_in,
                                               const int32_t* b_in,
                                               int32_t* f_out, int n,

@@ -26,7 +26,7 @@ Each kernel is the counterpart of one Pallas kernel of
   then T + table[d − 1] where d ≠ 0 (``curve.msm_step_w4``). The TPU ran
   one launch per digit from a ``lax.scan``; here the digit loop runs inside
   the thread, so a whole ladder is one launch, on the register engine of
-  ``csrc/ladder_engine.cuh`` (B15 and B16 run on ``csrc/curve.cuh``).
+  ``csrc/ladder_engine.cuh`` (B15 runs on ``csrc/curve.cuh``).
 * B15 ``g1_step`` / ``g2_step`` (``_mk_step_kernel`` :373, instances
   ``_k_g1/g2_msm_step`` :447-448): per lane and bit, T ← 2T (+ Q affine)
   (``curve.msm_step``), the bit loop inside the thread likewise.
@@ -35,7 +35,9 @@ Each kernel is the counterpart of one Pallas kernel of
   the two halves of B11 as separate launches, acc + table[d − 1] per
   accumulator lane for one block of lanes and one window (the complete add
   where d ≠ 0), and acc ← 2^w·acc. ``msm_pallas_shared(fused=False)`` runs
-  them as the JAX package's DIRECT branch does (:970-983).
+  them as the JAX package's DIRECT branch does (:970-983). They run on the
+  register engine of ``csrc/ladder_engine.cuh`` (``selmadd_lane_r``,
+  ``dblw_lane_r``: the add's T == Q case a branch into the doubling).
 
 Packed layout (``device/packed.py``): a G1 Jacobian point is int32[72, N]
 (X, Y, Z), a G2 one int32[144, N] (X0, X1, Y0, Y1, Z0, Z1); an affine Q
@@ -73,7 +75,10 @@ L = FQ.L
 ACCUMULATORS = 16384
 # The accumulators of the unfused form (B16): the one 1024-lane block of
 # the JAX package's DIRECT branch (8 × 128 lanes, ``pallas_tower.py``'s
-# TILE_ROWS × LANES).
+# TILE_ROWS × LANES). A B16 launch then runs one thread per accumulator on
+# 8 of the H100's 132 SMs: the chain of one lane's products, not the card,
+# sets its time (``csrc/shared.cu``), and A is the JAX package's, not
+# chosen for this card.
 SHARED_BLOCK = 1024
 
 G1_MADD = KernelCount()

@@ -9,8 +9,7 @@ Each kernel is the counterpart of one Pallas megakernel of
 * B6 ``cyclo_sqr`` (``_k_cyclo_sqr``): Granger–Scott squaring;
 * B7 ``cyclo_sqr_mul`` (``_k_cyclo_sqr_mul``): f²·g, cyclotomic square;
 * B8 ``fq12_mul`` (``_k_fq12_mul``) and B9 ``fq12_sqr`` (``_k_fq12_sqr``);
-  B4-B8 run on the lane-group engine ``csrc/tower_group.cuh``, B9 one
-  thread a lane on ``csrc/tower.cuh``;
+  B4-B9 run on the lane-group engine ``csrc/tower_group.cuh``;
 * B17, the unfused Miller pieces: ``dbl_step`` (``_k_dbl_step``: T ← 2T and
   the tangent line out), ``add_step`` (``_k_add_step``: T ← T + Q and the
   chord line out), ``f_sqr_fold`` (``_k_f_sqr_fold``: f²·line) and

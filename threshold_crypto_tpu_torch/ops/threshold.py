@@ -34,7 +34,8 @@ The counterpart of ``threshold_crypto_tpu/ops/threshold.py``; so far:
   per-lane bit ladders (``DeviceCurve.msm_scalarwise``: B15 and the fold).
 
 The JAX package's jit and AOT-cache wrappers (``verify_batch_pallas_jit``,
-the jitted aggregate of ``verify_sig_shares_rlc_pallas``) have no
+the jitted aggregate of ``verify_sig_shares_rlc_pallas``, and
+``set_aot_cache``, which points them at a compile cache) have no
 counterpart: PyTorch runs eagerly. Nor have ``combine_batch_stepwise``,
 ``verify_batch_stepwise`` and ``verify_sig_shares_rlc_stepwise``, which
 drive the same math over small jitted steps only to escape XLA's compile

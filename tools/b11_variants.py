@@ -33,8 +33,8 @@ entry), the same adds.
 
 With ``--parent ROOT`` (another checkout: its ``chip_smoke.py`` and
 ``threshold_crypto_tpu_torch/``) it also builds that checkout's msm.cu,
-ladder.cu and shared.cu and compares ptxas's figures of B10, B13, B15 and
-B16 with the package's, and times the whole RLC call of both checkouts
+ladder.cu and compares ptxas's figures of B10, B13 and B15 with the
+package's, and times the whole RLC call of both checkouts
 (``chip_smoke.rlc_call``, N = 262,144, exponents included) in turns, one
 child process per turn (parent, this, this, parent, twice), each a warm-up
 and RLC_TURN_CALLS timed calls; it exits 1 if the ptxas figures differ.
@@ -56,11 +56,14 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import chip_smoke as cs  # noqa: E402
+from b16_variants import OLD_JAC_ADD  # noqa: E402
 from threshold_crypto_tpu_torch import _build  # noqa: E402
 
-# curve.cuh's B11 lane body before the register engine.
+# curve.cuh's B11 lane body before the register engine (over its complete
+# add, OLD_JAC_ADD).
 OLD_LANE = r"""
 template <class F>
 __device__ __forceinline__ void set_infinity(Jac<F>& p) {
@@ -137,8 +140,7 @@ print(json.dumps(times[1:]))
 """
 # The kernels whose ptxas figures must equal the parent checkout's.
 UNCHANGED = {"msm": ("madd_kernel",), "ladder": ("step4_kernel",
-                                                 "step_kernel"),
-             "shared": ("selmadd_kernel", "dblw_kernel")}
+                                                 "step_kernel")}
 
 
 def patched(csrc, patches):
@@ -157,7 +159,8 @@ def patched(csrc, patches):
             files["msm.cu"] = cu[:a] + OLD_KERNEL + cu[b + len(KERNEL_TAIL):]
             cuh = text("curve.cuh")
             a = cuh.rindex("}  // namespace tc")
-            files["curve.cuh"] = cuh[:a] + OLD_LANE.lstrip("\n")
+            files["curve.cuh"] = (cuh[:a] + OLD_JAC_ADD.lstrip("\n") + "\n"
+                                  + OLD_LANE.lstrip("\n"))
             continue
         old, new = p
         if old not in text("msm.cu"):
@@ -201,9 +204,9 @@ def sass_counts(cuobjdump, so):
 
 
 def compare_parent(parent, logs):
-    """Build msm.cu, ladder.cu and shared.cu of the checkout at parent
-    beside the package's logs and print both figures of the kernels that
-    must not change. Returns {kernel: [parent, package]} and whether all
+    """Build msm.cu and ladder.cu of the checkout at parent beside the
+    package's logs and print both figures of the kernels that must not
+    change. Returns {kernel: [parent, package]} and whether all
     are equal."""
     pdir = os.path.join(_build.BUILD_DIR, "variants", "parent")
     os.makedirs(pdir, exist_ok=True)

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The static schedules of B4 (``dbl_fold``), B5 (``add_fold``), B6
-(``cyclo_sqr``), B7 (``cyclo_sqr_mul``) and B8 (``fq12_mul``) on the
-lane-group tower engine, and the tables of ``csrc/tower_group.cuh``.
+(``cyclo_sqr``), B7 (``cyclo_sqr_mul``), B8 (``fq12_mul``) and B9
+(``fq12_sqr``) on the lane-group tower engine, and the tables of
+``csrc/tower_group.cuh``.
 
     python3 tools/tower_group_schedule.py           # print the table block
     python3 tools/tower_group_schedule.py --write   # write it into the header
@@ -27,12 +28,14 @@ ends at a barrier. The slots are allocated by liveness (first fit): a slot
 is free for a phase's outputs once every op that reads its value has run
 in an earlier phase. The inputs take the first slots, in the packed
 components' order (B4: f 0-11, T 12-17, P 18-19; B5: f 0-11, T 12-17,
-Q 18-21, P 22-23; B6: f 0-11; B7: f 0-11, g 12-23; B8: a 0-11, b 12-23).
+Q 18-21, P 22-23; B6: f 0-11; B7: f 0-11, g 12-23; B8: a 0-11, b 12-23;
+B9: a 0-11).
 
 B4 follows the JAX package's four product layers (`pallas_tower.dbl_fold`:
 48, 19, 16 and 39 Fq products), B5 `add_step`'s four (6, 14, 9, 12) with
 the line product's 39 in the third, B6 its one layer of 18, B7 B6's layer
-and then `fq12_mul`'s 54 (`pallas_tower.fq12_mul`), B8 those 54 alone.
+and then `fq12_mul`'s 54 (`pallas_tower.fq12_mul`), B8 those 54 alone,
+B9 `fq12_sqr`'s 36 (B4's first layer without the doubling).
 The engine deals
 the ops of each phase round-robin over the G threads of a lane's group:
 thread g runs ops g, g + G, …; the product phases' ops are all one
@@ -521,8 +524,26 @@ def b5_schedule():
     return s
 
 
+def b9_schedule():
+    """`pallas_tower._k_fq12_sqr` (`pallas_tower.fq12_sqr`, the complex
+    square; B4's first layer without the doubling): with a = (a0, a1),
+    s = a0 + a1 and sv = a0 + v·a1, one product phase of 36 Fq products
+    takes the Karatsuba sums of a0, a1, s and sv as operand forms
+    (`_fq6_mul_parts(a0, a1) + _fq6_mul_parts(s, sv)`), one linear phase
+    makes tt and ss (`_fq6_mul_fin`) into c0 = ss − tt − v·tt and
+    c1 = 2·tt. Input a (12); output a² (12)."""
+    s = Schedule("B9", 12)
+    a0, a1 = fq12_from(s.inputs())
+    sv = add6(a0, mul_by_v(a1))
+    t = s.products(fq6_mul_reqs(a0, a1) + fq6_mul_reqs(add6(a0, a1), sv))
+    tt, ss = fq6_mul_fin(t[0:6]), fq6_mul_fin(t[6:12])
+    s.output(s.linear(fq12_flat((sub6(sub6(ss, tt), mul_by_v(tt)),
+                                 add6(tt, tt)))))
+    return s
+
+
 SCHEDULES = {"kB4": b4_schedule, "kB6": b6_schedule, "kB7": b7_schedule,
-             "kB8": b8_schedule, "kB5": b5_schedule}
+             "kB8": b8_schedule, "kB5": b5_schedule, "kB9": b9_schedule}
 
 
 def _array(name, values, per_line):

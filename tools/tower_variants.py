@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """B4 (``dbl_fold``), B5 (``add_fold``), B6 (``cyclo_sqr``), B7
-(``cyclo_sqr_mul``) and B8 (``fq12_mul``) on the lane-group engine
-(``csrc/tower_group.cuh``) against their old bodies and other group sizes,
-on one card.
+(``cyclo_sqr_mul``), B8 (``fq12_mul``) and B9 (``fq12_sqr``) on the
+lane-group engine (``csrc/tower_group.cuh``) against their old bodies and
+other group sizes, on one card.
 
     python3 tools/tower_variants.py [--split] [--parent ROOT]
 
@@ -11,19 +11,20 @@ The variants, each built with the package's nvcc flags into
 
 * ``old``: the one-thread-per-lane kernels the package ran before the
   engine (``tower.cuh`` ``dbl_fold_lane``, ``add_fold_lane`` and
-  ``fq12_mul_lane``, and ``cyclo_sqr_lane`` with its Granger-Scott
-  ``fq12_cyclo_sqr``, kept here as text; 128-thread blocks);
+  ``fq12_mul_lane``, B9 its form without b, and ``cyclo_sqr_lane`` with
+  its Granger-Scott ``fq12_cyclo_sqr``, kept here as text; 128-thread
+  blocks);
 * ``g1``, ``g4``, ``g8``, ``g16``, ``g32``: the package's ``miller.cu``
   and ``fq12.cu`` with ``tc::grp::kGroup`` set to 1, 4, 8 (the package's),
   16 or 32 threads a lane. G = 1 keeps the register product and the
   staging in shared memory without the split.
 
-For each: ptxas's registers, stack frame and spills of the B4-B8
+For each: ptxas's registers, stack frame and spills of the B4-B9
 kernels; bit-exact against the package's kernels (which are held against
 their plain versions here too) on ``chip_smoke.tower_inputs`` (zero and
 infinity lanes) at both widths of each kernel: slice 2's (B4 and B5
-16,384 pair lanes, B6-B8 8192) and the RLC check's (B4 and B5
-2 × RLC_CHECK_BATCH = 1,024, B6-B8 512); and the kernel time with CUDA
+16,384 pair lanes, B6-B9 8192) and the RLC check's (B4 and B5
+2 × RLC_CHECK_BATCH = 1,024, B6-B9 512); and the kernel time with CUDA
 events, in turns
 (old, g1, …, g16, g16, …, old) at each width, beside ``chip_smoke``'s
 bound: launched one by one from Python (``chip_smoke.cuda_time_ms``, as
@@ -42,9 +43,9 @@ turns, one child process per turn (parent, this, this, parent, twice):
 the RLC call (``chip_smoke.rlc_call``, N = 262,144, exponents included),
 its MSM table stages (B10, G1 and G2) and its check stage
 (``verify_batch_pallas`` at 512 lanes), from ``chip_smoke.stage_timer``'s
-events, B5's and B8's launches in it (``chip_smoke.kernel_event_timer``),
-the per-pair call ``ops.verify_batch_pallas`` at 8192 lanes with its B5
-and B8 launches the same way, and that call alone at the check's 512
+events, B9's launch in it (``chip_smoke.kernel_event_timer``), the
+per-pair call ``ops.verify_batch_pallas`` at 8192 lanes with its B9
+launch the same way, and that call alone at the check's 512
 lanes (the per-pair inputs' first RLC_CHECK_BATCH lanes), CHECK_CALLS
 times a turn. Prints one JSON line last and writes it to ``tower_variants.json``
 beside the builds. Without CUDA it exits 2.
@@ -66,7 +67,7 @@ sys.path.insert(0, ROOT)
 import chip_smoke as cs  # noqa: E402
 from threshold_crypto_tpu_torch import _build  # noqa: E402
 
-# The kernels B4-B8 ran before the lane-group engine: tower.cuh's lane
+# The kernels B4-B9 ran before the lane-group engine: tower.cuh's lane
 # bodies, and B6 and B7's lane body and Granger-Scott square from
 # tower.cuh before the engine.
 OLD_CU = r"""
@@ -224,6 +225,14 @@ extern "C" int tc_fq12_mul(const void* a, const void* b, void* fo, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+extern "C" int tc_fq12_sqr(const void* a, void* fo, int n, void* stream) {
+  if (n <= 0) return 0;
+  fq12_mul_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(a), nullptr, static_cast<int32_t*>(fo), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 extern "C" int tc_cyclo_sqr(const void* f, void* fo, int n, void* stream) {
   if (n <= 0) return 0;
   cyclo_sqr_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
@@ -268,32 +277,34 @@ SPLIT = {
 }
 GROUP_LINE = "constexpr int kGroup = 8;"
 GROUPS = (1, 4, 8, 16, 32)
-# The B4-B8 kernels' names (demangled) in the variants: old, group
-# (fq12_mul_kernel: old B8, and B9 in the package's builds).
+# The B4-B9 kernels' names (demangled) in the variants: old (B8 and B9
+# share fq12_mul_kernel), group.
 KERNEL_NAMES = ("dbl_fold_kernel", "add_fold_kernel", "cyclo_sqr_kernel",
                 "cyclo_sqr_mul_kernel", "fq12_mul_kernel",
                 "cyclo_sqr_group_kernel", "cyclo_sqr_mul_group_kernel",
-                "fq12_mul_group_kernel")
+                "fq12_mul_group_kernel", "fq12_sqr_group_kernel")
 WIDTHS = {"dbl_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
           "add_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
           "cyclo_sqr": (cs.LANES, cs.RLC_CHECK_BATCH),
           "cyclo_sqr_mul": (cs.LANES, cs.RLC_CHECK_BATCH),
-          "fq12_mul": (cs.LANES, cs.RLC_CHECK_BATCH)}
+          "fq12_mul": (cs.LANES, cs.RLC_CHECK_BATCH),
+          "fq12_sqr": (cs.LANES, cs.RLC_CHECK_BATCH)}
 REPS = {"dbl_fold": 20, "add_fold": 20, "cyclo_sqr": 50,
-        "cyclo_sqr_mul": 20, "fq12_mul": 20}
+        "cyclo_sqr_mul": 20, "fq12_mul": 20, "fq12_sqr": 20}
 # Per kernel: its C entry, and its input and output tensors.
 ENTRIES = {"dbl_fold": ("miller", "tc_dbl_fold", 3, 2),
            "add_fold": ("miller", "tc_add_fold", 4, 2),
            "cyclo_sqr": ("fq12", "tc_cyclo_sqr", 1, 1),
            "cyclo_sqr_mul": ("fq12", "tc_cyclo_sqr_mul", 2, 1),
-           "fq12_mul": ("fq12", "tc_fq12_mul", 2, 1)}
+           "fq12_mul": ("fq12", "tc_fq12_mul", 2, 1),
+           "fq12_sqr": ("fq12", "tc_fq12_sqr", 1, 1)}
 # The stages of an RLC call read in each turn (chip_smoke.stage_timer's
 # labels): the check, and the two MSM tables (B10).
 TURN_STAGES = {"check_ms": "check", "table_g1_ms": "  table (B10) G1",
                "table_g2_ms": "  table (B10) G2"}
 # Kernels summed from chip_smoke.kernel_event_timer's events in each turn's
-# RLC and per-pair calls: B5 and B8.
-TURN_KERNELS = {"b5": "add_fold", "b8": "fq12_mul"}
+# RLC and per-pair calls: B9.
+TURN_KERNELS = {"b9": "fq12_sqr"}
 # Timed calls of one turn, after a warm-up call; of the check's width
 # alone, which is short and spreads widely, CHECK_CALLS.
 TURN_CALLS = 5
