@@ -31,8 +31,16 @@ Phases, each announced on a flushed line before it starts:
    timed on the table build's first launch, where every lane takes the
    doubling branch), timed with CUDA events beside the plain
    version and the kernel's bound; B13 G1 also at the DKG's launch shape
-   (2^19 lanes x 64 digits over the dealing's 3,741 gathered points), and
-   B10's, B11's and B13's registers, stack frame and spills;
+   (2^19 lanes x 64 digits over the dealing's 3,741 gathered points); B15
+   at its three paths' widths (the window-1 MSM's 65,536 lanes x 64 bits,
+   ``verify_sig_shares_rlc``'s 262,144 x 64 and the combine's 4096 x 255)
+   on special lanes over three bits (2T == ±Q at a later bit, the 4T of
+   2T == Q before a next bit and after the last, an infinite accumulator
+   then a set bit) and on random bits, each width timed beside its bound,
+   the combine's also beside a latency yardstick (its products times one
+   thread's product in series, from B16 dblw on one block in this run);
+   B10's, B11's, B13's and B15's registers, stack frame and spills, and
+   B14's;
 4. slice 1: ``ops.verify_batch`` on 8192 lanes (16,384 pairs) of keys,
    messages and signatures made on the host from a seed; the result must
    equal the mask known from construction lane for lane, and a 256-lane
@@ -93,7 +101,7 @@ Phases, each announced on a flushed line before it starts:
    per stage against ``dkg_launches``, the median of 3 dealing calls, the
    kernel share and a stage split; then ``ops.verify_sig_shares_rlc`` (B15
    and the fold) on slice 3's batch, accepting it and rejecting it with one
-   signature replaced;
+   signature replaced, and B15's share of one call from CUDA events;
 11. one JSON line of kernel numbers (B1-B17), then the device line, last.
 
 Any mismatch or exception ends the run with a non-zero exit and no result
@@ -179,6 +187,16 @@ MSM1_N = 65536
 LADDER_CHECK_LANES = 1024
 LADDER_KERNELS = {"g1_step4": "encrypt", "g2_step4": "hash",
                   "g1_step": "msm1", "g2_step": "msm1"}
+# B15's widths on its paths (lanes, bits): the window-1 MSM, the scalarwise
+# RLC check (verify_sig_shares_rlc) and the scalarwise combine of slice 6.
+# At the combine's 4096 lanes 32 blocks run, one an SM: a lane's products
+# in series set the pace there.
+STEP_WIDTHS = {"msm_pallas(window=1)": (65536, 64),
+               "verify_sig_shares_rlc": (262144, 64),
+               "combine_batch scalarwise": (4096, 255)}
+# One thread's Fq product in series: B16 dblw over one block of 128 lanes,
+# LATENCY_WINDOW doublings each.
+LATENCY_WINDOW = 64
 # Slice 6, the threshold flows at t + 1 = 4096 shares, the north-star size of
 # benches/combine_large.py: a degree-4095 secret polynomial from the seed,
 # x_i = i + 1, one message hashed on the host.
@@ -1184,12 +1202,69 @@ def ladder_special(g2, kind, n, gen, dev):
     return acc, other, digits
 
 
-def ladder_path_inputs(g2, kind, n, gen, dev):
+def step_special_points(host, rnd):
+    """B15's special lanes over three bits (MSB first), as host points:
+    (T, Q, bits [3][16], the host's result) for 16 lanes. 0-1 Q = 4T,
+    bits 011 (2T == Q at the second bit, then a set bit: 20T); 2-3 Q = 4T,
+    bits 010 (then a clear bit: 16T); 4-5 Q = 8T, bits 001 (2T == Q at the
+    last bit: 16T); 6-7 Q = −4T, bits 011 (2T == −Q at the second bit,
+    then Q from infinity); 8-9 T at infinity, bits 011 (Q, then 3Q);
+    10-11 bits 000 (8T); 12-13 Q = −2T, bits 100 (infinity, kept); 14-15
+    a random Q, bits 111 (8T + 7Q)."""
+    from threshold_crypto_tpu_torch.host.params import R
+
+    ts = [host.mul(host.generator, rnd.randrange(1, R)) for _ in range(16)]
+    ts[8] = ts[9] = None
+    qs = [host.mul(host.generator, rnd.randrange(1, R)) for _ in range(16)]
+    bits, want = [], []
+    for i in range(16):
+        t, case = ts[i], i // 2
+        if case in (0, 1):
+            qs[i] = host.mul(t, 4)
+        elif case == 2:
+            qs[i] = host.mul(t, 8)
+        elif case == 3:
+            qs[i] = host.neg(host.mul(t, 4))
+        elif case == 6:
+            qs[i] = host.neg(host.double(t))
+        bits.append(["011", "010", "001", "011", "011", "000", "100",
+                     "111"][case])
+        q = qs[i]
+        want.append([host.mul(t, 20), host.mul(t, 16), host.mul(t, 16), q,
+                     host.mul(q, 3), host.mul(t, 8), None,
+                     host.add(host.mul(t, 8), host.mul(q, 7))][case])
+    return ts, qs, [[int(b[k]) for b in bits] for k in range(3)], want
+
+
+def step_special(g2, n, gen, dev):
+    """B15's operands at n lanes over three bits: ``step_special_points``
+    on lanes 0-15 (Z = 1, Q affine), random canonical values and bits
+    elsewhere; and the host's results of lanes 0-15."""
+    import torch
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.host import curve as hcv
+
+    k = 2 if g2 else 1
+    curve, host = (dcv.G2, hcv.G2) if g2 else (dcv.G1, hcv.G1)
+    ts, qs, bits16, want = step_special_points(host,
+                                               random.Random(0xB15 + g2))
+    acc = random_packed(3 * k, n, gen, dev)
+    acc[:, :16] = _host_packed(curve, ts, dev)
+    q = random_packed(2 * k, n, gen, dev)
+    q[:, :16] = _host_packed(curve, qs, dev, affine=True)
+    bits = torch.randint(0, 2, (3, n), generator=gen, device=dev,
+                         dtype=torch.int32)
+    bits[:, :16] = torch.tensor(bits16, dtype=torch.int32, device=dev)
+    return acc, q, bits, want
+
+
+def ladder_path_inputs(g2, kind, n, gen, dev, nbits=64):
     """The operands a path gives the kernel: the infinite accumulator the
     drivers start from, a random table (or affine Q), and the digits or
     bits: G2 step4 the hash ladder's 127 digits of H2 (every lane the
     same), G1 step4 the encrypt ladder's 64 random base-16 digits, step
-    the window-1 MSM's 64 random bits; lanes 0-3 dead (digit 0)."""
+    ``nbits`` random bits (the window-1 MSM's and the RLC check's 64, the
+    combine's 255); lanes 0-3 dead (digit 0)."""
     import torch
     from threshold_crypto_tpu_torch.device import cuda_curve as ccv
     from threshold_crypto_tpu_torch.host.params import H2
@@ -1207,7 +1282,7 @@ def ladder_path_inputs(g2, kind, n, gen, dev):
                                    dtype=torch.int32)
     else:
         other = random_packed(2 * k, n, gen, dev)
-        digits = torch.randint(0, 2, (64, n), generator=gen, device=dev,
+        digits = torch.randint(0, 2, (nbits, n), generator=gen, device=dev,
                                dtype=torch.int32)
     digits[:, :4] = 0
     return acc, other, digits.contiguous()
@@ -1275,8 +1350,10 @@ def check_ladder(g2, kind, gen, dev, card):
     err = max(err, compare(name, got, want,
                            f"over {digits.shape[0]} digits at {m} lanes"))
     del acc, other, digits, got, want
-    n = {"hash": HASH_N, "encrypt": ENC_N, "msm1": MSM1_N}[
-        LADDER_KERNELS[name]]
+    if kind == "step":
+        return check_step_widths(g2, kernel, gen, dev, card, err, plain_ms,
+                                 m)
+    n = {"hash": HASH_N, "encrypt": ENC_N}[LADDER_KERNELS[name]]
     acc, other, digits = ladder_path_inputs(g2, kind, n, gen, dev)
     ms = cuda_time_ms(lambda: kernel.launch(acc, other, digits), 3)
     bound, by = ladder_bound(g2, kind, digits, card)
@@ -1289,6 +1366,88 @@ def check_ladder(g2, kind, gen, dev, card):
     return dict(lanes=n, digits=digits.shape[0], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, plain_lanes=m, bound_ms=bound,
                 bound_by=by)
+
+
+def thread_product_latency_ms(g2, gen, dev):
+    """One thread's Fq product in series on the register engine: B16 dblw
+    over one block of 128 lanes, LATENCY_WINDOW doublings a lane (7 Fq
+    products each in G1, 16 in G2), timed with CUDA events, over its
+    products."""
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
+    k = 2 if g2 else 1
+    acc = random_packed(3 * k, 128, gen, dev)
+    dblw = ccv.g2_dblw if g2 else ccv.g1_dblw
+    ms = cuda_time_ms(lambda: dblw(acc, LATENCY_WINDOW), 5)
+    return ms / (LATENCY_WINDOW * DBL_FQ_PRODUCTS[k - 1])
+
+
+def check_step_widths(g2, kernel, gen, dev, card, err, plain_ms, m):
+    """B15 at each of STEP_WIDTHS: the three-bit special lanes of
+    ``step_special`` (lanes 0-15 equal to the host's points) and the
+    path's random bits, each bit-exact with the plain version on the first
+    m lanes, and the kernel timed on the path's bits beside its bound and
+    a latency yardstick (each lane's mean products times
+    ``thread_product_latency_ms``), which sets the pace where one block
+    runs on an SM."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+
+    name = kernel.name
+    k = 2 if g2 else 1
+    curve = dcv.G2 if g2 else dcv.G1
+    latency = thread_product_latency_ms(g2, gen, dev)
+    print(f"{name}: one thread's Fq product in series (B16 dblw, one "
+          f"block, {LATENCY_WINDOW} doublings): {1e3 * latency:.3f} us",
+          flush=True)
+    widths = []
+    for where, (n, nbits) in STEP_WIDTHS.items():
+        acc, q, bits, host_want = step_special(g2, n, gen, dev)
+        got = kernel.launch(acc, q, bits)
+        torch.cuda.synchronize()
+        with plain_versions():
+            want = kernel.plain(acc[:, :m].contiguous(),
+                                q[:, :m].contiguous(),
+                                bits[:, :m].contiguous())
+        err = max(err, compare(name, got[:, :m], want,
+                               f"special lanes over 3 bits at {n} lanes, "
+                               f"first {m}"))
+        if curve.to_host_affine(ccv.unpack_jac(got[:, :16], g2)) != \
+                host_want:
+            fail(f"{name}: a special lane differs from the host's point")
+        del acc, q, bits, got, want
+        acc, q, bits = ladder_path_inputs(g2, "step", n, gen, dev, nbits)
+        got = kernel.launch(acc, q, bits)
+        torch.cuda.synchronize()
+        with plain_versions():
+            want, at_plain_ms = timed_once(
+                kernel.plain, acc[:, :m].contiguous(), q[:, :m].contiguous(),
+                bits[:, :m].contiguous())
+        err = max(err, compare(name, got[:, :m], want,
+                               f"over {nbits} bits at {n} lanes, first {m}"))
+        ms = cuda_time_ms(lambda: kernel.launch(acc, q, bits), 3)
+        bound, by = ladder_bound(g2, "step", bits, card)
+        set_bits = int((bits != 0).sum().item())
+        products = (nbits * n * DBL_FQ_PRODUCTS[k - 1]
+                    + set_bits * MADD_FQ_PRODUCTS[k - 1])
+        yardstick = products / n * latency
+        widths.append(dict(where=where, lanes=n, bits=nbits, ms=ms,
+                           bound_ms=bound, bound_by=by, plain_ms=at_plain_ms,
+                           plain_lanes=m, latency_ms=yardstick))
+        print(f"{name} at {where}'s width, {n} lanes x {nbits} bits: "
+              f"bit-exact on the special lanes (host points) and the path's "
+              f"bits (first {m} lanes, plain {at_plain_ms:.1f} ms); kernel "
+              f"{ms:.4f} ms, bound {bound:.4f} ms ({by}), {ms / bound:.2f}x "
+              f"the bound; latency yardstick {yardstick:.4f} ms "
+              f"({ms / yardstick:.2f}x)", flush=True)
+        del acc, q, bits, got, want
+        torch.cuda.empty_cache()
+    first = widths[0]
+    return dict(lanes=first["lanes"], digits=first["bits"], max_abs_err=err,
+                ms=first["ms"], plain_ms=plain_ms, plain_lanes=m,
+                bound_ms=first["bound_ms"], bound_by=first["bound_by"],
+                widths=widths, product_latency_ms=latency)
 
 
 def check_ladder_dkg(gen, dev, card):
@@ -2610,8 +2769,7 @@ def run_b17_composition(args, dev):
     bits = dpr.X_BITS[1:]
     expect = {"dbl_step": len(bits), "f_sqr_fold": len(bits),
               "add_step": sum(bits), "f_fold": sum(bits)}
-    if {k: v for k, v in launches.items() if v and k != "fq_engine"} \
-            != expect:
+    if {k: v for k, v in launches.items() if v} != expect:
         fail(f"B17 composition: launches {launches}, expected {expect}")
     f_fused, T_fused = fused()
     if not (torch.equal(f_split, f_fused) and torch.equal(T_split, T_fused)
@@ -2984,11 +3142,23 @@ def run_rlc_scalarwise(dev):
     if not bool(ok) or bool(rejected):
         fail("verify_sig_shares_rlc: the valid batch was rejected or the "
              "batch with one sig replaced accepted")
+    spans = []
+    with kernel_event_timer(spans):
+        ok, kwall = timed_once(ops.verify_sig_shares_rlc, pk_aff, h_jac,
+                               sig_aff, r)
+    if not bool(ok):
+        fail("verify_sig_shares_rlc: the timed call rejected the batch")
+    kernel_s, per_kernel = kernel_split("verify_sig_shares_rlc", spans,
+                                        kwall / 1e3)
+    b15 = per_kernel["g1_step"] + per_kernel["g2_step"]
+    print(f"verify_sig_shares_rlc: B15 {b15:.1f} ms of {kwall:.1f} ms "
+          f"({100 * b15 / kwall:.1f} %)", flush=True)
     print(f"verify_sig_shares_rlc at N = {RLC_N}: accepts the valid batch "
           f"({secs / 1e3:.3f} s) and rejects the one with a replaced "
           f"signature ({bad_ms / 1e3:.3f} s); launches per call "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
-    return dict(launches=launches, wall_s=secs / 1e3)
+    return dict(launches=launches, wall_s=secs / 1e3, kernel_s=kernel_s,
+                timed_wall_s=kwall / 1e3, kernel_ms=per_kernel, b15_ms=b15)
 
 
 # ---------------------------------------------------------------------------
@@ -3065,8 +3235,8 @@ def main():
             results[f"g{1 + g2}_{kind}"] = check_ladder(g2, kind, gen, dev,
                                                          card)
     results["g1_step4"]["dkg_shape"] = check_ladder_dkg(gen, dev, card)
-    for kind, source in (("step4", "ladder.cu"), ("winacc", "msm.cu"),
-                         ("madd", "msm.cu")):
+    for kind, source in (("step4", "ladder.cu"), ("step", "ladder.cu"),
+                         ("winacc", "msm.cu"), ("madd", "msm.cu")):
         for g2 in (False, True):
             figures = ptxas[f"{kind}_kernel<{'Fq2' if g2 else 'Fq'}>"]
             results[f"g{1 + g2}_{kind}"]["ptxas"] = dict(zip(
@@ -3078,6 +3248,12 @@ def main():
                   flush=True)
     torch.cuda.empty_cache()
     results["lagrange_rowprod"] = check_rowprod(dev, card)
+    figures = ptxas["lagr_kernel"]
+    results["lagrange_rowprod"]["ptxas"] = dict(zip(
+        ("registers", "stack_frame", "spill_stores", "spill_loads"), figures))
+    print(f"lagrange_rowprod (fr.cu lagr_kernel): {figures[0]} registers, "
+          f"{figures[1]} bytes stack frame, {figures[2]} bytes spill stores, "
+          f"{figures[3]} bytes spill loads", flush=True)
     product_ms = product_latency_ms(next(
         w for w in results["mont_pow"]["widths"]
         if w["lanes"] == 1 and w["field"] == "Fq"))
@@ -3139,7 +3315,7 @@ def main():
     for mod, k in registry():
         res = results[k.name]
         # B1/B2: launches of slice 1, where they carry the path; B3-B9:
-        # of slice 2 (B3 runs inside every B4-B9 launch); B10-B12: of
+        # of slice 2 (B3's test entry has none on any path); B10-B12: of
         # slice 3; B13: of slice 4 (G2, the cofactor ladder) and 5 (G1);
         # B15: of the window-1 MSM; B14: of slice 6's G2 combine; B16: of
         # its bitscan combines; B17: of the composition check, the one run
@@ -3178,7 +3354,8 @@ def main():
             entry["plain_lanes"] = res["plain_lanes"]
         for key in ("dkg_shape", "ptxas", "widths", "lanes_check_width",
                     "ms_check_width", "plain_ms_check_width",
-                    "bound_ms_check_width", "latency_ms"):
+                    "bound_ms_check_width", "latency_ms",
+                    "product_latency_ms"):
             if key in res:
                 entry[key] = res[key]
         if "accumulators" in res:

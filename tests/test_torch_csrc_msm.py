@@ -1,12 +1,13 @@
 """The curve and SHA3 kernels' CUDA sources, compiled for the host, against
 their plain versions and ``hashlib``.
 
-The per-lane bodies of B15 (``csrc/curve.cuh``: the doubling and the bit
-ladder of one lane), of B10, B11, B13 and B16 (``csrc/ladder_engine.cuh``:
-the complete add, with its T == Q case a branch into the doubling, the
-complete mixed add of one lane, the Horner loop of one accumulator, the
-digit ladder of one lane, and the gated table add and the w doublings of
-one accumulator lane) and of B12 (``csrc/keccak.cuh``) are plain C++
+The per-lane bodies of B10, B11, B13, B15 and B16
+(``csrc/ladder_engine.cuh``: the doubling, the complete add and the
+complete mixed add ``jac_madd``, each with its T == Q case a branch into
+the doubling, the mixed add of one lane, the Horner loop of one
+accumulator, the digit and the bit ladder of one lane, and the gated table
+add and the w doublings of one accumulator lane) and of B12
+(``csrc/keccak.cuh``) are plain C++
 behind CUDA's function qualifiers. Here g++ compiles them with the
 qualifiers defined away, and a serial loop over the lanes (or
 accumulators, or chunks) stands in for the grid: the same integer arithmetic the kernels run on the card,
@@ -14,8 +15,10 @@ on the packed layout, checked bit-exact against the plain versions
 (``device/curve.py``, ``device/cuda_curve.py``, ``device/keccak.py``) on
 seeded points with the special lanes T == Q, T == −Q and infinity on
 either side (for the ladders: 16T == ±table[d − 1], 2T == ±Q, T at
-infinity and digit or bit 0; for B10 also zero and p − 1 lanes, and the
-table build's six launches from acc = Q with Z = 1; for B11 T == Q
+infinity and digit or bit 0; for B15 also 2T == ±Q at a later bit, the
+4T of 2T == Q before another bit or after the last, and 255 random bits;
+for B10 also zero and p − 1 lanes, and the table builds' six and
+fourteen launches from acc = Q with Z = 1; for B11 T == Q
 followed by another add in the same window and digits outside 1..7; for
 B16 the block's first lane, T == Q on the first lane of a later block,
 digits outside 1..nent, a ragged last block whose padding has digit 0, and
@@ -54,7 +57,6 @@ HARNESS = r"""
 #include <cstdio>
 #include <cstdlib>
 #include <vector>
-#include "curve.cuh"
 #include "keccak.cuh"
 #include "ladder_engine.cuh"
 
@@ -68,25 +70,29 @@ static std::vector<int32_t> rd(size_t count) {
 
 template <class F>
 void run(int op, int n, int accs, int ndig, int window, int start) {
-  const size_t P = 3ul * tc::Comps<F>::k * 24;  // Jacobian rows
+  using R = typename tc::reg::Field<F>::type;
+  constexpr int kc = tc::reg::Field<F>::k;
+  const size_t P = 3ul * kc * 24;  // Jacobian rows
   std::vector<int32_t> out;
   if (op == 0) {  // madd
     auto acc = rd(P * n), q = rd(2 * P / 3 * n);
     out.resize(P * n);
     for (int l = 0; l < n; ++l)
       tc::madd_lane_r<F>(acc.data(), q.data(), out.data(), n, l);
-  } else if (op == 1) {  // dbl (curve.cuh, B15's)
+  } else if (op == 1) {  // dbl: the register engine's
     auto a = rd(P * n);
     out.resize(P * n);
     for (int l = 0; l < n; ++l) {
-      tc::Jac<F> T;
-      tc::load_jac(T, a.data(), 0, n, l);
-      tc::jac_dbl(T, T);
-      tc::store_jac(out.data(), T, n, l);
+      tc::reg::Jac<R> T;
+      tc::reg::f_load(T.X, a.data(), 0, n, l);
+      tc::reg::f_load(T.Y, a.data(), kc, n, l);
+      tc::reg::f_load(T.Z, a.data(), 2 * kc, n, l);
+      tc::reg::jac_dbl(T);
+      tc::reg::f_store(out.data(), T.X, 0, n, l);
+      tc::reg::f_store(out.data(), T.Y, kc, n, l);
+      tc::reg::f_store(out.data(), T.Z, 2 * kc, n, l);
     }
   } else if (op == 2) {  // add: the register engine's, 2T where it says
-    using R = typename tc::reg::Field<F>::type;
-    constexpr int kc = tc::reg::Field<F>::k;
     auto a = rd(P * n), b = rd(P * n);
     out.resize(P * n);
     for (int l = 0; l < n; ++l) {
@@ -122,8 +128,8 @@ void run(int op, int n, int accs, int ndig, int window, int start) {
     auto acc = rd(P * n), q = rd(2 * P / 3 * n), bits = rd(ndig * n);
     out.resize(P * n);
     for (int l = 0; l < n; ++l)
-      tc::step_lane<F>(acc.data(), q.data(), bits.data(), out.data(), n,
-                       ndig, l);
+      tc::step_lane_r<F>(acc.data(), q.data(), bits.data(), out.data(), n,
+                         ndig, l);
   } else {  // step4 (B13): acc, table of 15, digits
     auto acc = rd(P * n), table = rd(15 * P * n), digits = rd(ndig * n);
     out.resize(P * n);
@@ -447,6 +453,74 @@ def test_ladder_loop_matches_plain_version(harness, group, kind):
                (rows, N), ndig=6)
     plain = ccv.p_step4 if kind == "step4" else ccv.p_step
     assert torch.equal(got, plain(g2, acc, other, digits))
+
+
+def test_step_body_on_special_lanes_over_several_bits(harness, group):
+    """B15's bit loop (``step_lane_r``) over three bits on
+    ``chip_smoke.step_special_points``, every T with a random Z: 2T == Q at
+    a bit after the first takes the doubling branch (its 4T before the
+    next bit's doubling, or after the last bit), 2T == −Q gives infinity,
+    an infinite accumulator then a set bit gives Q with Z = 1; bit-exact
+    with the plain version and equal to the host's points."""
+    curve, host, _, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    rnd = random.Random(0xB15 + g2)
+    ts, qs, bits, host_want = chip_smoke.step_special_points(host, rnd)
+    acc = ccv.pack_point(_jacobian(curve, host, ts, rnd))
+    q = _affine(curve, qs)
+    bits = torch.tensor(bits, dtype=torch.int32)
+    got = _run(harness, "step", g2, N, [acc, q, bits], (rows, N), ndig=3)
+    want = ccv.p_step(g2, acc, q, bits)
+    assert torch.equal(got, want)
+    assert curve.to_host_affine(ccv.unpack_jac(want, g2)) == host_want
+    one = ccv.pk._one_rows(2 if g2 else 1, 2, "cpu")
+    assert torch.equal(want[:, 6:8], torch.cat([q[:, 6:8], one]))
+
+
+def test_step_body_over_255_random_bits(harness, group):
+    """B15's bit loop over 255 random bits (the combine's λ width) from
+    random accumulators (lanes 0 and 4 at infinity) and random Q, against
+    ``g1_step_ref`` / ``g2_step_ref`` and the host's 2^255·T + k·Q."""
+    curve, host, T, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    rnd = random.Random(0x255 + g2)
+    qs = [host.mul(host.generator, rnd.randrange(1, R)) for _ in range(N)]
+    q = _affine(curve, qs)
+    bits = torch.from_numpy(np.random.default_rng(0x255 + g2).integers(
+        0, 2, (255, N)).astype(np.int32))
+    acc = ccv.pack_point(T)
+    got = _run(harness, "step", g2, N, [acc, q, bits], (rows, N), ndig=255)
+    want = (ccv.g2_step_ref if g2 else ccv.g1_step_ref)(acc, q, bits)
+    assert torch.equal(got, want)
+    pts = curve.to_host_affine(ccv.unpack_jac(want, g2))
+    tin = curve.to_host_affine(T)
+    for i in (0, 1, 4, 9):
+        k = int("".join(str(int(b)) for b in bits[:, i]), 2)
+        t = None if tin[i] is None else host.mul(tin[i], 1 << 255)
+        assert pts[i] == host.add(t, host.mul(qs[i], k))
+
+
+def test_mixed_add_body_builds_the_ladder_table(harness, group):
+    """The table of B13's ladders (1P..15P): fourteen launches of
+    ``madd_lane_r`` over the shared ``jac_madd`` from acc = Q with Z = 1
+    (the first takes the doubling branch on every lane), bit-exact with
+    ``p_madd``'s chain, and the host's multiples."""
+    curve, host, _, _ = group
+    g2 = curve is dcv.G2
+    rows = (6 if g2 else 3) * 24
+    rnd = random.Random(0x15AB + g2)
+    pts = [host.mul(host.generator, rnd.randrange(1, R)) for _ in range(4)]
+    q = _affine(curve, pts)
+    acc = torch.cat([q, ccv.pk._one_rows(2 if g2 else 1, 4, "cpu")])
+    want = acc
+    for i in range(2, 16):
+        acc = _run(harness, "madd", g2, 4, [acc, q], (rows, 4))
+        want = ccv.p_madd(g2, want, q)
+        assert torch.equal(acc, want)
+    assert curve.to_host_affine(ccv.unpack_jac(acc, g2)) == [
+        host.mul(p, 15) for p in pts]
 
 
 @pytest.mark.parametrize("nent", [1, 7])

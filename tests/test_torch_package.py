@@ -113,7 +113,7 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
 @pytest.mark.parametrize("name,header", [("msm", "curve.cuh"),
                                          ("msm", "ladder_engine.cuh"),
                                          ("keccak", "keccak.cuh"),
-                                         ("ladder", "curve.cuh"),
+                                         ("mont", "ladder_engine.cuh"),
                                          ("ladder", "ladder_engine.cuh"),
                                          ("fr", "fr.cuh"),
                                          ("shared", "ladder_engine.cuh"),

@@ -24,7 +24,9 @@
 // What bounds it. n² Fr products of 264 IMAD results (less one per zero
 // difference) against 16·4·n bytes read and (S·(16 + 1)·4)·n written: the
 // integer multiply issue rate bounds it by far (n = 4096: 16.8 M products).
-// The product's operands stay in registers (fr.cuh).
+// The product is the register engine's carry-save one (fr.cuh), its
+// operands in registers; a thread runs kLagrAccs product chains (fr.cuh
+// `lagr_sweep`), folded into one at the end of its chunk.
 //
 // The launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0.
@@ -36,6 +38,7 @@
 
 namespace {
 
+using tc::kLagrAccs;
 using tc::kThreads;
 
 __global__ void __launch_bounds__(kThreads)
@@ -45,13 +48,14 @@ lagr_kernel(const int32_t* __restrict__ xs, int32_t* __restrict__ prod,
   const int i = blockIdx.x * kThreads + threadIdx.x;
   const int j0 = blockIdx.y * chunk;
   const int j1 = min(n, j0 + chunk);
-  tc::Fr xi, acc;
+  tc::Fr xi, acc[kLagrAccs];
   int zc = 0;
-  tc::fr_set_one(acc);
+#pragma unroll
+  for (int a = 0; a < kLagrAccs; ++a) tc::fr_set_one(acc[a]);
   if (i < n) {
     tc::load_fr(xi, xs, i);
   } else {
-    xi = acc;
+    xi = acc[0];
   }
   // Every thread of the block takes part in the staging, the lanes past n
   // included, so no thread leaves before a barrier.
@@ -63,8 +67,10 @@ lagr_kernel(const int32_t* __restrict__ xs, int32_t* __restrict__ prod,
     if (i < n) tc::lagr_sweep(acc, zc, xi, tile, m);
   }
   if (i < n) {
+    tc::Fr p;
+    tc::lagr_fold(p, acc);
     tc::store_fr(prod + static_cast<size_t>(blockIdx.y) * n * tc::kFrLimbs,
-                 acc, i);
+                 p, i);
     cnt[static_cast<size_t>(blockIdx.y) * n + i] = zc;
   }
 }

@@ -31,15 +31,12 @@
 // against 3k·96·2 bytes of accumulator and 3k·96 bytes per table entry
 // read: the multiply issue rate bounds it by far. Per bit B15 needs one
 // doubling and, for a set bit, the general path of the mixed add (11 / 30)
-// against 5k·96 bytes: the multiply issue rate again.
+// against 8k·96 bytes a lane: the multiply issue rate again.
 //
-// B13 runs on the register engine of ladder_engine.cuh (`step4_lane_r`):
-// field values in registers, one out-of-line carry-save Montgomery product
-// in PTX, and the add's doubling case a branch through the ladder's own
-// doubling. B15 keeps curve.cuh's body: its formulas live in registers and
-// local memory (__noinline__ functions), and its add computes the doubling
-// branch on every lane and selects it; its bound counts only the general
-// path.
+// Both run on the register engine of ladder_engine.cuh (`step4_lane_r`,
+// `step_lane_r`): field values in registers, one out-of-line carry-save
+// Montgomery product in PTX, and the add's doubling case a branch through
+// the ladder's own doubling.
 //
 // Every launcher returns cudaGetLastError() after its launch; the Python
 // wrapper raises if that is not 0.
@@ -47,21 +44,37 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "curve.cuh"
 #include "ladder_engine.cuh"
 
 namespace {
 
-using tc::kThreads;
+constexpr int kThreads = 128;
+
+// B15's blocks of kThreads that must fit on an SM together, per field:
+// __launch_bounds__ caps the registers at 65,536 / (kThreads · blocks) a
+// thread. G1 takes 164 registers, no frame, at a cap of 168 (3 blocks) and
+// of 255 (2 blocks) alike; G2 spills at 255 (584-byte frame). Holding Q in
+// registers across the bits in place of reading it where it is used timed
+// within 1 % at the full card and 3 % slower in G2 at the combine's 4096
+// lanes (NVIDIA H100 80GB HBM3, 700 W; tools/b15_variants.py).
+template <class F>
+struct StepBlocks;
+template <>
+struct StepBlocks<tc::Fq> {
+  static constexpr int value = 3;
+};
+template <>
+struct StepBlocks<tc::Fq2> {
+  static constexpr int value = 2;
+};
 
 template <class F>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, StepBlocks<F>::value)
 step_kernel(const int32_t* __restrict__ acc, const int32_t* __restrict__ q,
             const int32_t* __restrict__ bits, int32_t* __restrict__ out,
             int n, int nbits) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  tc::step_lane<F>(acc, q, bits, out, n, nbits, lane);
+  if (lane < n) tc::step_lane_r<F>(acc, q, bits, out, n, nbits, lane);
 }
 
 // B13's blocks of kThreads that must fit on an SM together, per field:

@@ -1,32 +1,36 @@
 // B13's register-resident G1/G2 engine, and the lane bodies on it: B13's
-// `step4_lane_r`, B11's `winacc_lane_r`, B10's `madd_lane_r` and B16's
-// `selmadd_lane_r` and `dblw_lane_r`; its field product and square also
-// carry B1 and B2 (csrc/mont.cu), in Fq and Fr.
+// `step4_lane_r`, B15's `step_lane_r`, B11's `winacc_lane_r`, B10's
+// `madd_lane_r` and B16's `selmadd_lane_r` and `dblw_lane_r`; its field
+// product, square and subtraction also carry B1 and B2 (csrc/mont.cu) and
+// B14 (csrc/fr.cuh), in Fq and Fr.
 //
-// Replaces, for kernels B13 (csrc/ladder.cu `step4_kernel`), B11 and B10
-// (csrc/msm.cu `winacc_kernel`, `madd_kernel`) and B16 (csrc/shared.cu
-// `selmadd_kernel`, `dblw_kernel`), the formulas of
+// Replaces, for kernels B13 and B15 (csrc/ladder.cu `step4_kernel`,
+// `step_kernel`), B11 and B10 (csrc/msm.cu `winacc_kernel`, `madd_kernel`)
+// and B16 (csrc/shared.cu `selmadd_kernel`, `dblw_kernel`), the formulas of
 // threshold_crypto_tpu/device/pallas_curve.py `_msm_step_w4` (:355; kernel
 // `_mk_step4_kernel` :385): per lane and base-16 digit d, T <- 16T, then
 // T + table[d − 1] with the complete Jacobian add where d != 0; of
-// `_mk_winacc_kernel` (:534): per window w doublings, then the complete
+// `_msm_step` (:143; kernel `_mk_step_kernel` :373): per lane and bit,
+// T <- 2T, then 2T + Q with the complete mixed add where the bit is set;
+// of `_mk_winacc_kernel` (:534): per window w doublings, then the complete
 // add of table[d − 1] for each lane an accumulator owns; and of
 // `_mk_madd_kernel` (:397): per lane T + Q with `_jac_madd` (:305), the
 // complete mixed add, Q affine; and of `_mk_selmadd_kernel` (:410) and
 // `_mk_dblw_kernel` (:433): per accumulator lane one gated complete add,
-// or w doublings. The other curve kernel, B15, keeps curve.cuh.
+// or w doublings.
 //
 // What bounds it. Per digit 4 doublings (7 Fq products each in G1, 16 in
 // G2) and, for d != 0, the general path of the complete add (16 / 44),
 // against 288 (576) bytes of table entry a digit: the 32-bit multiply
 // issue rate bounds it by far, as long as the operands stay in registers.
 // B10 needs 11 / 30 products a lane (the mixed add's general path)
-// against 8k·96 bytes: the multiply rate again. curve.cuh's engine passes
+// against 8k·96 bytes, B15 a doubling a bit and 11 / 30 a set bit against
+// 8k·96 bytes a lane: the multiply rate again. curve.cuh's engine passes
 // every operand and result of every field op through a per-thread
 // local-memory frame (__noinline__ over struct references; 1,296 bytes for
 // G1 B13), and its complete adds compute the doubling branch on every lane
 // and select it (23 Fq products where the general path needs 16; the mixed
-// add 18 where it needs 11).
+// add of B15's bit 18 where it needs 11).
 //
 // What this engine does about it.
 // * An Fq is 12 uint32_t in registers. The point formulas and the field
@@ -66,9 +70,9 @@
 //   tools/b13_variants.py).
 // * The doubling case of the complete adds (T == Q) is a branch, taken only
 //   where h == 0 and r == 0 with neither point at infinity: T is left as it
-//   is and one more doubling runs before the next digit's four (or after
-//   the last digit), through the same doubling code. That doubling is
-//   `jac_dbl`'s, whose formulas are those of the add's Xd, Yd, Zd, so the
+//   is and one more doubling runs before the next digit's four (or bit's
+//   one, or after the last), through the same doubling code. That doubling
+//   is `jac_dbl`'s, whose formulas are those of the add's Xd, Yd, Zd, so the
 //   result is the same, bit for bit, as the select of curve.cuh. The
 //   T == −Q case and the infinity cases stay data selects, in curve.cuh's
 //   order (T == −Q, then Q at infinity, then T at infinity).
@@ -76,7 +80,8 @@
 //   multiples by curve.cuh's addition trees, squares as squares (Fq2: two
 //   products). Every value is canonical, so every coordinate equals the
 //   plain versions' limbs. They are scheduled so that few temporaries are
-//   live at once; Q is read from the table where it is first used.
+//   live at once; Q is read from the table (B15's and B10's affine Q from
+//   its tensor) where it is first used.
 // * No function body returns early (an early return from a __noinline__
 //   body was miscompiled for Fq on sm_90a by nvcc 12.9).
 //
@@ -419,6 +424,26 @@ __device__ __forceinline__ void mont_sqr_words(
   cs_finish<Fd>(r, v, g);
 }
 
+// r = (a − b) mod m for canonical a, b: on a borrow, m is added back (the
+// carry out of that add is the 2^(32 S) the borrow lent). r may alias a or
+// b: it is written last.
+template <class Fd>
+__device__ __forceinline__ void mod_sub_words(
+    uint32_t (&r)[Fd::kWords], const uint32_t (&a)[Fd::kWords],
+    const uint32_t (&b)[Fd::kWords]) {
+  constexpr int S = Fd::kWords;
+  uint32_t d[S];
+  Chain c;
+  d[0] = c.sub_cc(a[0], b[0]);
+#pragma unroll
+  for (int j = 1; j < S; ++j) d[j] = c.subc_cc(a[j], b[j]);
+  const uint32_t mask = c.subc(0u, 0u);
+  r[0] = c.add_cc(d[0], Fd::p(0) & mask);
+#pragma unroll
+  for (int j = 1; j < S - 1; ++j) r[j] = c.addc_cc(d[j], Fd::p(j) & mask);
+  r[S - 1] = c.addc(d[S - 1], Fd::p(S - 1) & mask);
+}
+
 // r = a·b·R^-1 mod p for Fq: the product B10, B11 and B13 call.
 // r may alias a or b: it is written last.
 __device__ __forceinline__ void fp_mul_body(Fp& r, const Fp& a,
@@ -452,20 +477,9 @@ __device__ __forceinline__ void fp_add(Fp& r, const Fp& a, const Fp& b) {
   for (int j = 0; j < kWords; ++j) r.w[j] = borrow ? s[j] : d[j];
 }
 
-// r = (a − b) mod p for canonical a, b: on a borrow, p is added back (the
-// carry out of that add is the 2^384 the borrow lent).
+// r = (a − b) mod p for canonical a, b.
 __device__ __forceinline__ void fp_sub(Fp& r, const Fp& a, const Fp& b) {
-  uint32_t d[kWords];
-  Chain c;
-  d[0] = c.sub_cc(a.w[0], b.w[0]);
-#pragma unroll
-  for (int j = 1; j < kWords; ++j) d[j] = c.subc_cc(a.w[j], b.w[j]);
-  const uint32_t mask = c.subc(0u, 0u);
-  r.w[0] = c.add_cc(d[0], p_word(0) & mask);
-#pragma unroll
-  for (int j = 1; j < kWords - 1; ++j)
-    r.w[j] = c.addc_cc(d[j], p_word(j) & mask);
-  r.w[kWords - 1] = c.addc(d[kWords - 1], p_word(kWords - 1) & mask);
+  mod_sub_words<FqField>(r.w, a.w, b.w);
 }
 
 __device__ __forceinline__ bool fp_is_zero(const Fp& a) {
@@ -711,6 +725,70 @@ __device__ __forceinline__ void jac_add(Jac<R>& T, const int32_t* table,
   }
 }
 
+// Q affine at components 0 (x) and kc (y) of a packed [2k·24, n] tensor,
+// read where each is first used.
+template <class R>
+struct AffineAt {
+  const int32_t* q;
+  int kc, n, lane;
+  __device__ __forceinline__ void x(R& r) const { f_load(r, q, 0, n, lane); }
+  __device__ __forceinline__ void y(R& r) const { f_load(r, q, kc, n, lane); }
+};
+
+// T <- T + Q for Q affine (`q.x`, `q.y` give its coordinates), with
+// `_jac_madd`'s general path (u1 = X1 and s1 = Y1, Q's Z being 1: 8
+// products and 3 squares, G1 11 Fq products, G2 30) and its cases. Where
+// T == Q (h == 0, r == 0, T not at infinity) T is left as it is and `dbl`
+// is set: the caller's next doubling of T is the add's result 2T, since
+// `jac_dbl`'s formulas are `_jac_madd`'s Xd, Yd, Zd (the same limbs as its
+// select). T == −Q (infinity) and T at infinity (Q, with Z = 1) stay data
+// selects, in that order, as in `_jac_madd`.
+template <class R, class Q>
+__device__ __forceinline__ void jac_madd(Jac<R>& T, const Q& q, int& dbl) {
+  R z1, h, r;
+  f_sqr(z1, T.Z);             // Z1²
+  q.x(h);
+  f_mul(h, h, z1);            // u2 = x2·Z1²
+  f_sub(h, h, T.X);           // h = u2 − X1
+  f_mul(z1, z1, T.Z);         // Z1³
+  q.y(r);
+  f_mul(r, r, z1);            // s2 = y2·Z1³
+  f_sub(r, r, T.Y);           // r = s2 − Y1
+  const bool h0 = f_is_zero(h);
+  const bool r0 = f_is_zero(r);
+  const bool inf = f_is_zero(T.Z);
+  if (h0 && r0 && !inf) {     // T == Q: 2T, by the caller's next doubling
+    dbl = 1;
+  } else {
+    R Xo, Yo, Zo;
+    f_mul(Zo, T.Z, h);        // Zo = Z1·h
+    f_sqr(z1, h);             // hh
+    f_mul(h, h, z1);          // hhh
+    f_mul(z1, T.X, z1);       // v = X1·hh
+    f_sqr(Xo, r);             // r²
+    f_sub(Xo, Xo, h);
+    f_add(Yo, z1, z1);
+    f_sub(Xo, Xo, Yo);        // Xo = r² − hhh − 2v
+    f_sub(z1, z1, Xo);
+    f_mul(z1, r, z1);         // r(v − Xo)
+    f_mul(Yo, T.Y, h);        // Y1·hhh
+    f_sub(Yo, z1, Yo);        // Yo
+    if (h0) {                 // T == −Q -> infinity
+      f_set(Xo, true);
+      f_set(Yo, true);
+      f_set(Zo, false);
+    }
+    if (inf) {                // 0 + Q -> Q
+      q.x(Xo);
+      q.y(Yo);
+      f_set(Zo, true);
+    }
+    T.X = Xo;
+    T.Y = Yo;
+    T.Z = Zo;
+  }
+}
+
 }  // namespace reg
 
 // B13 (`_k_g1_msm_step4` / `_k_g2_msm_step4`) with the ladder inside the
@@ -866,15 +944,10 @@ __device__ __forceinline__ void dblw_lane_r(const int32_t* acc_in,
 }
 
 // B10 (`_k_g1_madd` / `_k_g2_madd`) on the register engine: acc [3k·24, n]
-// Jacobian + q [2k·24, n] affine, per lane, with `_jac_madd`'s general path
-// (u1 = X1 and s1 = Y1, Q's Z being 1: 8 products and 3 squares, G1 11 Fq
-// products, G2 30) and its cases. Where T == Q (h == 0, r == 0, T not at
-// infinity) the lane branches into `jac_dbl`, whose formulas are
-// `_jac_madd`'s Xd, Yd, Zd: the same limbs as its select. T == −Q
-// (infinity) and T at infinity (Q, with Z = 1) stay data selects, in that
-// order, as in `_jac_madd`. The table build (device/cuda_curve.py) starts
-// from acc = Q with Z = 1, so its first launch takes the doubling branch
-// on every lane and the others never do.
+// Jacobian + q [2k·24, n] affine, per lane, with `jac_madd`. Its T == Q
+// case is `jac_dbl` right after the add. The table build
+// (device/cuda_curve.py) starts from acc = Q with Z = 1, so its first
+// launch takes the doubling branch on every lane and the others never do.
 template <class F>
 __device__ __forceinline__ void madd_lane_r(const int32_t* acc_in,
                                             const int32_t* q_in,
@@ -885,47 +958,46 @@ __device__ __forceinline__ void madd_lane_r(const int32_t* acc_in,
   reg::f_load(T.X, acc_in, 0, n, lane);
   reg::f_load(T.Y, acc_in, kc, n, lane);
   reg::f_load(T.Z, acc_in, 2 * kc, n, lane);
-  R z1, h, r;
-  reg::f_sqr(z1, T.Z);             // Z1²
-  reg::f_load(h, q_in, 0, n, lane);
-  reg::f_mul(h, h, z1);            // u2 = x2·Z1²
-  reg::f_sub(h, h, T.X);           // h = u2 − X1
-  reg::f_mul(z1, z1, T.Z);         // Z1³
-  reg::f_load(r, q_in, kc, n, lane);
-  reg::f_mul(r, r, z1);            // s2 = y2·Z1³
-  reg::f_sub(r, r, T.Y);           // r = s2 − Y1
-  const bool h0 = reg::f_is_zero(h);
-  const bool r0 = reg::f_is_zero(r);
-  const bool inf = reg::f_is_zero(T.Z);
-  if (h0 && r0 && !inf) {          // T == Q: 2T
-    reg::jac_dbl(T);
-  } else {
-    R Xo, Yo, Zo;
-    reg::f_mul(Zo, T.Z, h);        // Zo = Z1·h
-    reg::f_sqr(z1, h);             // hh
-    reg::f_mul(h, h, z1);          // hhh
-    reg::f_mul(z1, T.X, z1);       // v = X1·hh
-    reg::f_sqr(Xo, r);             // r²
-    reg::f_sub(Xo, Xo, h);
-    reg::f_add(Yo, z1, z1);
-    reg::f_sub(Xo, Xo, Yo);        // Xo = r² − hhh − 2v
-    reg::f_sub(z1, z1, Xo);
-    reg::f_mul(z1, r, z1);         // r(v − Xo)
-    reg::f_mul(Yo, T.Y, h);        // Y1·hhh
-    reg::f_sub(Yo, z1, Yo);        // Yo
-    if (h0) {                      // T == −Q -> infinity
-      reg::f_set(Xo, true);
-      reg::f_set(Yo, true);
-      reg::f_set(Zo, false);
-    }
-    if (inf) {                     // 0 + Q -> Q
-      reg::f_load(Xo, q_in, 0, n, lane);
-      reg::f_load(Yo, q_in, kc, n, lane);
-      reg::f_set(Zo, true);
-    }
-    T.X = Xo;
-    T.Y = Yo;
-    T.Z = Zo;
+  int dbl = 0;
+  reg::jac_madd(T, reg::AffineAt<R>{q_in, kc, n, lane}, dbl);
+  if (dbl) reg::jac_dbl(T);
+  reg::f_store(out, T.X, 0, n, lane);
+  reg::f_store(out, T.Y, kc, n, lane);
+  reg::f_store(out, T.Z, 2 * kc, n, lane);
+}
+
+// B15 (`_k_g1_msm_step` / `_k_g2_msm_step`, body `_msm_step`) with the
+// ladder inside the thread, on the register engine: acc [3k·24, n]
+// Jacobian, q [2k·24, n] affine, bits [nbits, n] MSB first; per bit
+// T <- 2T, then 2T + Q with `jac_madd` where the bit is set. `_msm_step`'s
+// add starts from 2T, whose Z is 2S, so its cases are those of `jac_madd`
+// on 2T: 2T == Q gives 4T, 2T == −Q infinity, T at infinity Q with Z = 1,
+// in the JAX select order. The 4T of 2T == Q is one more doubling: it
+// joins the next bit's (or a last pass after the bits), so one copy of the
+// doubling code serves both, as in `step4_lane_r`. nbits = 1 is the TPU
+// kernel.
+template <class F>
+__device__ __forceinline__ void step_lane_r(const int32_t* acc_in,
+                                            const int32_t* q_in,
+                                            const int32_t* bits,
+                                            int32_t* out, int n, int nbits,
+                                            int lane) {
+  using R = typename reg::Field<F>::type;
+  constexpr int kc = reg::Field<F>::k;
+  reg::Jac<R> T;
+  reg::f_load(T.X, acc_in, 0, n, lane);
+  reg::f_load(T.Y, acc_in, kc, n, lane);
+  reg::f_load(T.Z, acc_in, 2 * kc, n, lane);
+  const reg::AffineAt<R> q{q_in, kc, n, lane};
+  int dbl = 0;
+#pragma unroll 1
+  for (int b = 0; b <= nbits; ++b) {
+    const int doublings = (b < nbits ? 1 : 0) + dbl;
+    dbl = 0;
+#pragma unroll 1
+    for (int i = 0; i < doublings; ++i) reg::jac_dbl(T);
+    if (b < nbits && bits[static_cast<size_t>(b) * n + lane] != 0)
+      reg::jac_madd(T, q, dbl);
   }
   reg::f_store(out, T.X, 0, n, lane);
   reg::f_store(out, T.Y, kc, n, lane);

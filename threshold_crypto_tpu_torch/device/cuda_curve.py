@@ -26,10 +26,12 @@ Each kernel is the counterpart of one Pallas kernel of
   then T + table[d − 1] where d ≠ 0 (``curve.msm_step_w4``). The TPU ran
   one launch per digit from a ``lax.scan``; here the digit loop runs inside
   the thread, so a whole ladder is one launch, on the register engine of
-  ``csrc/ladder_engine.cuh`` (B15 runs on ``csrc/curve.cuh``).
+  ``csrc/ladder_engine.cuh``.
 * B15 ``g1_step`` / ``g2_step`` (``_mk_step_kernel`` :373, instances
   ``_k_g1/g2_msm_step`` :447-448): per lane and bit, T ← 2T (+ Q affine)
-  (``curve.msm_step``), the bit loop inside the thread likewise.
+  (``curve.msm_step``), the bit loop inside the thread likewise, on the
+  register engine (``step_lane_r``: B10's mixed add ``jac_madd`` on 2T,
+  its 2T == Q case a branch into the ladder's doubling).
 * B16 ``g1_selmadd`` / ``g2_selmadd`` (``_mk_selmadd_kernel`` :410) and
   ``g1_dblw`` / ``g2_dblw`` (``_mk_dblw_kernel`` :433), in ``csrc/shared.cu``:
   the two halves of B11 as separate launches, acc + table[d − 1] per

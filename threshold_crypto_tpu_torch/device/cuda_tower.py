@@ -16,16 +16,15 @@ Each kernel is the counterpart of one Pallas megakernel of
   ``f_fold`` (``_k_f_fold``: f·line). A step then its fold is B4 or B5 bit
   for bit. No JAX path calls them, so they are on no entry point's path;
   ``chip_smoke.py`` drives a whole Miller loop through them;
-* ``fq_engine`` is the test entry of B3, the engine of ``csrc/fq.cuh`` that
-  runs inside all of them (``_k_mul16``/``_k_mul13``, ``k_add``, ``k_sub``,
-  ``k_neg``, ``k_small``): it has no launch of its own on the path.
+* ``fq_engine`` is the test entry of B3, the engine of ``csrc/fq.cuh``
+  (``_k_mul16``/``_k_mul13``, ``k_add``, ``k_sub``, ``k_neg``,
+  ``k_small``), which runs inside B17: it has no launch on any path.
 
 They take and return the packed layout of :mod:`.packed`, contiguous
 ``int32[k·24, N]`` CUDA tensors (f: k = 12, T: 6, Q: 4, P: 2, a line
 (c0, c1, c4): 6, in ``_k_dbl_step``'s plane order), allocate
 their outputs with ``torch.empty``, launch on the current stream and do not
-synchronise. Each wrapper counts its launches (``DBL_FOLD`` …); every launch
-of a kernel whose body is the engine also counts in ``ENGINE``.
+synchronise. Each wrapper counts its own launches (``DBL_FOLD`` …).
 
 The ``*_ref`` functions are the same functions in plain PyTorch: they
 unpack, run the port's tower (:mod:`.tower`, whose products go to
@@ -82,13 +81,10 @@ def _check(*operands):
 
 
 def _launch(lib, fn, count, ins, outs, n, *extra):
-    """Launch ``fn`` of library ``lib`` on the current stream and count it
-    (and, for B4-B9 and B17, in ``ENGINE`` too)."""
+    """Launch ``fn`` of library ``lib`` on the current stream and count it."""
     if n == 0:
         return
     launch(lib, fn, count, (*ins, *outs), *extra, n, lanes=n)
-    if count is not ENGINE:
-        ENGINE.add(n)
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,7 @@ The counterpart of ``threshold_crypto_tpu/device/curve.py`` (``DeviceCurve``:
 point formulas of ``threshold_crypto_tpu/device/pallas_curve.py:143-370``
 (``_msm_step``, ``_jac_dbl``, ``_jac_add``, ``_jac_madd``, ``_msm_step_w4``)
 and its ``dcv_select_z``, which are the plain versions of the curve kernels
-B10, B11, B13 and B15 (``device/cuda_curve.py``; ``csrc/curve.cuh``,
+B10, B11, B13, B15 and B16 (``device/cuda_curve.py``;
 ``csrc/ladder_engine.cuh``).
 
 Points are Jacobian tuples ``(X, Y, Z)`` (infinity ⇔ Z == 0) of batched field

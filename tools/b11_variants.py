@@ -33,7 +33,7 @@ entry), the same adds.
 
 With ``--parent ROOT`` (another checkout: its ``chip_smoke.py`` and
 ``threshold_crypto_tpu_torch/``) it also builds that checkout's msm.cu,
-ladder.cu and compares ptxas's figures of B10, B13 and B15 with the
+ladder.cu and compares ptxas's figures of B10 and B13 with the
 package's, and times the whole RLC call of both checkouts
 (``chip_smoke.rlc_call``, N = 262,144, exponents included) in turns, one
 child process per turn (parent, this, this, parent, twice), each a warm-up
@@ -139,8 +139,7 @@ for i in range(1 + int(sys.argv[1])):
 print(json.dumps(times[1:]))
 """
 # The kernels whose ptxas figures must equal the parent checkout's.
-UNCHANGED = {"msm": ("madd_kernel",), "ladder": ("step4_kernel",
-                                                 "step_kernel")}
+UNCHANGED = {"msm": ("madd_kernel",), "ladder": ("step4_kernel",)}
 
 
 def patched(csrc, patches):
@@ -222,7 +221,7 @@ def compare_parent(parent, logs):
             if kern.split("<")[0] in UNCHANGED[name]:
                 table[kern] = [list(fig), list(ours.get(kern, ()))]
                 same &= tuple(fig) == tuple(ours.get(kern, ()))
-    print(f"B10, B13, B15, B16 ptxas equal the parent's: {same}", flush=True)
+    print(f"B10, B13 ptxas equal the parent's: {same}", flush=True)
     return table, same
 
 
@@ -253,7 +252,7 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", help="root of another checkout: compare "
-                    "B10, B13, B15 and B16's ptxas figures with it and time "
+                    "B10 and B13's ptxas figures with it and time "
                     "both RLC calls in turns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
