@@ -218,7 +218,7 @@ def hash_line():
 
     msg = b"bench-msg-0"
     sk = random.Random(0xD15C).randrange(1, R)
-    h = hashing.hash_g2(msg)
+    h = hashing.hash_g2(msg).v
     pk = dpr.g1_affine_from_host([hcv.G1.mul(hcv.G1.generator, sk)],
                                  device="cpu")
     sig = dpr.g2_affine_from_host([hcv.G2.mul(h, sk)], device="cpu")

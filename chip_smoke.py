@@ -7,8 +7,10 @@ Phases, each announced on a flushed line before it starts:
 
 1. card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build: every kernel source of the package with nvcc (sm_90a), one nvcc
-   per source, all started together: seconds per source, and per kernel the
-   registers, stack frame and spills that ptxas reports;
+   per source, all started together, and beside them the host library
+   ``csrc/tc_native.cpp`` with g++: seconds per source (g++'s too, and the
+   library's ABI version), and per kernel the registers, stack frame and
+   spills that ptxas reports;
 3. kernels: each kernel on the card against its plain PyTorch version on the
    same inputs, bit-exact, at the shapes of the main paths (B1 in Fq and Fr
    at slice 1's widest launch, and after slice 3 at the RLC fold's first
@@ -70,7 +72,9 @@ Phases, each announced on a flushed line before it starts:
    and/or sig at infinity: equal to the mask; 128 sampled hash points,
    every lane that is not ``ok`` and 32 sampled signatures equal to the
    host oracle, the lanes that are not ``ok`` at most 2 %; its launches
-   per call, the median of 3 calls, the kernel share and a stage split;
+   per call, the median of 3 calls, the kernel share and a stage split,
+   with the host splice's ms (through the native ``hashing.hash_g2``) for
+   its lanes not ``ok``;
 8. slice 5: ``ops.encrypt_batch_pallas`` at 4096 lanes (the inputs of
    ``benches/encrypt_bench.py``): every lane passes the ciphertext check
    e(u, H) == e(G1, w), lanes 0, 1 and n − 1 equal the host oracle; its
@@ -102,7 +106,22 @@ Phases, each announced on a flushed line before it starts:
    kernel share and a stage split; then ``ops.verify_sig_shares_rlc`` (B15
    and the fold) on slice 3's batch, accepting it and rejecting it with one
    signature replaced, and B15's share of one call from CUDA events;
-11. one JSON line of kernel numbers (B1-B17), then the device line, last.
+11. slice 8: the public API (``import threshold_crypto_tpu_torch as tc``)
+   at N = 256, t = 85: ``SecretKeySet.random`` from a seeded ChaChaRng,
+   256 ``SecretKeyShare.sign``, ``verify_signature_shares`` valid and with
+   one share replaced, two disjoint 86-share ``combine_signatures`` (equal,
+   the master key's signature), encryption, 86 ``decrypt_share`` each
+   passing ``verify_decryption_share``, ``decrypt``, a tampered ciphertext
+   refused, serde and codec round trips of every type, on the host; then
+   the same values through the card's batch ops: the RLC verdicts of
+   ``rlc_exponents`` + ``verify_sig_shares_rlc_pallas`` equal the host's,
+   ``combine_batch`` on its three paths equals ``combine_signatures``'
+   bytes, ``decrypt_share_batch`` the host's decryption shares,
+   ``ciphertext_verify_batch`` accepts the ciphertext and rejects the
+   tampered one, and ``verify_with_hash_batch`` accepts 256 messages
+   signed by the master key; each op's kernels must launch, and the wall
+   is split host / card;
+12. one JSON line of kernel numbers (B1-B17), then the device line, last.
 
 Any mismatch or exception ends the run with a non-zero exit and no result
 line. Without a CUDA card, or without the package beside this file, it exits
@@ -111,6 +130,7 @@ non-zero at once.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -227,6 +247,29 @@ DKG_SAMPLE = 64
 DKG_ROWS_SAMPLE = (0, 1, 128, 255)
 DKG_HOST_NODES = (0, 255)
 DKG_TAMPERED = 100
+# Slice 8: the public API (``import threshold_crypto_tpu_torch as tc``) at
+# the DKG's committee, N = 256, t = 85; the keys from a seeded ChaChaRng,
+# one share of the RLC check replaced by another node's.
+API_N, API_T = DKG_N, DKG_T
+API_SEED = bytes(range(0x80, 0xA0))
+API_MSG = b"chip_smoke slice 8"
+API_REPLACED = 3
+API_PLAINTEXT = b"chip_smoke slice 8: threshold-encrypted"
+# Per device op of slice 8, the kernels that must have launched in it
+# (86 shares stay under ops.fr's matrix bound, so B14 must not launch).
+TOWER_KERNELS = ("dbl_fold", "add_fold", "cyclo_sqr", "cyclo_sqr_mul",
+                 "fq12_mul", "fq12_sqr")
+API_KERNELS = {
+    "rlc": ("sha3_chunks", "g1_madd", "g2_madd", "g1_winacc", "g2_winacc",
+            "mont_mul", "mont_pow") + TOWER_KERNELS,
+    "combine pallas": ("g2_madd", "g2_winacc", "mont_mul", "mont_pow"),
+    "combine scalarwise": ("g2_step", "mont_mul", "mont_pow"),
+    "combine bitscan": ("g2_selmadd", "g2_dblw", "mont_mul", "mont_pow"),
+    "decrypt shares": ("g1_madd", "g1_step4"),
+    "ciphertext check": ("mont_pow",) + TOWER_KERNELS,
+    "verify_with_hash_batch": ("g2_madd", "g2_step4", "mont_pow")
+                              + TOWER_KERNELS,
+}
 
 
 def phase(msg):
@@ -1937,7 +1980,8 @@ def hash_inputs(dev):
     rnd = random.Random(0xD15C)
     sks = [rnd.randrange(1, R) for _ in range(HASH_KEYS)]
     t0 = time.time()
-    h_pts = hashing.hash_g2_batch(msgs, attempts=HASH_ATTEMPTS, device=dev)
+    h_pts = [h.v for h in hashing.hash_g2_batch(msgs, attempts=HASH_ATTEMPTS,
+                                                device=dev)]
     hash_s = time.time() - t0
     pk_aff = tile_to(dpr.g1_affine_from_host(
         [hcv.G1.mul(hcv.G1.generator, s) for s in sks], device=dev), HASH_N)
@@ -2007,11 +2051,11 @@ def run_hash(dev):
     sample = list(range(0, HASH_N, HASH_N // HASH_SAMPLE))[:HASH_SAMPLE]
     t0 = time.time()
     for i, got in zip(sample, g2_host_points(h_aff, sample)):
-        want_pt = hashing.hash_g2(msgs[i])
+        want_pt = hashing.hash_g2(msgs[i]).v
         if (okh[i] and got != want_pt) or h_pts[i] != want_pt:
             fail(f"hash_g2: lane {i} differs from the host oracle")
     for i in not_ok:
-        if h_pts[i] != hashing.hash_g2(msgs[i]):
+        if h_pts[i] != hashing.hash_g2(msgs[i]).v:
             fail(f"hash_g2_batch: lane {i} (not ok) differs from the host "
                  f"oracle")
     for i in sorted(set(not_ok) | set(sample)):
@@ -2065,9 +2109,14 @@ def run_hash(dev):
     with spans_around(stages, patches):
         swall = hash_call(pk_aff, msgs, sig_aff, want)
     split = print_split("verify_with_hash_batch", stages, swall)
+    splice_ms = split.get("host splice", 0.0)
+    print(f"host splice (native hashing.hash_g2): {splice_ms:.1f} ms for "
+          f"{len(not_ok)} lanes not ok "
+          f"({splice_ms / max(len(not_ok), 1):.2f} ms a lane)", flush=True)
     return dict(launches=launches, wall_s=wall, per_s=HASH_N / wall,
                 kernel_s=kernel_s, timed_wall_s=kwall, split_ms=split,
-                kernel_ms=per_kernel, not_ok=len(not_ok))
+                kernel_ms=per_kernel, not_ok=len(not_ok),
+                splice_ms=splice_ms)
 
 
 # ---------------------------------------------------------------------------
@@ -2606,7 +2655,7 @@ def run_combine(dev):
     pk_jac = timed("pk shares (ladder)", ccv.scalar_mul_pallas, dcv.G1,
                    tops._gen_g1((n,), dev), sk)
     pk_aff = ops.jacobian_to_affine(dcv.G1, pk_jac)
-    h_host = hashing.hash_g2(COMBINE_MSG)
+    h_host = hashing.hash_g2(COMBINE_MSG).v
     h_jac = dcv.G2.from_host_affine([h_host], device=dev)
     sig = timed("sign_batch", ops.sign_batch, tile_to(h_jac, n), sk)
     sig_aff = ops.jacobian_to_affine(dcv.G2, sig)
@@ -3163,6 +3212,251 @@ def run_rlc_scalarwise(dev):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# Slice 8: the public API at N = 256, t = 85, against the batch ops
+# ---------------------------------------------------------------------------
+
+def api_host():
+    """The host half of slice 8 through the public API: keys from a seeded
+    ChaChaRng, API_N signature shares, the RLC share check valid and with
+    one share replaced, two disjoint (t + 1)-share combines, threshold
+    decryption over t + 1 verified shares, and a serde and codec round
+    trip of every public type. Returns what the card half compares."""
+    import threshold_crypto_tpu_torch as tc
+    from threshold_crypto_tpu_torch import codec_impl
+    from threshold_crypto_tpu_torch.poly import (BivarCommitment, BivarPoly,
+                                                 Commitment, Poly)
+    from threshold_crypto_tpu_torch.utils.rng import ChaChaRng
+
+    rng = ChaChaRng.from_seed(API_SEED)
+    times = {}
+
+    def timed(label, fn, *args):
+        t0 = time.time()
+        out = fn(*args)
+        times[label] = times.get(label, 0.0) + time.time() - t0
+        return out
+
+    if tc.get_backend().name != "bls12_381":
+        fail(f"slice 8: backend {tc.get_backend().name}, not bls12_381")
+    sks = timed("keys", tc.SecretKeySet.random, API_T, rng)
+    pks = timed("keys", sks.public_keys)
+    keys = timed("keys", lambda: [sks.secret_key_share(i)
+                                  for i in range(API_N)])
+    pk_shares = timed("public key shares", lambda: [
+        pks.public_key_share(i) for i in range(API_N)])
+    if [k.public_key_share() for k in keys[:4]] != pk_shares[:4]:
+        fail("slice 8: public key shares of the set and of the keys differ")
+    shares = timed("sign", lambda: {i: keys[i].sign(API_MSG)
+                                    for i in range(API_N)})
+    bad = dict(shares)
+    bad[API_REPLACED] = shares[API_REPLACED + 1]
+    rlc_valid = timed("verify_signature_shares", pks.verify_signature_shares,
+                      shares, API_MSG, ChaChaRng.from_seed(bytes(32)))
+    rlc_bad = timed("verify_signature_shares", pks.verify_signature_shares,
+                    bad, API_MSG, ChaChaRng.from_seed(bytes(32)))
+    if (rlc_valid, rlc_bad) != (True, False):
+        fail(f"verify_signature_shares: valid {rlc_valid}, one share "
+             f"replaced {rlc_bad}")
+    first = list(range(API_T + 1))
+    second = list(range(API_T + 1, 2 * (API_T + 1)))
+    sig = timed("combine_signatures", pks.combine_signatures,
+                {i: shares[i] for i in first})
+    sig2 = timed("combine_signatures", pks.combine_signatures,
+                 {i: shares[i] for i in second})
+    master = sks.secret_key()
+    if sig.to_bytes() != sig2.to_bytes() or sig != master.sign(API_MSG):
+        fail("combine_signatures: two disjoint subsets differ, or differ "
+             "from the master key's signature")
+    if not timed("verify", pks.public_key().verify, sig, API_MSG):
+        fail("the master key rejects the combined signature")
+
+    ct = timed("encrypt", pks.public_key().encrypt, API_PLAINTEXT, rng)
+    dec = {}
+    for i in first:
+        d = timed("decrypt_share", keys[i].decrypt_share, ct)
+        if d is None or not timed("verify_decryption_share",
+                                  pk_shares[i].verify_decryption_share,
+                                  d, ct):
+            fail(f"decryption share {i} missing or rejected")
+        dec[i] = d
+    if timed("decrypt", pks.decrypt, dec, ct) != API_PLAINTEXT:
+        fail("threshold decryption gives another plaintext")
+    tampered = tc.Ciphertext(ct.u, bytes([ct.v[0] ^ 1]) + ct.v[1:], ct.w)
+    if tampered.verify() or keys[0].decrypt_share(tampered) is not None:
+        fail("a tampered ciphertext passed")
+
+    def round_trip():
+        poly = Poly.random(3, rng)
+        bivar = BivarPoly.random(2, rng).commitment()
+        objs = [(tc.PublicKey, master.public_key()),
+                (tc.PublicKeyShare, pk_shares[7]), (tc.Signature, sig),
+                (tc.SignatureShare, shares[7]),
+                (tc.DecryptionShare, dec[0]), (tc.Ciphertext, ct),
+                (tc.PublicKeySet, pks), (Commitment, poly.commitment()),
+                (BivarCommitment, bivar)]
+        for cls, obj in objs:
+            if tc.deserialize(cls, tc.serialize(obj)) != obj:
+                fail(f"serde round trip of {cls.__name__}")
+        for cls, obj in ((tc.SecretKey, master), (tc.SecretKeyShare, keys[9]),
+                         (tc.SecretKeySet, sks), (Poly, poly)):
+            if tc.deserialize(cls, tc.serialize(tc.SerdeSecret(obj))) != obj:
+                fail(f"serde round trip of SerdeSecret({cls.__name__})")
+        for cls, obj in objs[:1] + objs[2:3] + objs[4:7]:
+            if codec_impl.decode(cls, codec_impl.encode(obj)) != obj:
+                fail(f"codec round trip of {cls.__name__}")
+        return len(objs) + 4
+
+    n_types = timed("serde and codec", round_trip)
+    msgs = [b"chip_smoke slice 8 message %d" % i for i in range(API_N)]
+    msg_sigs = timed("sign", lambda: [master.sign(m) for m in msgs])
+    return dict(sks=sks, pks=pks, keys=keys, pk_shares=pk_shares,
+                shares=shares, bad=bad, rlc=(rlc_valid, rlc_bad),
+                first=first, sig=sig, ct=ct, tampered=tampered, dec=dec,
+                msgs=msgs, msg_sigs=msg_sigs, master=master,
+                host_s=times, n_types=n_types)
+
+
+def run_api(dev):
+    """Slice 8: the public API at N = API_N, t = API_T (``api_host``), then
+    the same values through the card's batch ops, their points lifted with
+    ``device.pairing``'s ``g1_affine_from_host`` / ``g2_affine_from_host``:
+    ``rlc_exponents`` and ``verify_sig_shares_rlc_pallas`` give the host's
+    verdicts (valid, one share replaced); ``combine_batch`` on each path
+    gives ``combine_signatures``' bytes; ``decrypt_share_batch`` gives the
+    host's decryption shares byte for byte; ``ciphertext_verify_batch``
+    accepts the ciphertext and rejects the tampered one;
+    ``verify_with_hash_batch`` accepts API_N messages signed by the master
+    key. Each op's launches are counted from 0 and its kernels must have
+    launched; host and card seconds are reported apart."""
+    import torch
+    import threshold_crypto_tpu_torch as tc
+    from threshold_crypto_tpu_torch import ops
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import pairing as dpr
+    from threshold_crypto_tpu_torch.ops import fr as frops
+
+    t0 = time.time()
+    h = api_host()
+    host_s = time.time() - t0
+    print(f"host, the public API: {API_N} keys of a degree-{API_T} "
+          f"polynomial, {API_N} signature shares, verify_signature_shares "
+          f"valid {h['rlc'][0]} and with share {API_REPLACED} replaced "
+          f"{h['rlc'][1]}, two disjoint {API_T + 1}-share combines equal "
+          f"(and equal the master key's signature, which verifies), "
+          f"{API_T + 1} decryption shares verified and decrypted, a "
+          f"tampered ciphertext refused, serde and codec round trips of "
+          f"{h['n_types']} types; {host_s:.1f} s: " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in h["host_s"].items()), flush=True)
+
+    b = tc.get_backend()
+    card_s, launches = {}, {}
+
+    def on_card(label, fn, *args, **kw):
+        reset_counts()
+        torch.cuda.synchronize()
+        t1 = time.time()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        card_s[label] = card_s.get(label, 0.0) + time.time() - t1
+        counts = read_counts()
+        missing = [k for k in API_KERNELS.get(label, ()) if not counts[k]]
+        if missing:
+            fail(f"slice 8 {label}: no launch of {missing}")
+        if counts["lagrange_rowprod"]:
+            fail(f"slice 8 {label}: B14 launched under the matrix bound")
+        per = launches.setdefault(label, dict.fromkeys(counts, 0))
+        for k, v in counts.items():
+            per[k] += v
+        return out
+
+    def lift(label, fn, pts):
+        return on_card(label, fn, pts, device=dev)
+
+    n, used = API_N, h["first"]
+    pk_aff = lift("lift", dpr.g1_affine_from_host,
+                  [p.pk.el.v for p in h["pk_shares"]])
+    sig_aff = lift("lift", dpr.g2_affine_from_host,
+                   [h["shares"][i].sig.el.v for i in range(n)])
+    bad_aff = lift("lift", dpr.g2_affine_from_host,
+                   [h["bad"][i].sig.el.v for i in range(n)])
+    h_jac = on_card("lift", dcv.G2.from_host_affine,
+                    [tc.hash_g2(API_MSG).v], device=dev)
+
+    def rlc(sigs):
+        r = ops.rlc_exponents(n, API_SEED, pk_aff=pk_aff, sig_aff=sigs,
+                              h_jac=h_jac)
+        return bool(ops.verify_sig_shares_rlc_pallas(pk_aff, h_jac, sigs, r))
+
+    verdicts = (on_card("rlc", rlc, sig_aff), on_card("rlc", rlc, bad_aff))
+    if verdicts != h["rlc"]:
+        fail(f"verify_sig_shares_rlc_pallas {verdicts} differs from "
+             f"verify_signature_shares {h['rlc']}")
+
+    xs = frops.fr_to_device([tc.into_fr_plus_1(i) for i in used], dev)
+    shares_jac = on_card("lift", dcv.G2.from_host_affine,
+                         [h["shares"][i].sig.el.v for i in used], device=dev)
+    want = h["sig"].to_bytes()
+    for path in ("pallas", "scalarwise", "bitscan"):
+        pt, ok = on_card(f"combine {path}", ops.combine_batch, dcv.G2,
+                         shares_jac, xs, path=path)
+        if not bool(ok) or b.G2(one_point(dcv.G2, pt)).to_compressed() \
+                != want:
+            fail(f"combine_batch(G2, {path}) differs from "
+                 f"combine_signatures")
+
+    ct = h["ct"]
+    m = len(used)
+    u_jac = tile_to(dcv.G1.from_host_affine([ct.u.v], device=dev), m)
+    sk_plain = dcv.fr_limbs_from_ints([h["keys"][i].sk.fr for i in used],
+                                      dev)
+    d = on_card("decrypt shares", ops.decrypt_share_batch, u_jac, sk_plain)
+    got = [b.G1(p).to_compressed() for p in dcv.G1.to_host_affine(d)]
+    if got != [h["dec"][i].to_bytes() for i in used]:
+        fail("decrypt_share_batch differs from decrypt_share")
+
+    u_aff = dpr.g1_affine_from_host([ct.u.v, ct.u.v], device=dev)
+    w_aff = dpr.g2_affine_from_host([ct.w.v, ct.w.v], device=dev)
+    huv_aff = dpr.g2_affine_from_host(
+        [tc.hash_g1_g2(ct.u, ct.v).v,
+         tc.hash_g1_g2(ct.u, h["tampered"].v).v], device=dev)
+    ct_ok = on_card("ciphertext check", ops.ciphertext_verify_batch, u_aff,
+                    w_aff, huv_aff)
+    if ct_ok.tolist() != [True, False]:
+        fail(f"ciphertext_verify_batch {ct_ok.tolist()}: the ciphertext and "
+             f"its tampered copy should give [True, False]")
+
+    mpk_aff = tile_to(dpr.g1_affine_from_host(
+        [h["master"].public_key().el.v], device=dev), n)
+    msig_aff = dpr.g2_affine_from_host([s.el.v for s in h["msg_sigs"]],
+                                       device=dev)
+    vwh = on_card("verify_with_hash_batch", ops.verify_with_hash_batch,
+                  mpk_aff, h["msgs"], msig_aff)
+    if not vwh.all():
+        fail(f"verify_with_hash_batch rejects "
+             f"{int((~vwh).sum())} of {n} master-key signatures")
+
+    total = {}
+    for per_op in launches.values():
+        for k, v in per_op.items():
+            total[k] = total.get(k, 0) + v
+    card_total = sum(card_s.values())
+    print(f"card, the batch ops on the same values: RLC verdicts "
+          f"{verdicts} equal the host's; combine_batch on pallas, "
+          f"scalarwise and bitscan equals combine_signatures' bytes; "
+          f"decrypt_share_batch equals the {m} host decryption shares; "
+          f"ciphertext_verify_batch [True, False]; verify_with_hash_batch "
+          f"accepts all {n}; {card_total:.2f} s: " + ", ".join(
+              f"{k} {v:.3f} s" for k, v in card_s.items()), flush=True)
+    print(f"slice 8 wall: host {host_s:.1f} s, card {card_total:.2f} s; "
+          f"launches " + "; ".join(
+              f"{op}: " + ", ".join(f"{k} {v}" for k, v in per.items() if v)
+              for op, per in launches.items()), flush=True)
+    return dict(launches=total, launches_by_op=launches, host_s=host_s,
+                card_s=card_total, card_by_op=card_s,
+                host_by_step=h["host_s"])
+
+
 def main():
     import numpy as np
     import torch
@@ -3188,9 +3482,16 @@ def main():
 
     phase("build")
     t0 = time.time()
-    logs = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        native = pool.submit(_build.build_native)
+        logs = _build.build()
+        native_log = native.result()
     print(f"built {sorted(logs)} in {time.time() - t0:.1f} s (one nvcc per "
           f"source, all started together)", flush=True)
+    abi = _build.native_library().tc_native_abi_version()
+    print(f"host library: {native_log.strip().splitlines()[-1]} (beside "
+          f"the nvcc builds), {os.path.basename(_build.native_path())}, ABI "
+          f"version {abi}", flush=True)
     ptxas = {}
     for name in sorted(logs):
         ptxas.update(print_ptxas(name, logs[name]))
@@ -3310,6 +3611,11 @@ def main():
     dkg = run_dkg(dev, card)
     torch.cuda.empty_cache()
     rlc_sw = run_rlc_scalarwise(dev)
+    torch.cuda.empty_cache()
+    phase(f"slice 8: the public API at N = {API_N}, t = {API_T} "
+          f"(SecretKeySet, signature and decryption shares, combines, serde "
+          f"and codec on the host), held against the batch ops on the card")
+    api = run_api(dev)
 
     kernels = []
     for mod, k in registry():
@@ -3344,6 +3650,7 @@ def main():
             p: c["launches"][k.name] for p, c in combined["paths"].items()}
         entry["launches_dkg_path"] = dkg["launches"][k.name]
         entry["launches_rlc_scalarwise"] = rlc_sw["launches"][k.name]
+        entry["launches_api_path"] = api["launches"][k.name]
         if "ms_with_fold" in res:
             entry["ms_with_fold"] = res["ms_with_fold"]
         if "ms_all_doubling" in res:

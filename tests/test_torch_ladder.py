@@ -280,7 +280,7 @@ def test_verify_with_hash_batch_equals_the_mask():
     rnd = random.Random(0xBEEF)
     msgs = [b"vwh-%d" % i for i in range(6)]
     sks = [rnd.randrange(1, R) for _ in msgs]
-    hs = [hashing.hash_g2(m) for m in msgs]
+    hs = [hashing.hash_g2(m).v for m in msgs]
     pks = [hcv.G1.mul(hcv.G1.generator, s) for s in sks]
     sigs = [hcv.G2.mul(h, s) for h, s in zip(hs, sks)]
     sigs[1], sigs[2] = sigs[2], sigs[1]

@@ -42,6 +42,16 @@ MODULES = [
     "threshold_crypto_tpu_torch.ops",
     "threshold_crypto_tpu_torch.ops.threshold",
     "threshold_crypto_tpu_torch.ops.fr",
+    "threshold_crypto_tpu_torch.utils.rng",
+    "threshold_crypto_tpu_torch.native",
+    "threshold_crypto_tpu_torch.host.pairing",
+    "threshold_crypto_tpu_torch.error",
+    "threshold_crypto_tpu_torch.into_fr",
+    "threshold_crypto_tpu_torch.mock.engine",
+    "threshold_crypto_tpu_torch.backend",
+    "threshold_crypto_tpu_torch.lib",
+    "threshold_crypto_tpu_torch.serde_impl",
+    "threshold_crypto_tpu_torch.codec_impl",
 ]
 
 
@@ -306,3 +316,27 @@ def test_ops_export_every_name_of_the_jax_ops():
     assert mont.unstack_mont(FR, got) == [
         sum(k * pow(v, i, FR.p) for i, k in enumerate(coeffs)) % FR.p
         for v in xs]
+
+
+def test_top_level_exports_every_name_of_the_jax_package():
+    """Every name of the JAX package's ``__all__`` (read from its
+    ``__init__.py`` with ``ast``, JAX not imported) is in the port's top
+    level and its ``__all__``, and the size accessors follow the port's
+    backend."""
+    import ast
+
+    import threshold_crypto_tpu_torch as tc
+
+    path = os.path.join(REPO, "threshold_crypto_tpu", "__init__.py")
+    tree = ast.parse(open(path).read())
+    (names,) = [ast.literal_eval(node.value) for node in tree.body
+                if isinstance(node, ast.Assign)
+                and [t.id for t in node.targets] == ["__all__"]]
+    assert len(names) == 32 and "SecretKeySet" in names
+    assert [n for n in names if not hasattr(tc, n)] == []
+    assert sorted(tc.__all__) == sorted(names)
+    assert (tc.PK_SIZE, tc.SIG_SIZE) == (48, 96)
+    assert (tc.pk_size(), tc.sig_size()) == (48, 96)
+    with tc.using("mock"):
+        assert (tc.pk_size(), tc.sig_size()) == (4, 4)
+    assert tc.get_backend().name == "bls12_381"

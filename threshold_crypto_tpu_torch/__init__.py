@@ -6,6 +6,20 @@ imports torch, numpy and the standard library, never JAX and nothing of
 passes ``device="cpu"``; on the CPU the kernels' plain PyTorch versions run
 in their place.
 
+The public API is the JAX package's (``import threshold_crypto_tpu_torch as
+tc``): keys, shares, signatures and ciphertexts (``SecretKey``,
+``SecretKeySet``, ``PublicKeySet``, ``Ciphertext``, ...), ``interpolate``,
+the hashes ``hash_g2``, ``hash_g1_g2``, ``xor_with_hash`` and ``sha3_256``,
+bincode ``serialize`` / ``deserialize`` with ``SerdeSecret``, the errors,
+and the backend switch (``set_backend``, ``get_backend``, ``using``:
+"bls12_381" or the insecure "mock"), the port's own state. These
+scalar-path objects run on the host: the Python-int curves, codecs and
+pairing of :mod:`.host`, and the g++-built native library of :mod:`.native`
+(SHA3, ChaCha20, one message's hash to G2), built into ``_build/`` at its
+first use. Their group elements hold host affine points (``.v``), which
+``device.pairing.g1_affine_from_host`` / ``g2_affine_from_host`` lift to
+the card for the batched ops below, which compute the same values.
+
 What is ported so far: BLS verification on the BLS12-381 stack of
 :mod:`.device` (Montgomery field arithmetic, the Fq2/Fq6/Fq12 tower, G1/G2
 Jacobian curves, the Miller loop and the final exponentiation), the hash to
@@ -40,3 +54,80 @@ B10/B13 and B1), with :func:`threshold_crypto_tpu_torch.ops.verify_sig_shares_rl
 package has its counterpart; the last, B17 (the unfused Miller pieces in
 ``csrc/miller.cu``), is on no entry point's path, as in the JAX package.
 """
+
+from .backend import FromBytesError, get_backend, set_backend, using
+from .error import (
+    DegreeTooHigh,
+    DuplicateEntry,
+    NotEnoughShares,
+    ThresholdCryptoError,
+)
+from .hashing import hash_g1_g2, hash_g2, sha3_256, xor_with_hash
+from .into_fr import into_fr, into_fr_plus_1
+from .lib import (
+    Ciphertext,
+    DecryptionShare,
+    PublicKey,
+    PublicKeySet,
+    PublicKeyShare,
+    SecretKey,
+    SecretKeySet,
+    SecretKeyShare,
+    Signature,
+    SignatureShare,
+    interpolate,
+)
+from .lib import PK_SIZE as _pk_size_fn
+from .lib import SIG_SIZE as _sig_size_fn
+from .serde_impl import SerdeSecret, deserialize, serialize
+
+# Constant-style accessors (sizes depend on the active backend, like the
+# reference's cfg-gated PK_SIZE/SIG_SIZE consts).
+PK_SIZE = 48
+SIG_SIZE = 96
+
+
+def pk_size() -> int:
+    return _pk_size_fn()
+
+
+def sig_size() -> int:
+    return _sig_size_fn()
+
+
+__all__ = [
+    "Ciphertext",
+    "DecryptionShare",
+    "DegreeTooHigh",
+    "DuplicateEntry",
+    "FromBytesError",
+    "NotEnoughShares",
+    "PK_SIZE",
+    "PublicKey",
+    "PublicKeySet",
+    "PublicKeyShare",
+    "SIG_SIZE",
+    "SecretKey",
+    "SecretKeySet",
+    "SecretKeyShare",
+    "SerdeSecret",
+    "Signature",
+    "SignatureShare",
+    "ThresholdCryptoError",
+    "deserialize",
+    "get_backend",
+    "hash_g1_g2",
+    "hash_g2",
+    "interpolate",
+    "into_fr",
+    "into_fr_plus_1",
+    "pk_size",
+    "serialize",
+    "set_backend",
+    "sha3_256",
+    "sig_size",
+    "using",
+    "xor_with_hash",
+]
+
+__version__ = "0.1.0"

@@ -36,7 +36,8 @@ stream alone. Pipeline:
    (``cuda_curve.scalar_mul_fixed_pallas``: kernel B13);
 6. lanes whose A attempts all failed (≈2⁻ᴬ) or whose word budget ran out
    report ``ok = False``; ``hashing.hash_g2_batch`` and
-   ``ops.verify_with_hash_batch`` recompute those on the host oracle.
+   ``ops.verify_with_hash_batch`` recompute those with ``hashing.hash_g2``
+   (the native chain).
 
 Words live in int64 tensors (values < 2³²): torch's ``uint32`` has no
 arithmetic on the CPU. The accepted draw is the Montgomery form of the

@@ -1,38 +1,47 @@
-"""Message hashing to G2: SHA3-256 → ChaCha20 → rejection sampling.
+"""Hashing / KDF stack: SHA3-256 → ChaCha20 → group-element sampling.
 
-The counterpart of ``threshold_crypto_tpu/hashing.py`` (``sha3_256``,
-``hash_g2``, ``hash_g2_batch``): ``hash_g2(msg)`` is
-G2::random(ChaChaRng::from_seed(sha3_256(msg))), the reference's hash, not a
-standards-track hash-to-curve.
+The counterpart of ``threshold_crypto_tpu/hashing.py``, replicating the
+reference's ``src/lib.rs:690-715`` and ``src/util.rs:3-9``:
 
-``hash_g2`` is the pure-Python host oracle (``host/sampling.py``); the JAX
-package runs the same chain through a g++-built native library, which the
-port does not copy. ``hash_g2_batch`` runs the chain for a batch of
-distinct messages on the device (``device/hash2g2.py``) and recomputes on
-the host oracle the few lanes (≈2⁻ᴬ) that the device's fixed attempt and
-word budget left unresolved.
+* ``hash_g2(msg)`` = G2::random(ChaChaRng::from_seed(sha3_256(msg))), the
+  reference's hash, not a standards-track hash-to-curve; on the BLS
+  backend the whole chain runs in the native library (``native``), whose
+  oracle is the pure-Python ``host.sampling.g2_random``.
+* ``hash_g1_g2(g1, msg)`` pre-hashes messages longer than 64 bytes,
+  appends the compressed g1, then ``hash_g2``.
+* ``xor_with_hash(g1, bytes)`` XORs with the ChaCha20-derived u8 stream
+  keyed by sha3_256(compressed g1) (one u32 word per byte; rand 0.7
+  ``Standard`` u8 semantics).
+* ``hash_g2_batch`` runs the chain for a batch of distinct messages on the
+  device (``device/hash2g2.py``) and recomputes with ``hash_g2`` the few
+  lanes (≈2⁻ᴬ) that the device's fixed attempt and word budget left
+  unresolved.
+
+``hash_g2`` and ``hash_g2_batch`` return the backend's G2 elements; their
+host affine points are ``.v``.
 """
 
 from __future__ import annotations
 
-import hashlib
-
 import numpy as np
 import torch
 
+from . import native
+from .backend import get_backend
 from .device import mont
-from .host.chacha import ChaChaRng
-from .host.sampling import g2_random
+from .utils.rng import ChaChaRng
 
 
 def sha3_256(data: bytes) -> bytes:
-    return hashlib.sha3_256(bytes(data)).digest()
+    return native.sha3_256(data)
 
 
 def hash_g2(msg: bytes):
-    """Hash of the message in G2 as a host affine point (the reference's
-    ``hash_g2``, ``src/lib.rs:691-694``)."""
-    return g2_random(ChaChaRng.from_seed(sha3_256(msg)))
+    """Hash of the message in G2 (``src/lib.rs:691-694``)."""
+    b = get_backend()
+    if b.name == "bls12_381":
+        return b.G2(native.hash_g2(msg))
+    return b.G2.random(ChaChaRng.from_seed(sha3_256(msg)))
 
 
 def digest_words(msgs, device):
@@ -45,15 +54,30 @@ def digest_words(msgs, device):
 def hash_g2_batch(msgs, attempts: int = 8, device="cuda"):
     """``hash_g2`` for a batch of distinct messages with the sampling chain on
     the device; equal to ``hash_g2`` message for message. Returns a list of
-    host affine points."""
+    backend G2 elements (on the mock backend ``hash_g2`` of each)."""
     from .device import curve as dcv
     from .device import hash2g2
 
-    if len(msgs) == 0:
-        return []
+    b = get_backend()
+    if b.name != "bls12_381" or len(msgs) == 0:
+        return [hash_g2(m) for m in msgs]
     device = mont.device_of(device)
     jac, ok = hash2g2.hash_g2_device(digest_words(msgs, device),
                                      attempts=attempts)
     pts = dcv.G2.to_host_affine(jac)
     ok = ok.cpu().tolist()
-    return [pt if k else hash_g2(m) for pt, k, m in zip(pts, ok, msgs)]
+    return [b.G2(pt) if k else hash_g2(m) for pt, k, m in zip(pts, ok, msgs)]
+
+
+def hash_g1_g2(g1, msg: bytes):
+    """Hash of (group element, message) in G2 (``src/lib.rs:697-707``)."""
+    m = bytes(msg)
+    if len(m) > 64:
+        m = sha3_256(m)
+    return hash_g2(m + g1.to_compressed())
+
+
+def xor_with_hash(g1, data: bytes) -> bytes:
+    """XOR ``data`` with the pseudorandom stream keyed by g1
+    (``src/lib.rs:710-715``), fused in the native library."""
+    return native.xor_with_hash(g1.to_compressed(), data)

@@ -1,28 +1,39 @@
-"""Reference-exact sampling of field and curve elements from a ChaCha stream.
+"""Reference-exact random sampling of field and curve elements.
 
-A copy of the parts of ``threshold_crypto_tpu/host/sampling.py`` that
-``hash_g2`` needs, drawing from the port's :class:`.chacha.ChaChaRng`:
+A copy of ``threshold_crypto_tpu/host/sampling.py``. It replicates the
+sampling the reference inherits from ``pairing 0.16`` / ``ff 0.6`` so that
+``hash_g2`` (``src/lib.rs:691-694``) and deterministic seeded keygen
+(``src/lib.rs:1066-1081``) consume the RNG stream identically:
 
-* ``fq_random``: fill the 6 u64 repr limbs from ``next_u64`` (little-endian
-  limb order), mask the top 3 bits, retry until the masked value is < p.
-  The accepted limbs are the *Montgomery form*, so the field value is
+* ``Fq::random`` / ``Fr::random``: fill the 6 (resp. 4) u64 repr limbs from
+  ``next_u64`` (little-endian limb order), mask the top REPR_SHAVE_BITS
+  (3 for Fq, 1 for Fr), retry until the masked value is < modulus.  The
+  accepted limbs are the *Montgomery form*, so the field value is
   ``limbs · R⁻¹ mod p``.
-* ``fq2_random``: c0 then c1.
-* ``g2_random``: loop { x = fq2_random; greatest = next_u32() odd;
-  get_point_from_x(x, greatest); scale by the cofactor; retry if the point
-  is the identity }.
+* ``Fq2::random``: c0 then c1.
+* ``G1/G2::random``: loop { x = random base-field element; greatest =
+  next_u32() odd; get_point_from_x(x, greatest); scale by cofactor; retry
+  if identity }.
 
-It is the host oracle of the device chain in ``device/hash2g2.py``, and the
-fallback for the few lanes that chain leaves unresolved.
+``g2_random`` is the pure-Python oracle of the native ``hash_g2`` and of
+the device chain in ``device/hash2g2.py``.
 """
 
 from __future__ import annotations
 
+from ..utils.rng import RngCore
 from . import curve as cv
-from .params import FQ_SHAVE_MASK, P, R_MONT_FQ_INV
+from .params import (
+    FQ_SHAVE_MASK,
+    FR_SHAVE_MASK,
+    P,
+    R,
+    R_MONT_FQ_INV,
+    R_MONT_FR_INV,
+)
 
 
-def fq_random(rng) -> int:
+def fq_random(rng: RngCore) -> int:
     while True:
         limbs = 0
         for i in range(6):
@@ -32,13 +43,23 @@ def fq_random(rng) -> int:
             return limbs * R_MONT_FQ_INV % P
 
 
-def fq2_random(rng):
+def fr_random(rng: RngCore) -> int:
+    while True:
+        limbs = 0
+        for i in range(4):
+            limbs |= rng.next_u64() << (64 * i)
+        limbs &= FR_SHAVE_MASK
+        if limbs < R:
+            return limbs * R_MONT_FR_INV % R
+
+
+def fq2_random(rng: RngCore):
     c0 = fq_random(rng)
     c1 = fq_random(rng)
     return (c0, c1)
 
 
-def _curve_random(rng, group: cv.CurveGroup, base_random):
+def _curve_random(rng: RngCore, group: cv.CurveGroup, base_random):
     while True:
         x = base_random(rng)
         greatest = rng.next_u32() % 2 != 0
@@ -50,5 +71,9 @@ def _curve_random(rng, group: cv.CurveGroup, base_random):
             return pt
 
 
-def g2_random(rng):
+def g1_random(rng: RngCore):
+    return _curve_random(rng, cv.G1, fq_random)
+
+
+def g2_random(rng: RngCore):
     return _curve_random(rng, cv.G2, fq2_random)

@@ -199,8 +199,8 @@ def verify_with_hash_batch(pk_aff, msgs, sig_aff, attempts: int = 8):
     pk_aff: G1 affine tuple [N]; msgs: N byte strings; sig_aff: G2 affine
     tuple [N]. The digests are taken on the host, the hash chain runs on
     the points' device (``hash2g2.hash_g2_device``), the lanes it leaves
-    unresolved (≈2⁻ᴬ) get the host oracle's point, and the check runs
-    through ``verify_batch_pallas``. Returns bool[N] as a numpy array.
+    unresolved (≈2⁻ᴬ) get the point of ``hashing.hash_g2`` (the native
+    chain), and the check runs through ``verify_batch_pallas``. Returns bool[N] as a numpy array.
     """
     n = len(msgs)
     if not pk_aff[2].shape[0] == n == sig_aff[2].shape[0]:
@@ -214,13 +214,13 @@ def verify_with_hash_batch(pk_aff, msgs, sig_aff, attempts: int = 8):
 
 def splice_host_hashes(h_aff, ok, msgs):
     """The G2 affine tuple h_aff with each lane that is not ``ok`` replaced
-    by the host oracle's ``hash_g2`` of its message."""
+    by ``hashing.hash_g2`` of its message (the native library's chain)."""
     okh = ok.cpu().numpy()
     if okh.all():
         return h_aff
     bad = np.nonzero(~okh)[0]
     dev = ok.device
-    fb = dpr.g2_affine_from_host([hashing.hash_g2(msgs[i]) for i in bad],
+    fb = dpr.g2_affine_from_host([hashing.hash_g2(msgs[i]).v for i in bad],
                                  device=dev)
     idx = torch.from_numpy(bad).to(dev)
     return tree_map(lambda a, b: a.index_put((idx,), b), h_aff, fb)
