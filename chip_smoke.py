@@ -121,7 +121,26 @@ Phases, each announced on a flushed line before it starts:
    tampered one, and ``verify_with_hash_batch`` accepts 256 messages
    signed by the master key; each op's kernels must launch, and the wall
    is split host / card;
-12. one JSON line of kernel numbers (B1-B17), then the device line, last.
+12. slice 9: the device-layer leftovers and the parallel layer.
+   ``DeviceCurve.msm`` at window 1 over slice 6's 4096 G2 shares and λ
+   equals ``combine_batch(path="bitscan")`` and the host's H·f(0);
+   ``multi_pairing`` over 512 lanes x 2 of slice 1's pairs is 1 exactly
+   where ``pairing_check_pallas`` and the mask say so, and equals the
+   host's Fq12 on 4 lanes; each counted on its own. Then the parallel
+   layer in worlds of one process over nccl and of two processes sharing
+   the card over gloo, each rank a child process
+   (``parallel.multihost.run_world``, ``parallel_rank``): the exponents of
+   the whole batch, then ``sharded_verify_rlc`` at N = 262,144 (slice 3's
+   inputs) with msm "shared" and "scalarwise", accepting the valid batch
+   and rejecting one signature replaced, its aggregates equal to the
+   single-device ``rlc_aggregate_pallas``; ``sharded_combine`` at t + 1 =
+   4096 (slice 6's inputs) equal to ``combine_batch`` and the host's
+   H·f(0), ok False with an x duplicated; ``sharded_sign`` /
+   ``sharded_verify`` on slice 1's 8192 lanes equal to ``sign_batch`` and
+   the mask; each rank's launches, counted over one run of those paths;
+   the sharded call's median of 3 (in the world of one in turns with the
+   single-device ``verify_sig_shares_rlc_pallas``);
+13. one JSON line of kernel numbers (B1-B17), then the device line, last.
 
 Any mismatch or exception ends the run with a non-zero exit and no result
 line. Without a CUDA card, or without the package beside this file, it exits
@@ -270,6 +289,32 @@ API_KERNELS = {
     "verify_with_hash_batch": ("g2_madd", "g2_step4", "mont_pow")
                               + TOWER_KERNELS,
 }
+
+# Slice 9: the parallel layer and the device-layer leftovers. The sharded
+# RLC check at RLC_N over a world of one process (nccl) and of two sharing
+# the card (gloo: nccl refuses two ranks on one card), both MSM forms; the
+# sharded combine at slice 6's t + 1 = COMBINE_N; sharded sign / verify on
+# slice 1's LANES; DeviceCurve.msm on slice 6's shares; multi_pairing on
+# PAIR_N lanes of slice 1's pairs (PAIR_HOST_LANES of them against the
+# host's Fq12).
+PAR_WORLDS = ((1, "nccl"), (2, "gloo"))
+PAR_SEED = b"chip_smoke slice 9"
+PAR_TIMED = 3
+PAR_REPLACED = 7
+PAR_TIMEOUT_S = 600
+PAIR_N = 512
+PAIR_HOST_LANES = 4
+# The kernels every rank's run must launch: B1, B2 (affine, λ, the folds,
+# the checks), B12 (exponents), B10 + B11 (msm="shared"), B15
+# (msm="scalarwise", the combine's partials), B14 (λ at 4096), B13 (sign);
+# and those of DeviceCurve.msm at window 1 (B2, B1, B16) and of
+# multi_pairing (B1, B2).
+PARALLEL_KERNELS = ("mont_mul", "mont_pow", "sha3_chunks", "g1_madd",
+                    "g2_madd", "g1_winacc", "g2_winacc", "g1_step", "g2_step",
+                    "lagrange_rowprod", "g2_step4")
+LEFTOVER_KERNELS = {"DeviceCurve.msm": ("mont_mul", "mont_pow", "g2_selmadd",
+                                        "g2_dblw"),
+                    "multi_pairing": ("mont_mul", "mont_pow")}
 
 
 def phase(msg):
@@ -2605,6 +2650,33 @@ def run_combine_path(curve, shares, xs, path, want):
                 split_ms=split)
 
 
+def combine_shares(dev, timed=lambda label, fn, *args: fn(*args)):
+    """Slice 6's keys and signature shares: t + 1 = COMBINE_N shares of a
+    degree COMBINE_N − 1 polynomial from its seed, x_i = i + 1:
+    ``derive_shares`` on the card, then ``sign_batch`` of the host's
+    hash_g2 of one message (each through ``timed(label, fn, *args)``).
+    Returns a dict: coeffs, xs, sk_mont, sk (canonical), h_host, h_jac,
+    sig (Jacobian [COMBINE_N]) and rnd, the seed's generator after the
+    coefficients."""
+    from threshold_crypto_tpu_torch import hashing, ops
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.host.params import R
+    from threshold_crypto_tpu_torch.ops import fr as frops
+
+    n = COMBINE_N
+    rnd = random.Random(COMBINE_SEED)
+    coeffs = [rnd.randrange(R) for _ in range(n)]
+    xs = frops.fr_to_device(range(1, n + 1), dev)
+    sk_mont = timed("derive_shares", ops.derive_shares,
+                    frops.fr_to_device(coeffs, dev), xs)
+    sk = frops.fr_to_plain(sk_mont)
+    h_host = hashing.hash_g2(COMBINE_MSG).v
+    h_jac = dcv.G2.from_host_affine([h_host], device=dev)
+    sig = timed("sign_batch", ops.sign_batch, tile_to(h_jac, n), sk)
+    return dict(coeffs=coeffs, xs=xs, sk_mont=sk_mont, sk=sk, h_host=h_host,
+                h_jac=h_jac, sig=sig, rnd=rnd)
+
+
 def run_combine(dev):
     """Slice 6: both threshold flows at t + 1 = COMBINE_N shares from one
     degree-(COMBINE_N − 1) secret polynomial made from a seed, x_i = i + 1.
@@ -2621,7 +2693,7 @@ def run_combine(dev):
     ``verify_dec_share_batch`` but for the one replaced; their combine on
     each path equals g = r·pk of lane 0."""
     import torch
-    from threshold_crypto_tpu_torch import hashing, ops
+    from threshold_crypto_tpu_torch import ops
     from threshold_crypto_tpu_torch.device import cuda_curve as ccv
     from threshold_crypto_tpu_torch.device import curve as dcv
     from threshold_crypto_tpu_torch.host import curve as hcv
@@ -2630,10 +2702,6 @@ def run_combine(dev):
     from threshold_crypto_tpu_torch.ops import threshold as tops
 
     n = COMBINE_N
-    rnd = random.Random(COMBINE_SEED)
-    coeffs = [rnd.randrange(R) for _ in range(n)]
-    secret = coeffs[0]
-    xs = frops.fr_to_device(range(1, n + 1), dev)
     probe = (0, 1, n // 3, n - 1)
     timings = {}
 
@@ -2646,18 +2714,16 @@ def run_combine(dev):
         return out
 
     # keys and signature shares
-    sk_mont = timed("derive_shares", ops.derive_shares,
-                    frops.fr_to_device(coeffs, dev), xs)
+    inp = combine_shares(dev, timed)
+    coeffs, xs, sk_mont, sk, h_host, h_jac, sig, rnd = (inp[k] for k in (
+        "coeffs", "xs", "sk_mont", "sk", "h_host", "h_jac", "sig", "rnd"))
+    secret = coeffs[0]
     sk_host = [horner_host(coeffs, x + 1) for x in probe]
     if frops.fr_from_device(sk_mont[list(probe)]) != sk_host:
         fail("derive_shares: shares differ from host Horner")
-    sk = frops.fr_to_plain(sk_mont)
     pk_jac = timed("pk shares (ladder)", ccv.scalar_mul_pallas, dcv.G1,
                    tops._gen_g1((n,), dev), sk)
     pk_aff = ops.jacobian_to_affine(dcv.G1, pk_jac)
-    h_host = hashing.hash_g2(COMBINE_MSG).v
-    h_jac = dcv.G2.from_host_affine([h_host], device=dev)
-    sig = timed("sign_batch", ops.sign_batch, tile_to(h_jac, n), sk)
     sig_aff = ops.jacobian_to_affine(dcv.G2, sig)
     if host_points(dcv.G1, pk_jac, probe) != [
             hcv.G1.mul(hcv.G1.generator, s) for s in sk_host] or \
@@ -2761,7 +2827,8 @@ def run_combine(dev):
     print("threshold batch ops, one call each: "
           + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items()),
           flush=True)
-    return dict(paths=paths, timings=timings)
+    return dict(paths=paths, timings=timings,
+                inputs=dict(sig=sig, xs=xs, want=want_sig))
 
 
 # ---------------------------------------------------------------------------
@@ -3457,6 +3524,273 @@ def run_api(dev):
                 host_by_step=h["host_s"])
 
 
+# ---------------------------------------------------------------------------
+# Slice 9: the parallel layer (ranks as child processes) and the device-layer
+# leftovers
+# ---------------------------------------------------------------------------
+
+def sign_inputs(dev):
+    """Slice 1's lanes (``build_inputs``) on the card, with a secret key a
+    lane from the seed: (pk, H, sig) affine, H Jacobian, sk, the mask."""
+    import torch
+    from threshold_crypto_tpu_torch import ops
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import pairing as dpr
+    from threshold_crypto_tpu_torch.host.params import R
+
+    pk, h, sig, want = build_inputs()
+    h_aff = dpr.g2_affine_from_host(h, device=dev)
+    rnd = random.Random(SEED + 9)
+    sk = dcv.fr_limbs_from_ints([rnd.randrange(R) for _ in range(LANES)],
+                                dev)
+    return (dpr.g1_affine_from_host(pk, device=dev), h_aff,
+            dpr.g2_affine_from_host(sig, device=dev),
+            ops.affine_to_jacobian(dcv.G2, h_aff), sk,
+            torch.tensor(want, device=dev))
+
+
+def parallel_rank(mesh):
+    """One rank of slice 9's world (``multihost.run_world`` runs it in a
+    child process). Every rank builds the whole batches, the counts are
+    set to 0, then every sharded path runs once: the RLC check (exponents
+    of the whole batch, then the blocks; both MSM forms; the valid batch
+    and one signature replaced) with its aggregates, the combine (and a
+    duplicate x), sign and verify; the counts are read. Then the checks
+    against the single-device ops and the host, and the timed calls.
+    Returns JSON data; raises on any mismatch."""
+    import torch
+    from threshold_crypto_tpu_torch import ops
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.host import curve as hcv
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+    from threshold_crypto_tpu_torch.parallel import mesh as pm
+    from threshold_crypto_tpu_torch.parallel import sharded
+
+    dev, tag = mesh.device, f"world {mesh.world} ({mesh.backend})"
+    t0 = time.time()
+    pk_aff, sig_aff, h_jac, _, _ = rlc_inputs(dev)
+    bad = dcv.tree_map(lambda a: a.clone(), sig_aff)
+    for c in dcv.leaves(bad[:2]):
+        c[PAR_REPLACED] = c[PAR_REPLACED + 1]      # the next key's signature
+    inp = combine_shares(dev)
+    c_sig, xs = inp["sig"], inp["xs"]
+    c_want = hcv.G2.mul(inp["h_host"], inp["coeffs"][0])
+    s_pk, s_h, s_sig, s_hjac, s_sk, s_want = sign_inputs(dev)
+    torch.cuda.synchronize()
+    print(f"{tag} rank {mesh.rank}: inputs (the whole batches) in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    def rlc_blocks(s, seed):
+        r = ops.rlc_exponents(RLC_N, seed, pk_aff=pk_aff, sig_aff=s)
+        return r, pm.shard_batch(mesh, (pk_aff, s, r))
+
+    reset_counts()
+    verdicts, aggregates = {}, {}
+    for msm in ("shared", "scalarwise"):
+        for what, s in (("valid", sig_aff), ("tampered", bad)):
+            r, (pk_m, s_m, r_m) = rlc_blocks(s, PAR_SEED)
+            verdicts[f"{msm} {what}"] = bool(sharded.sharded_verify_rlc(
+                mesh, pk_m, h_jac, s_m, r_m, msm=msm))
+            if what == "valid":
+                aggregates[msm] = (r, sharded.sharded_rlc_aggregate(
+                    mesh, pk_m, s_m, r_m, msm=msm))
+    pt, ok = sharded.sharded_combine(mesh, dcv.G2,
+                                     pm.shard_batch(mesh, c_sig), xs)
+    dup = xs.clone()
+    dup[-1] = dup[0]
+    _, ok_dup = sharded.sharded_combine(mesh, dcv.G2,
+                                        pm.shard_batch(mesh, c_sig), dup)
+    sig_m = sharded.sharded_sign(mesh, *pm.shard_batch(mesh, (s_hjac, s_sk)))
+    mask_m = sharded.sharded_verify(mesh, *pm.shard_batch(
+        mesh, (s_pk, s_h, s_sig)))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    missing = [k for k in PARALLEL_KERNELS if launches[k] < 1]
+    if missing:
+        fail(f"{tag} rank {mesh.rank}: kernels of the path not launched "
+             f"{missing}: {launches}")
+
+    # the checks, against the single-device ops and the host
+    if verdicts != {"shared valid": True, "shared tampered": False,
+                    "scalarwise valid": True, "scalarwise tampered": False}:
+        fail(f"{tag}: sharded RLC verdicts {verdicts}")
+    for msm, (r, (a_pk, a_sig)) in aggregates.items():
+        if not torch.equal(r, ops.rlc_exponents(
+                RLC_N, PAR_SEED, pk_aff=pk_aff, sig_aff=sig_aff,
+                on_device=False)):
+            fail(f"{tag}: exponents differ from the host stream")
+        w_pk, w_sig = tops.rlc_aggregate_pallas(pk_aff, sig_aff, r)
+        if (host_affine(a_pk, False), host_affine(a_sig, True)) != (
+                host_affine(w_pk, False), host_affine(w_sig, True)):
+            fail(f"{tag}: msm={msm} aggregate differs from the "
+                 f"single-device rlc_aggregate_pallas")
+    want_pt, want_ok = ops.combine_batch(dcv.G2, c_sig, xs)
+    if not (bool(ok) and bool(want_ok)) or bool(ok_dup) or \
+            not one_point(dcv.G2, pt) == one_point(dcv.G2, want_pt) == c_want:
+        fail(f"{tag}: sharded_combine differs from combine_batch or the "
+             f"host's H*f(0), or ok is wrong (ok {bool(ok)}, duplicate x "
+             f"{bool(ok_dup)})")
+    got_sig = pm.gather_batch(mesh, sig_m)
+    want_sig = ops.sign_batch(s_hjac, s_sk)
+    if not all(torch.equal(a, b) for a, b in zip(dcv.leaves(got_sig),
+                                                dcv.leaves(want_sig))):
+        fail(f"{tag}: sharded_sign differs from sign_batch")
+    if not torch.equal(pm.gather_batch(mesh, mask_m), s_want):
+        fail(f"{tag}: sharded_verify differs from the constructed mask")
+    print(f"{tag} rank {mesh.rank}: RLC verdicts {verdicts}; both "
+          f"aggregates equal the single-device rlc_aggregate_pallas, the "
+          f"exponents the host stream; sharded_combine equals combine_batch "
+          f"and the host's H*f(0), ok False with x duplicated; "
+          f"sharded_sign equals sign_batch and sharded_verify the mask on "
+          f"{LANES} lanes; launches {launches}", flush=True)
+
+    # timing: the sharded call (msm="shared", exponents given) and, in a
+    # world of one, the single-device call in turns with it
+    r, (pk_m, s_m, r_m) = rlc_blocks(sig_aff, PAR_SEED)
+
+    def call(fn, *args, **kw):
+        torch.cuda.synchronize()
+        t = time.time()
+        if not bool(fn(*args, **kw)):
+            fail(f"{tag}: a timed call rejected the valid batch")
+        torch.cuda.synchronize()
+        return time.time() - t
+
+    sharded_call = (sharded.sharded_verify_rlc, mesh, pk_m, h_jac, s_m, r_m)
+    single_call = (ops.verify_sig_shares_rlc_pallas, pk_aff, h_jac, sig_aff,
+                   r)
+    turns = {"sharded": [], "single": []}
+    for i in range(PAR_TIMED):
+        order = ("sharded", "single") if i % 2 == 0 else ("single",
+                                                           "sharded")
+        for what in order:
+            if what == "single" and mesh.world > 1:
+                continue
+            args = sharded_call if what == "sharded" else single_call
+            kw = {"msm": "shared"}
+            if what == "single":
+                kw["check_batch"] = RLC_CHECK_BATCH
+            turns[what].append(call(*args, **kw))
+    torch.cuda.synchronize()
+    t = time.time()
+    sharded.sharded_rlc_aggregate(mesh, pk_m, s_m, r_m, msm="shared")
+    torch.cuda.synchronize()
+    agg_s = time.time() - t
+    return {"rank": mesh.rank, "world": mesh.world, "backend": mesh.backend,
+            "launches": launches, "verdicts": verdicts,
+            "sharded_s": turns["sharded"], "single_s": turns["single"],
+            "aggregate_s": agg_s}
+
+
+def run_parallel():
+    """Slice 9's worlds: each rank a child process on the card
+    (``multihost.run_world``); every rank must exit 0 in time."""
+    import statistics as st
+
+    from threshold_crypto_tpu_torch.parallel import multihost
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    worlds = {}
+    for n, backend in PAR_WORLDS:
+        t0 = time.time()
+        res = multihost.run_world("chip_smoke:parallel_rank", n,
+                                  device="cuda", backend=backend,
+                                  timeout_s=PAR_TIMEOUT_S, path=[here],
+                                  echo=True)
+        label = (f"world {n} over {backend}" if n == 1 else
+                 f"world {n} over {backend}: {n} processes on one card, "
+                 f"not a scaling figure")
+        r0 = res[0]
+        line = (f"sharded_verify_rlc at N = {RLC_N} (msm='shared', "
+                f"exponents given), {label}: median "
+                f"{st.median(r0['sharded_s']):.3f} s of "
+                f"{[round(x, 3) for x in r0['sharded_s']]}; its aggregate "
+                f"alone {r0['aggregate_s']:.3f} s")
+        if r0["single_s"]:
+            line += (f"; in turns, the single-device "
+                     f"verify_sig_shares_rlc_pallas median "
+                     f"{st.median(r0['single_s']):.3f} s of "
+                     f"{[round(x, 3) for x in r0['single_s']]}")
+        print(line + f" (the world's run {time.time() - t0:.1f} s with "
+              f"start-up and inputs)", flush=True)
+        worlds[n] = res
+    return worlds
+
+
+def run_leftovers(dev, combined, pair_args, mask):
+    """Slice 9's device layer: ``DeviceCurve.msm`` at window 1 over slice
+    6's shares and λ (equal to ``combine_batch(path="bitscan")`` and the
+    host's H·f(0)), and ``multi_pairing`` over PAIR_N lanes of slice 1's
+    pairs (its Fq12 is 1 exactly where ``pairing_check_pallas`` and the
+    mask say so; PAIR_HOST_LANES lanes equal the host's multi_pairing);
+    each counted on its own. mask: slice 1's output, equal to the
+    constructed mask."""
+    import torch
+    from threshold_crypto_tpu_torch import ops
+    from threshold_crypto_tpu_torch.device import curve as dcv
+    from threshold_crypto_tpu_torch.device import pairing as dpr
+    from threshold_crypto_tpu_torch.device import tower as tw
+    from threshold_crypto_tpu_torch.host import pairing as hpr
+    from threshold_crypto_tpu_torch.ops import fr as frops
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+
+    sig, xs, want = (combined["inputs"][k] for k in ("sig", "xs", "want"))
+    lam = frops.fr_to_plain(frops.lagrange_coeffs_at_zero(xs)[0])
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    pt = dcv.G2.msm(sig, lam, nbits=255, window=1)
+    torch.cuda.synchronize()
+    msm_s = time.time() - t0
+    counts = {"DeviceCurve.msm": read_counts()}
+    bitscan, _ = ops.combine_batch(dcv.G2, sig, xs, path="bitscan")
+    if not one_point(dcv.G2, pt) == one_point(dcv.G2, bitscan) == want:
+        fail("DeviceCurve.msm differs from combine_batch(bitscan) or the "
+             "host's H*f(0)")
+
+    pk_aff, h_aff, sig_aff = (_slice_aff(a, PAIR_N) for a in pair_args)
+    neg = tops._neg_gen_g1((PAIR_N,), dev)
+    p, q = tops._pair2(pk_aff, neg), tops._pair2(h_aff, sig_aff)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    f = dpr.multi_pairing(p, q)
+    torch.cuda.synchronize()
+    mp_s = time.time() - t0
+    counts["multi_pairing"] = read_counts()
+    verdict = tw.fq12_is_one(f)
+    if not torch.equal(verdict, dpr.pairing_check_pallas(p, q)) or \
+            not torch.equal(verdict, mask[:PAIR_N]):
+        fail("multi_pairing's verdicts differ from pairing_check_pallas or "
+             "the mask")
+    def host(curve, pairs, k):      # pair k of the first lanes, on the host
+        return curve.to_host_affine(ops.affine_to_jacobian(curve, dcv.tree_map(
+            lambda a: a[k, :PAIR_HOST_LANES], pairs)))
+
+    ps = [host(dcv.G1, p, k) for k in range(2)]
+    qs = [host(dcv.G2, q, k) for k in range(2)]
+    want_f = [hpr.multi_pairing([(ps[0][i], qs[0][i]), (ps[1][i], qs[1][i])])
+              for i in range(PAIR_HOST_LANES)]
+    got_f = tw.fq12_to_host_batch(dcv.tree_map(lambda a: a[:PAIR_HOST_LANES],
+                                               f))
+    if got_f != want_f:
+        fail("multi_pairing differs from the host's Fq12")
+    for what, kernels in LEFTOVER_KERNELS.items():
+        missing = [k for k in kernels if counts[what][k] < 1]
+        if missing:
+            fail(f"{what}: kernels not launched {missing}")
+    print(f"DeviceCurve.msm (G2, {COMBINE_N} lanes, window 1, 255 bits) "
+          f"equals combine_batch(bitscan) and the host's H*f(0) "
+          f"({msm_s:.3f} s, launches "
+          f"{ {k: v for k, v in counts['DeviceCurve.msm'].items() if v} }); "
+          f"multi_pairing on {PAIR_N} lanes x 2 pairs agrees with "
+          f"pairing_check_pallas and the mask, and on {PAIR_HOST_LANES} "
+          f"lanes with the host's Fq12 ({mp_s:.3f} s, launches "
+          f"{ {k: v for k, v in counts['multi_pairing'].items() if v} })",
+          flush=True)
+    return dict(counts=counts, msm_s=msm_s, multi_pairing_s=mp_s)
+
+
 def main():
     import numpy as np
     import torch
@@ -3616,6 +3950,16 @@ def main():
           f"(SecretKeySet, signature and decryption shares, combines, serde "
           f"and codec on the host), held against the batch ops on the card")
     api = run_api(dev)
+    torch.cuda.empty_cache()
+    phase(f"slice 9: the device-layer leftovers (DeviceCurve.msm at "
+          f"{COMBINE_N} lanes, multi_pairing at {PAIR_N}) and the parallel "
+          f"layer (sharded RLC at N = {RLC_N}, combine at t+1 = "
+          f"{COMBINE_N}, sign / verify at {LANES}; worlds of 1 over nccl "
+          f"and 2 over gloo on this card, each rank a child process)")
+    leftovers = run_leftovers(dev, combined, pair_args, old["out"])
+    del combined["inputs"]
+    torch.cuda.empty_cache()
+    worlds = run_parallel()
 
     kernels = []
     for mod, k in registry():
@@ -3651,6 +3995,11 @@ def main():
         entry["launches_dkg_path"] = dkg["launches"][k.name]
         entry["launches_rlc_scalarwise"] = rlc_sw["launches"][k.name]
         entry["launches_api_path"] = api["launches"][k.name]
+        entry["launches_parallel_paths"] = {
+            f"world {n}, rank {r['rank']}": r["launches"][k.name]
+            for n, res in worlds.items() for r in res}
+        entry["launches_device_leftovers"] = {
+            what: c[k.name] for what, c in leftovers["counts"].items()}
         if "ms_with_fold" in res:
             entry["ms_with_fold"] = res["ms_with_fold"]
         if "ms_all_doubling" in res:

@@ -52,6 +52,11 @@ MODULES = [
     "threshold_crypto_tpu_torch.lib",
     "threshold_crypto_tpu_torch.serde_impl",
     "threshold_crypto_tpu_torch.codec_impl",
+    "threshold_crypto_tpu_torch.parallel",
+    "threshold_crypto_tpu_torch.parallel.mesh",
+    "threshold_crypto_tpu_torch.parallel.multihost",
+    "threshold_crypto_tpu_torch.parallel.sharded",
+    "threshold_crypto_tpu_torch.parallel.dryrun",
 ]
 
 
@@ -340,3 +345,78 @@ def test_top_level_exports_every_name_of_the_jax_package():
     with tc.using("mock"):
         assert (tc.pk_size(), tc.sig_size()) == (4, 4)
     assert tc.get_backend().name == "bls12_381"
+
+
+# JAX device-layer names with no counterpart of the same name in the port:
+# XLA's fused programs, stepwise forms and jit wrappers (PyTorch runs
+# eagerly), the Pallas switches, ``MUL_IMPL`` (XLA's lowering of the product
+# loop, scan or unrolled) and ``np_prod`` (the JAX pairing's numpy helper for
+# its packed reshape).
+XLA_ONLY = ("*_fused", "*_stepwise", "_jit*", "use_pallas", "_use_pallas_*",
+            "MUL_IMPL", "np_prod")
+
+
+def _public_names(path):
+    """Top-level functions, classes and assigned names of a module, and
+    the methods of its classes (as "Class.method"), all without a leading
+    underscore; read with ``ast``, nothing imported."""
+    import ast
+
+    names = []
+    for node in ast.parse(open(path).read()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.append(node.name)
+        elif isinstance(node, ast.Assign):
+            names += [t.id for t in node.targets if isinstance(t, ast.Name)]
+        if isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            names += [f"{node.name}.{m.name}" for m in node.body
+                      if isinstance(m, ast.FunctionDef)
+                      and not m.name.startswith("_")]
+    return [n for n in names if not n.startswith("_")]
+
+
+def test_device_and_parallel_modules_cover_the_jax_ones():
+    """Every public name of the JAX ``device/*.py`` and ``parallel/*.py``
+    is in the port's module of the same name, but the XLA-only names; the
+    ``pallas_*.py`` kernel modules have no module of that name in the port:
+    each is cited by the ``replaces`` of kernels in the port's registries.
+    ``parallel`` exports every name of the JAX ``parallel/__init__.py``."""
+    import ast
+    import fnmatch
+    import importlib
+
+    from threshold_crypto_tpu_torch import parallel
+
+    cited = {k.replaces.split(":")[0] for mod in (
+        "cuda_mont", "cuda_tower", "cuda_curve", "keccak", "cuda_fr")
+        for k in importlib.import_module(
+            f"threshold_crypto_tpu_torch.device.{mod}").KERNELS}
+    missing, checked = [], 0
+    for sub in ("device", "parallel"):
+        folder = os.path.join(REPO, "threshold_crypto_tpu", sub)
+        for fname in sorted(os.listdir(folder)):
+            if not fname.endswith(".py") or fname == "__init__.py":
+                continue
+            if fname.startswith("pallas_"):
+                assert f"threshold_crypto_tpu/{sub}/{fname}" in cited, fname
+                continue
+            mod = importlib.import_module(
+                f"threshold_crypto_tpu_torch.{sub}.{fname[:-3]}")
+            for name in _public_names(os.path.join(folder, fname)):
+                if any(fnmatch.fnmatch(name.split(".")[-1], pat)
+                       for pat in XLA_ONLY):
+                    continue
+                obj = mod
+                for part in name.split("."):
+                    obj = getattr(obj, part, None)
+                checked += 1
+                if obj is None:
+                    missing.append(f"{sub}/{fname}: {name}")
+    assert missing == [] and checked > 150, (missing, checked)
+    init = os.path.join(REPO, "threshold_crypto_tpu", "parallel",
+                        "__init__.py")
+    exported = [a.asname or a.name
+                for node in ast.walk(ast.parse(open(init).read()))
+                if isinstance(node, ast.ImportFrom) for a in node.names]
+    assert "sharded_verify_rlc" in exported
+    assert [n for n in exported if not hasattr(parallel, n)] == []

@@ -3,8 +3,9 @@
 The counterpart of ``threshold_crypto_tpu/device/curve.py`` (``DeviceCurve``:
 ``infinity``, ``generator``, ``from_host_affine``, ``to_host_affine``,
 ``double``, ``add``, ``neg``, ``eq``, ``is_infinity``, ``scalar_mul``,
-``msm_scalarwise``; ``scalar_bits``, ``scalar_digits``, ``fold_sum``, whose
-``fold_axis`` also stands for ``_tree_sum``; ``fr_limbs_from_ints``) and of the
+``scalar_mul_naive``, ``msm``, ``msm_naive``, ``msm_scalarwise``;
+``scalar_bits``, ``scalar_digits``, ``fold_sum``, whose ``fold_axis`` also
+stands for ``_tree_sum``; ``fr_limbs_from_ints``) and of the
 point formulas of ``threshold_crypto_tpu/device/pallas_curve.py:143-370``
 (``_msm_step``, ``_jac_dbl``, ``_jac_add``, ``_jac_madd``, ``_msm_step_w4``)
 and its ``dcv_select_z``, which are the plain versions of the curve kernels
@@ -80,6 +81,12 @@ class FqOps:
     def small(a, k):
         return mont.mul_small(FQ, a, k)
 
+    mul_small = small
+
+    @staticmethod
+    def eq(a, b):
+        return mont.eq(FQ, a, b)
+
     @staticmethod
     def inv(a):
         return mont.inv(FQ, a)
@@ -108,9 +115,7 @@ class FqOps:
     def one_like(a):
         return mont.one(FQ, a.shape[:-1], a.device)
 
-    @staticmethod
-    def zero_like(a):
-        return torch.zeros_like(a)
+    zero_like = staticmethod(mont.zeros_like_el)
 
     @staticmethod
     def from_host(vals, device):
@@ -137,10 +142,7 @@ class Fq2Ops:
     zero = staticmethod(tw.fq2_zero)
     from_host = staticmethod(tw.fq2_from_host)
     to_host = staticmethod(tw.fq2_to_host)
-
-    @staticmethod
-    def is_zero(a):
-        return mont.is_zero(FQ, a[0]) & mont.is_zero(FQ, a[1])
+    is_zero = staticmethod(tw.fq2_is_zero)
 
     @staticmethod
     def shape(a):
@@ -400,6 +402,49 @@ class DeviceCurve:
             window=window)
         return tree_map(lambda a: a.reshape(tuple(shape) + a.shape[1:]), out)
 
+    def scalar_mul_naive(self, p, k_limbs, nbits: int = 255):
+        """p·k per lane by the plain double-and-add bit scan, MSB first (a
+        doubling and a complete add a bit, the add kept where the bit is
+        set): the JAX package's cross-check form of ``scalar_mul``, in
+        torch ops. Returns a Jacobian tuple of the batch shape."""
+        acc = self.infinity(self.f.shape(p[2]), leaves(p)[0].device)
+        for bit in scalar_bits(k_limbs, nbits):
+            acc = self.double(acc)
+            acc = _sel3(self.f, bit != 0, self.add(acc, p), acc)
+        return acc
+
+    def msm_naive(self, points, scalars, nbits: int = 255):
+        """Σ points_i·scalars_i over the leading axis by the shared bit
+        scan: per bit, MSB first, the running total doubles, then adds the
+        fold of the points whose bit is set (the JAX package's cross-check
+        form of ``msm``, in torch ops). Returns an unbatched point."""
+        shape = self.f.shape(points[2])
+        dev = leaves(points)[0].device
+        inf = self.infinity(shape, dev)
+        acc = self.infinity(shape[1:], dev)
+        for bit in scalar_bits(scalars, nbits):
+            acc = self.add(self.double(acc),
+                           self.fold_sum(_sel3(self.f, bit != 0, points,
+                                               inf)))
+        return acc
+
+    def msm(self, points, scalars, nbits: int = 255, window: int = 4):
+        """Σ points_i·scalars_i over Jacobian points [N] (infinity lanes
+        allowed), any ``nbits`` and ``window``: the points are lifted to
+        affine (``ops.threshold.jacobian_to_affine``: one B2), then one
+        shared block of accumulators runs the windows
+        (``cuda_curve.msm_pallas_shared(fused=False)``: the table 1P ..
+        (2^w − 1)P in 2^w − 2 B10, per window one B16 dblw and one B16
+        selmadd per block of lanes, dead lanes at digit 0), then the fold.
+        The JAX ``msm``'s sum as an affine point. Returns an unbatched
+        point."""
+        from ..ops.threshold import jacobian_to_affine  # imports this
+        from . import cuda_curve
+
+        return cuda_curve.msm_pallas_shared(
+            self, jacobian_to_affine(self, points), scalars, nbits=nbits,
+            window=window, fused=False)
+
     def msm_scalarwise(self, points, scalars, nbits: int = 255,
                        window: int = 1):
         """Σ points_i·scalars_i over Jacobian points [N]: N per-lane
@@ -433,6 +478,13 @@ class DeviceCurve:
         """Σ over the leading axis (``fold_axis`` 0). Returns an
         unbatched point for a batch [N]."""
         return self.fold_axis(pts, 0)
+
+
+def fold_sum(curve, pts, widths=None):
+    """Σ over the leading axis: ``curve.fold_sum``. ``widths`` (the JAX
+    function's scan tiling of XLA adds) is accepted and unused: the port's
+    fold is a pairwise tree, the same sum as an affine point."""
+    return curve.fold_sum(pts)
 
 
 G1 = DeviceCurve(FqOps, G1_GEN, hcv.G1, "G1")

@@ -10,6 +10,8 @@ The counterpart of ``threshold_crypto_tpu/device/keccak.py``:
   whole-state tensor ops;
 * ``hash_chunks`` sends a CUDA tensor to the kernel and a CPU tensor to the
   plain version;
+* ``keccak_f1600`` is the JAX permutation (:117) on [25, ...] half-lanes,
+  on the plain version's rounds;
 * ``transcript_digests`` is the JAX function (:300) with tensors in the
   place of device arrays: the port's int32 limb tensors are the JAX
   package's uint32 leaves (the same little-endian bytes), numpy arrays its
@@ -89,6 +91,22 @@ def _keccak_f1600(s, consts):
         s = (b ^ (~b.roll(-1, 1) & b.roll(-2, 1))).reshape(25, -1)  # chi
         s[0] ^= c_round                                          # iota
     return s
+
+
+def keccak_f1600(lo, hi):
+    """One Keccak-f[1600] permutation on [25, ...] half-lanes, the JAX
+    signature: ``lo`` and ``hi`` hold the low and high 32 bits of each
+    lane (lane x + 5y), as int32 tensors of one shape [25, ...] or as
+    sequences of 25 tensors. Returns two lists of 25 int32 tensors, the
+    permuted halves, on the plain version's whole-state rounds."""
+    lo, hi = torch.stack(list(lo)), torch.stack(list(hi))
+    shape = lo.shape
+    s = ((lo.to(torch.int64) & 0xFFFFFFFF)
+         | (hi.to(torch.int64) << 32)).reshape(25, -1)
+    s = _keccak_f1600(s, _consts(s.device))
+    out_lo = (s & 0xFFFFFFFF).to(torch.int32).reshape(shape)
+    out_hi = ((s >> 32) & 0xFFFFFFFF).to(torch.int32).reshape(shape)
+    return list(out_lo.unbind(0)), list(out_hi.unbind(0))
 
 
 def sha3_256_chunks(words):

@@ -214,6 +214,10 @@ def zero(spec: FpSpec, shape, device):
                        device=device)
 
 
+def zeros_like_el(a):
+    return torch.zeros_like(a)
+
+
 # ---------------------------------------------------------------------------
 # Products and powers: kernel on CUDA, plain version on the CPU
 # ---------------------------------------------------------------------------
@@ -281,3 +285,14 @@ def pow_fixed(spec: FpSpec, a, e: int):
 def inv(spec: FpSpec, a):
     """a^(p-2): Fermat inverse, mapping 0 -> 0."""
     return pow_fixed(spec, a, spec.p - 2)
+
+
+def batch_inv(spec: FpSpec, a):
+    """Batched inversion of [..., L] limbs, zero to zero: on the card one B2
+    launch (``inv``), on the CPU the product tree
+    (``ops.threshold.batch_inv_field``)."""
+    from ..ops.fr import FrOps  # the ops package imports this module
+    from ..ops.threshold import batch_inv_field
+    from .curve import FqOps
+
+    return batch_inv_field(FqOps if spec is FQ else FrOps, a)

@@ -125,12 +125,18 @@ def pairing(p_aff, q_aff):
     return final_exponentiation(miller_loop(p_aff, q_aff))
 
 
-def pairing_check(p_aff, q_aff):
-    """bool[...]: ∏ e(P_i, Q_i) == 1 over the leading pair axis, with one
-    shared final exponentiation per lane."""
+def multi_pairing(p_aff, q_aff):
+    """∏ over the leading pair axis of e(P_i, Q_i), per remaining batch
+    lane: the Miller values' product, then one shared final
+    exponentiation. Inputs [k, ...]-batched; the reduced value equals the
+    JAX ``multi_pairing``'s limb for limb."""
     f = miller_loop(p_aff, q_aff)
-    acc = _fq12_prod_leading(f, p_aff[0].shape[0])
-    return tw.fq12_is_one(final_exponentiation(acc))
+    return final_exponentiation(_fq12_prod_leading(f, p_aff[0].shape[0]))
+
+
+def pairing_check(p_aff, q_aff):
+    """bool[...]: ∏ e(P_i, Q_i) == 1 over the leading pair axis."""
+    return tw.fq12_is_one(multi_pairing(p_aff, q_aff))
 
 
 # ---------------------------------------------------------------------------

@@ -139,6 +139,10 @@ def fq2_select(cond, a, b):
     return (mont.select(cond, a[0], b[0]), mont.select(cond, a[1], b[1]))
 
 
+def fq2_is_zero(a):
+    return mont.is_zero(FQ, a[0]) & mont.is_zero(FQ, a[1])
+
+
 def fq2_eq(a, b):
     return mont.eq(FQ, a[0], b[0]) & mont.eq(FQ, a[1], b[1])
 
@@ -236,8 +240,31 @@ def fq6_mul(a, b):
     return _fq6_mul_fin_many([fq2_mul_many(_fq6_mul_parts(a, b))])[0]
 
 
+def fq6_sqr(a):
+    return fq6_mul(a, a)
+
+
 def fq6_mul_by_v(a):
     return (mul_by_xi(a[2]), a[0], a[1])
+
+
+def fq6_mul_by_01(a, b0, b1):
+    """a · (b0 + b1·v): the sparse product, 5 Fq2 products in one stacked
+    call."""
+    return _sparse01_fin(fq2_mul_many(_sparse01_parts(a, b0, b1)))
+
+
+def fq6_mul_by_1(a, b1):
+    """a · (b1·v): 3 Fq2 products in one stacked call."""
+    return _by1_fin(fq2_mul_many(_by1_parts(a, b1)))
+
+
+def _by1_parts(a, b1):
+    return [(a[2], b1), (a[0], b1), (a[1], b1)]
+
+
+def _by1_fin(t):
+    return (mul_by_xi(t[0]), t[1], t[2])
 
 
 def _sparse01_parts(a, b0, b1):
@@ -279,8 +306,16 @@ def fq6_select(cond, a, b):
 # Fq12
 # ---------------------------------------------------------------------------
 
+def fq12_zero(shape, device):
+    return (fq6_zero(shape, device), fq6_zero(shape, device))
+
+
 def fq12_one(shape, device):
     return (fq6_one(shape, device), fq6_zero(shape, device))
+
+
+def fq12_add(a, b):
+    return (fq6_add(a[0], b[0]), fq6_add(a[1], b[1]))
 
 
 def fq12_mul(a, b):
@@ -400,12 +435,12 @@ def fq12_mul_by_014(f, c0, c1, c4):
     sf = fq6_add(f0, f1)
     parts = (
         _sparse01_parts(f0, c0, c1)
-        + [(f1[2], c4), (f1[0], c4), (f1[1], c4)]
+        + _by1_parts(f1, c4)
         + _sparse01_parts(sf, c0, o)
     )
     t = fq2_mul_many(parts)
     t0 = _sparse01_fin(t[0:5])
-    t1 = (mul_by_xi(t[5]), t[6], t[7])
+    t1 = _by1_fin(t[5:8])
     t3 = _sparse01_fin(t[8:13])
     c1out = fq6_sub(t3, fq6_add(t0, t1))
     c0out = fq6_add(t0, fq6_mul_by_v(t1))
@@ -482,29 +517,29 @@ def add_step(T, Q, xp, yp):
 
 
 # ---------------------------------------------------------------------------
-# Frobenius — coefficients derived by the host tower, embedded as constants.
+# Frobenius — coefficients derived by the host tower, as the JAX package's
+# numpy Montgomery limbs, and cached on each device at first use.
 # ---------------------------------------------------------------------------
 
-def _host_fq2_mul_list(xs, ys):
-    return [htw.fq2_mul(a, b) for a, b in zip(xs, ys)]
+def _emb_fq2_const(c):
+    return (mont.to_mont(FQ, c[0]), mont.to_mont(FQ, c[1]))
 
 
-_FROB_HOST = {
-    "c12": htw.FROB12_C1,
-    "c6_1": htw.FROB6_C1,
-    "c6_2": htw.FROB6_C2,
-    # FROB6_Cx · FROB12_C1, precomputed on the host (used by fq12_frob).
-    "c6_1x12": _host_fq2_mul_list(htw.FROB6_C1, htw.FROB12_C1),
-    "c6_2x12": _host_fq2_mul_list(htw.FROB6_C2, htw.FROB12_C1),
-}
+FROB12_C1 = [_emb_fq2_const(c) for c in htw.FROB12_C1]
+FROB6_C1 = [_emb_fq2_const(c) for c in htw.FROB6_C1]
+FROB6_C2 = [_emb_fq2_const(c) for c in htw.FROB6_C2]
+# FROB6_Cx · FROB12_C1, precomputed on the host (used by fq12_frob).
+FROB6_C1_X_12 = [_emb_fq2_const(htw.fq2_mul(a, b))
+                 for a, b in zip(htw.FROB6_C1, htw.FROB12_C1)]
+FROB6_C2_X_12 = [_emb_fq2_const(htw.fq2_mul(a, b))
+                 for a, b in zip(htw.FROB6_C2, htw.FROB12_C1)]
+_FROB = {"c12": FROB12_C1, "c6_1": FROB6_C1, "c6_2": FROB6_C2,
+         "c6_1x12": FROB6_C1_X_12, "c6_2x12": FROB6_C2_X_12}
 
 
 @functools.lru_cache(maxsize=None)
 def _frob_const(name: str, k: int, device: torch.device):
-    c = _FROB_HOST[name][k]
-    return tuple(
-        torch.from_numpy(mont.to_mont(FQ, x)).to(device) for x in c
-    )
+    return tuple(torch.from_numpy(x).to(device) for x in _FROB[name][k])
 
 
 def fq2_frob(a, power: int):
@@ -530,6 +565,16 @@ def fq12_frob(a, power: int):
     return ((c0[0], t[0], t[1]), (t[2], t[3], t[4]))
 
 
+def fq6_frob(a, power: int):
+    """(a)^(p^power) in Fq6: 2 constant Fq2 multiplies in one stacked
+    call."""
+    k = power % 12
+    dev = a[0][0].device
+    t = fq2_mul_many([(fq2_frob(a[1], power), _frob_const("c6_1", k, dev)),
+                      (fq2_frob(a[2], power), _frob_const("c6_2", k, dev))])
+    return (fq2_frob(a[0], power), t[0], t[1])
+
+
 # ---------------------------------------------------------------------------
 # Host <-> device conversions (tests / API boundary)
 # ---------------------------------------------------------------------------
@@ -547,9 +592,31 @@ def fq2_to_host(a):
     return list(zip(c0, c1))
 
 
+def fq6_from_host(vals, device):
+    """[N] host Fq6 triples -> batched Fq6 of int32[N, 24] tensors. The
+    JAX ``fq6_from_host(c, shape)`` broadcasts one value: pass [c] * N."""
+    return tuple(fq2_from_host([v[i] for v in vals], device)
+                 for i in range(3))
+
+
+def fq12_from_host(vals, device):
+    """[N] host Fq12 pairs of Fq6 -> batched Fq12 of int32[N, 24] tensors
+    (as ``fq6_from_host``, one value per lane)."""
+    return tuple(fq6_from_host([v[i] for v in vals], device)
+                 for i in range(2))
+
+
 def fq6_to_host(a):
     return list(zip(*(fq2_to_host(x) for x in a)))
 
 
 def fq12_to_host(a):
+    """Batched Fq12 [N] -> N host values (nested tuples)."""
     return list(zip(*(fq6_to_host(x) for x in a)))
+
+
+def fq12_to_host_batch(a):
+    """Batched Fq12 of any batch shape (leading dims flattened) -> host
+    values, as the JAX ``fq12_to_host_batch``."""
+    return fq12_to_host(tuple(tuple(tuple(c.reshape(-1, FQ.L) for c in x)
+                                    for x in f6) for f6 in a))

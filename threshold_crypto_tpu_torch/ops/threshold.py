@@ -330,9 +330,10 @@ def combine_batch(curve, shares_jac, xs_mont, path: str = "scalarwise"):
       one B11 launch, the fold);
     * "scalarwise" (the JAX default): N bit ladders, one B15 launch
       (``msm_pallas(window=1)``), and one fold of N lanes;
-    * "bitscan": one shared accumulator block over the bits,
-      ``msm_pallas_shared(window=1, fused=False)``: per bit one B16 dblw
-      and one B16 selmadd per 1024 lanes, then the fold.
+    * "bitscan": ``DeviceCurve.msm`` at window 1, one shared accumulator
+      block over the bits (``msm_pallas_shared(window=1, fused=False)``):
+      per bit one B16 dblw and one B16 selmadd per 1024 lanes, then the
+      fold.
 
     Returns (unbatched Jacobian point, ok bool[]): ok is False on a
     duplicate or a zero x, the reference's DuplicateEntry.
@@ -341,15 +342,14 @@ def combine_batch(curve, shares_jac, xs_mont, path: str = "scalarwise"):
         raise ValueError(f"unknown combine path {path!r}")
     lam_mont, ok = frops.lagrange_coeffs_at_zero(xs_mont)
     lam_plain = frops.fr_to_plain(lam_mont)
+    if path == "bitscan":
+        return curve.msm(shares_jac, lam_plain, nbits=255, window=1), ok
     aff = jacobian_to_affine(curve, shares_jac)
     if path == "pallas":
         out = ccv.msm_pallas_shared(curve, aff, lam_plain, nbits=255,
                                     window=3)
-    elif path == "scalarwise":
-        out = ccv.msm_pallas(curve, aff, lam_plain, nbits=255, window=1)
     else:
-        out = ccv.msm_pallas_shared(curve, aff, lam_plain, nbits=255,
-                                    window=1, fused=False)
+        out = ccv.msm_pallas(curve, aff, lam_plain, nbits=255, window=1)
     return out, ok
 
 
