@@ -26,10 +26,12 @@ Phases, each announced on a flushed line before it starts:
    latency yardstick beside its bound (its general path's products times
    the per-product latency of B2's one-lane chain in this run); B11 also
    on its special lanes, T == Q followed by another add in the window
-   among them, against the host's partial sums; B4-B9, on the lane-group
-   engine, also at the RLC check's widths (B4 and B5 1,024 pair lanes,
-   B6-B9 512), with their registers, stack frame and spills (a frame or a
-   spill fails the run); B10 also
+   among them, against the host's partial sums; B4-B9 and B17, on the
+   lane-group engine, also at the RLC check's widths (B4, B5 and B17
+   1,024 pair lanes, B6-B9 512), with their registers, stack frame and
+   spills (a frame or a spill fails the run), and B3's test entry on the
+   register engine with its own (a frame or a spill fails the run); B10
+   also
    timed on the table build's first launch, where every lane takes the
    doubling branch), timed with CUDA events beside the plain
    version and the kernel's bound; B13 G1 also at the DKG's launch shape
@@ -727,22 +729,34 @@ B17_KERNELS = ("dbl_step", "add_step", "f_sqr_fold", "f_fold")
 
 # The check's kernels are also held at the RLC check's widths: its 2-pair
 # check replicated to RLC_CHECK_BATCH lanes runs B4 and B5 on
-# 2 × RLC_CHECK_BATCH pair lanes and B6-B9 on RLC_CHECK_BATCH. B4-B9 run on
-# the lane-group engine (csrc/tower_group.cuh): their kernels' ptxas
-# figures (csrc/miller.cu, csrc/fq12.cu), where a stack frame or a spill
-# fails the run.
+# 2 × RLC_CHECK_BATCH pair lanes and B6-B9 on RLC_CHECK_BATCH; B17, B4
+# and B5 cut at the line, at B4's and B5's. B4-B9 and B17 run on the
+# lane-group engine (csrc/tower_group.cuh), B3's test entry on the register
+# engine (csrc/ladder_engine.cuh): their kernels' ptxas figures
+# (csrc/miller.cu, csrc/fq12.cu), where a stack frame or a spill fails the
+# run.
 CHECK_WIDTHS = {"dbl_fold": 2 * RLC_CHECK_BATCH,
                 "add_fold": 2 * RLC_CHECK_BATCH,
                 "cyclo_sqr": RLC_CHECK_BATCH,
                 "cyclo_sqr_mul": RLC_CHECK_BATCH,
                 "fq12_mul": RLC_CHECK_BATCH,
-                "fq12_sqr": RLC_CHECK_BATCH}
+                "fq12_sqr": RLC_CHECK_BATCH,
+                "dbl_step": 2 * RLC_CHECK_BATCH,
+                "add_step": 2 * RLC_CHECK_BATCH,
+                "f_sqr_fold": 2 * RLC_CHECK_BATCH,
+                "f_fold": 2 * RLC_CHECK_BATCH}
 GROUP_KERNELS = {"dbl_fold": ("miller.cu", "dbl_fold_kernel"),
                  "add_fold": ("miller.cu", "add_fold_kernel"),
                  "cyclo_sqr": ("fq12.cu", "cyclo_sqr_group_kernel"),
                  "cyclo_sqr_mul": ("fq12.cu", "cyclo_sqr_mul_group_kernel"),
                  "fq12_mul": ("fq12.cu", "fq12_mul_group_kernel"),
-                 "fq12_sqr": ("fq12.cu", "fq12_sqr_group_kernel")}
+                 "fq12_sqr": ("fq12.cu", "fq12_sqr_group_kernel"),
+                 "dbl_step": ("miller.cu", "dbl_step_kernel"),
+                 "add_step": ("miller.cu", "add_step_kernel"),
+                 "f_sqr_fold": ("miller.cu", "f_sqr_fold_kernel"),
+                 "f_fold": ("miller.cu", "f_fold_kernel")}
+# B3's test entry on the register engine.
+ENGINE_KERNEL = ("fq12.cu", "engine_kernel")
 
 
 def tower_inputs(name, gen, dev, n=None):
@@ -2838,8 +2852,8 @@ def run_combine(dev):
 def run_b17_composition(args, dev):
     """One whole packed Miller loop over slice 2's pairs (2·LANES lanes: the
     (pk, H) and (−G1, sig) pairs of ``verify_batch_pallas``) through B17
-    (one thread a lane on tower.cuh) against B4 (the lane-group engine of
-    tower_group.cuh) and B5:
+    against B4 and B5 (all on the lane-group engine of tower_group.cuh,
+    B17 their schedules cut at the line):
     on each of the 63 bits of |x| after the first ``p_dbl_step`` then
     ``p_f_sqr_fold``, on its five 1-bits ``p_add_step`` then ``p_f_fold``
     (136 launches, counted). f and T equal the B4/B5 loop's bit for bit,
@@ -3858,6 +3872,15 @@ def main():
               flush=True)
         if any(figures[1:]):
             fail(f"{fn}: a stack frame or spills on the lane-group engine")
+    source, fn = ENGINE_KERNEL
+    figures = ptxas[fn]
+    results["fq_engine"]["ptxas"] = dict(zip(
+        ("registers", "stack_frame", "spill_stores", "spill_loads"), figures))
+    print(f"fq_engine ({source} {fn}, the register engine): {figures[0]} "
+          f"registers, {figures[1]} bytes stack frame, {figures[2]} bytes "
+          f"spill stores, {figures[3]} bytes spill loads", flush=True)
+    if any(figures[1:]):
+        fail(f"{fn}: a stack frame or spills on the register engine")
     for g2 in (False, True):
         results["g2_madd" if g2 else "g1_madd"] = check_madd(g2, gen, dev,
                                                              card)

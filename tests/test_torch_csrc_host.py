@@ -1,9 +1,11 @@
 """The tower kernels' CUDA sources, compiled for the host, against their plain
 PyTorch versions.
 
-The per-lane bodies of B3-B5, B8 and B9 live in ``csrc/tower.cuh`` over the
-engine of ``csrc/fq.cuh``, and those of B6 and B7 in the lane-group engine
-``csrc/tower_group.cuh``, as plain C++ behind CUDA's function qualifiers.
+The old per-lane bodies of B3-B5, B8 and B9 live in ``csrc/tower.cuh``
+over the engine of ``csrc/fq.cuh``, those of B6 and B7 in the lane-group
+engine ``csrc/tower_group.cuh``, and B3's test entry on the register
+engine (``csrc/ladder_engine.cuh`` ``engine_lane_r``, the body its kernel
+runs), as plain C++ behind CUDA's function qualifiers.
 Here g++ compiles those headers with the qualifiers defined away, and a
 serial loop over the lanes stands in for the grid (for B6 and B7, over one
 lane's group of ``kGroup`` threads, phase by phase): the same integer
@@ -86,11 +88,11 @@ int main() {
                              {0, 0, 0, 0}};
   for (int i = 0; i < 4 && op < 6; ++i)
     if (rows[op][i]) in.push_back(rd(rows[op][i] * n));
-  if (op == 6) {
+  if (op >= 6) {
     in.push_back(rd(24ul * m * n));
     in.push_back(rd(24ul * m * n));
   }
-  std::vector<int32_t> a(op == 6 ? 5 * 24ul * m * n : F), b(T);
+  std::vector<int32_t> a(op >= 6 ? 5 * 24ul * m * n : F), b(T);
   if (op == 2 || op == 3)
     group_lanes(in[0].data(), op == 3 ? in[1].data() : nullptr, a.data(), n);
   for (int l = 0; l < n && op != 2 && op != 3; ++l) {
@@ -104,6 +106,11 @@ int main() {
       case 5: tc::fq12_mul_lane(in[0].data(), nullptr, a.data(), n, l); break;
       case 6: tc::engine_lane(in[0].data(), in[1].data(), a.data(), m, k, n, l);
               break;
+      case 7:
+        for (int c = 0; c < m; ++c)
+          tc::engine_lane_r(in[0].data(), in[1].data(), a.data(), c, m, k, n,
+                            l);
+        break;
     }
   }
   fwrite(a.data(), 4, a.size(), stdout);
@@ -113,7 +120,7 @@ int main() {
 """
 
 OPS = {"dbl_fold": 0, "add_fold": 1, "cyclo_sqr": 2, "cyclo_sqr_mul": 3,
-       "fq12_mul": 4, "fq12_sqr": 5, "fq_engine": 6}
+       "fq12_mul": 4, "fq12_sqr": 5, "fq_engine": 6, "fq_engine_r": 7}
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -194,6 +201,23 @@ def test_engine_body_matches_plain_field_ops(harness, k):
     a, b = _rows(rng, 5), _rows(rng, 5)
     (got,) = _run(harness, "fq_engine", [a, b], [5 * 5 * FQ.L], m=5, k=k)
     assert torch.equal(got.reshape(5, 5 * FQ.L, N), ctw.fq_engine_ref(a, b, k))
+
+
+@pytest.mark.parametrize("k", [1, 2, 3, 5, 8, 127, 1000003, 2 ** 31 - 1])
+def test_register_engine_body_matches_plain_field_ops(harness, k):
+    """B3's test entry on the register engine (``ladder_engine.cuh``
+    ``engine_lane_r``: ``fp_mul``'s carry-save product, ``fp_add``,
+    ``fp_sub``, ``fp_neg`` and ``fp_small``'s add chain), one (component,
+    lane) at a time, against the plain field operations: a·b, a + b,
+    a − b, −a and k·a on zero, p − 1 and random lanes, for small and large
+    k; the same as the old body's."""
+    rng = np.random.default_rng(0xB3 + k)
+    a, b = _rows(rng, 5), _rows(rng, 5)
+    b[:, 3] = a[:, 3]                       # a − b = 0 on lane 3
+    (got,) = _run(harness, "fq_engine_r", [a, b], [5 * 5 * FQ.L], m=5, k=k)
+    assert torch.equal(got.reshape(5, 5 * FQ.L, N), ctw.fq_engine_ref(a, b, k))
+    (old,) = _run(harness, "fq_engine", [a, b], [5 * 5 * FQ.L], m=5, k=k)
+    assert torch.equal(got, old)
 
 
 def test_engine_constants_are_the_field_constants():

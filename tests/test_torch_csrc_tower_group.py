@@ -1,9 +1,10 @@
 """The lane-group tower engine (``csrc/tower_group.cuh``), compiled for the
-host, against the plain versions of B4, B5, B6, B7, B8 and B9.
+host, against the plain versions of B4, B5, B6, B7, B8, B9 and B17.
 
 On the card one lane of B4 ``dbl_fold`` / B5 ``add_fold`` / B6
 ``cyclo_sqr`` / B7 ``cyclo_sqr_mul`` / B8 ``fq12_mul`` / B9 ``fq12_sqr``
-runs on a group of
+/ B17 ``dbl_step``, ``f_sqr_fold``, ``add_step``, ``f_fold`` runs on a
+group of
 ``kGroup`` threads: the block stages its lanes' inputs into shared
 memory, each phase of the static schedule is dealt over the group's
 threads with a barrier after it, and the block writes its outputs. Here
@@ -16,15 +17,19 @@ phase functions in the barriers' order:
   ``fq12_mul_ref`` / ``fq12_sqr_ref`` at the kernel's group size and at
   others, on zero f, g and T and infinity P and Q lanes, lanes of p − 1,
   (B9) lanes of one, random lanes and (B6, B7) cyclotomic lanes, over
-  blocks whose last one is ragged;
+  blocks whose last one is ragged; B17's four bodies bit-exact with
+  ``dbl_step_ref`` / ``f_sqr_fold_ref`` / ``add_step_ref`` /
+  ``f_fold_ref`` the same way (the folds on zero, random and real lines),
+  and a step's body then its fold's equal to B4's or B5's body;
 * the dealing: each op of each phase runs on exactly one thread of the
   group, the product phases hold the 122 (B4: 48, 19, 16, 39), 80 (B5: 6,
-  14, 48, 12), 18 (B6), 72 (B7: 18, 54), 54 (B8) and 36 (B9) Fq products,
-  and a thread runs Σ ceil(layer / G) of them;
+  14, 48, 12), 18 (B6), 72 (B7: 18, 54), 54 (B8), 36 (B9) and B17's 47
+  (12, 19, 16), 75 (36, 39), 41 (6, 14, 9, 12) and 39 Fq products, and a
+  thread runs Σ ceil(layer / G) of them;
 * a linear form reduced as its steps say (canonical when stored; as a
   product's operand, the bound the product needs) on edge and random
-  slots, B9's schedule's own forms among them, and the product canonical
-  on operands up to that bound;
+  slots, B9's and B17's step schedules' own forms among them, and the
+  product canonical on operands up to that bound;
 * the tables in the header are the generator's
   (``tools/tower_group_schedule.py``);
 * a wrapper's dispatch sends a CPU tensor to the plain version.
@@ -70,7 +75,7 @@ struct Sched {
   const int32_t *phase_ops, *ops, *terms, *out_slots;
   int phases, slots, lane_words;
 };
-static const Sched kS[6] = {
+static const Sched kS[10] = {
     {kB4PhaseOps, kB4Ops, kB4Terms, kB4OutSlots, kB4Phases, kB4Slots,
      kB4LaneWords},
     {kB6PhaseOps, kB6Ops, kB6Terms, kB6OutSlots, kB6Phases, kB6Slots,
@@ -82,7 +87,15 @@ static const Sched kS[6] = {
     {kB5PhaseOps, kB5Ops, kB5Terms, kB5OutSlots, kB5Phases, kB5Slots,
      kB5LaneWords},
     {kB9PhaseOps, kB9Ops, kB9Terms, kB9OutSlots, kB9Phases, kB9Slots,
-     kB9LaneWords}};
+     kB9LaneWords},
+    {kDblStepPhaseOps, kDblStepOps, kDblStepTerms, kDblStepOutSlots,
+     kDblStepPhases, kDblStepSlots, kDblStepLaneWords},
+    {kFSqrFoldPhaseOps, kFSqrFoldOps, kFSqrFoldTerms, kFSqrFoldOutSlots,
+     kFSqrFoldPhases, kFSqrFoldSlots, kFSqrFoldLaneWords},
+    {kAddStepPhaseOps, kAddStepOps, kAddStepTerms, kAddStepOutSlots,
+     kAddStepPhases, kAddStepSlots, kAddStepLaneWords},
+    {kFFoldPhaseOps, kFFoldOps, kFFoldTerms, kFFoldOutSlots, kFFoldPhases,
+     kFFoldSlots, kFFoldLaneWords}};
 
 static std::vector<int32_t> rd(size_t count) {
   std::vector<int32_t> v(count);
@@ -125,6 +138,8 @@ static void emulate(const Sched& s, const std::vector<const int32_t*>& in,
 // stdin: int32 op, G, shift, n, then the inputs; stdout: the outputs.
 // op 0: B4 (f, T, P -> f, T); op 1: B6 (f -> f); op 6: B7 (f, g -> f);
 // op 7: B8 (a, b -> a·b); op 8: B5 (f, T, Q, P -> f, T); op 9: B9 (a -> a²);
+// B17: op 20 dbl_step (T, P -> T, line), op 21 f_sqr_fold (f, line -> f),
+// op 22 add_step (T, Q, P -> T, line), op 23 f_fold (f, line -> f);
 // op 10 + s: for schedule s, a scratch of random values, then per phase
 // its op count, its product flag and per thread g the slots thread g's
 // share of it writes; op 4: n forms (words, first terms, `shift` terms)
@@ -170,6 +185,27 @@ int main() {
     std::vector<int32_t> fo(288ul * n);
     emulate(kS[5], {a.data()}, {12}, {fo.data()}, {12}, n, G, shift);
     fwrite(fo.data(), 4, fo.size(), stdout);
+  } else if (op == 20 || op == 22) {
+    auto T = rd(144ul * n);
+    auto Q = rd(op == 22 ? 96ul * n : 0ul);
+    auto P = rd(48ul * n);
+    std::vector<int32_t> To(144ul * n), line(144ul * n);
+    std::vector<const int32_t*> in = {T.data(), P.data()};
+    std::vector<int> comps = {6, 2};
+    if (op == 22) {
+      in = {T.data(), Q.data(), P.data()};
+      comps = {6, 4, 2};
+    }
+    emulate(kS[op == 20 ? 6 : 8], in, comps, {To.data(), line.data()},
+            {6, 6}, n, G, shift);
+    fwrite(To.data(), 4, To.size(), stdout);
+    fwrite(line.data(), 4, line.size(), stdout);
+  } else if (op == 21 || op == 23) {
+    auto f = rd(288ul * n), line = rd(144ul * n);
+    std::vector<int32_t> fo(288ul * n);
+    emulate(kS[op == 21 ? 7 : 9], {f.data(), line.data()}, {12, 6},
+            {fo.data()}, {12}, n, G, shift);
+    fwrite(fo.data(), 4, fo.size(), stdout);
   } else if (op == 4) {  // n forms over a scratch of G slots
     auto init = rd(static_cast<size_t>(G) * kWords);
     auto words = rd(n);
@@ -195,7 +231,7 @@ int main() {
       out.insert(out.end(), r.w, r.w + kWords);
     }
     fwrite(out.data(), 4, out.size(), stdout);
-  } else if (op >= 10 && op < 16) {
+  } else if (op >= 10 && op < 20) {
     const Sched& s = kS[op - 10];
     auto init = rd(static_cast<size_t>(s.slots) * kWords);
     std::vector<int32_t> out;
@@ -228,7 +264,14 @@ SHIFT = 2
 GROUP = 8       # the kernel's kGroup
 PRODUCTS = {"dbl_fold": [48, 19, 16, 39], "cyclo_sqr": [18],
             "cyclo_sqr_mul": [18, 54], "fq12_mul": [54],
-            "add_fold": [6, 14, 48, 12], "fq12_sqr": [36]}
+            "add_fold": [6, 14, 48, 12], "fq12_sqr": [36],
+            "dbl_step": [12, 19, 16], "f_sqr_fold": [36, 39],
+            "add_step": [6, 14, 9, 12], "f_fold": [39]}
+# The schedules in the header's order (the harness's kS), by kernel.
+SCHEDS = ["dbl_fold", "cyclo_sqr", "cyclo_sqr_mul", "fq12_mul", "add_fold",
+          "fq12_sqr", "dbl_step", "f_sqr_fold", "add_step", "f_fold"]
+PREFIXES = ["kB4", "kB6", "kB7", "kB8", "kB5", "kB9", "kDblStep",
+            "kFSqrFold", "kAddStep", "kFFold"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -454,6 +497,92 @@ def test_fq12_sqr_group_body_matches_plain_version(harness, G):
     assert all(got[i][0] == 0 for i in range(12))
 
 
+# B17's bodies: harness op, and the packed rows of each output.
+B17 = {"dbl_step": (20, (144, 144)), "f_sqr_fold": (21, (288,)),
+       "add_step": (22, (144, 144)), "f_fold": (23, (288,))}
+
+
+def _line_inputs(seed):
+    """f and a line (c0, c1, c4) with lanes 0-1 both zero, 2 every
+    component p − 1, 3 the line zero, 4 f zero, 8-15 the tangent lines of
+    ``_dbl_fold_inputs``' lanes 2-9 (infinity P, zero T, p − 1 and random
+    T among them), the rest random."""
+    rnd = random.Random(seed)
+    f, line = _random(rnd, 12), _random(rnd, 6)
+    for lane, xs in {0: (f, line), 1: (f, line), 3: (line,), 4: (f,)}.items():
+        for x in xs:
+            for c in x:
+                c[lane] = 0
+    for x in (f, line):
+        for c in x:
+            c[2] = FQ.p - 1
+    f, line = _packed(f), _packed(line)
+    _, T, P = _dbl_fold_inputs(seed + 1)
+    line[:, 8:16] = ctw.dbl_step_ref(T, P)[1][:, 2:10]
+    return f, line
+
+
+def _b17_inputs(name, seed):
+    if name == "dbl_step":
+        return _dbl_fold_inputs(seed)[1:]
+    if name == "add_step":
+        return _add_fold_inputs(seed)[1:]
+    return _line_inputs(seed)
+
+
+def _b17_body(harness, name, G, ins):
+    """One of B17's group bodies on the harness: its output tensors."""
+    op, rows = B17[name]
+    out = _run(harness, op, G, N, [x.numpy().tobytes() for x in ins])
+    assert out.size == sum(rows) * N
+    outs, off = [], 0
+    for r in rows:
+        outs.append(torch.from_numpy(out[off:off + r * N].reshape(r, N)
+                                     .copy()))
+        off += r * N
+    return outs
+
+
+@pytest.mark.parametrize("name", list(B17))
+@pytest.mark.parametrize("G", [GROUP, 4, 16])
+def test_b17_group_body_matches_plain_version(harness, name, G):
+    """B17's four pieces on the lane-group engine: ``dbl_step`` and
+    ``add_step`` (T and the line) on B4's and B5's zero, infinity, p − 1
+    and random lanes, ``f_sqr_fold`` and ``f_fold`` on zero, p − 1, real
+    and random lines, the last block ragged, bit-exact with the plain
+    versions."""
+    ins = _b17_inputs(name, 0x17 + G + len(name))
+    got = _b17_body(harness, name, G, ins)
+    want = getattr(ctw, name + "_ref")(*ins)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("which", ["dbl", "add"])
+@pytest.mark.parametrize("G", [GROUP, 4])
+def test_b17_step_then_fold_is_the_fused_body(harness, which, G):
+    """On the group bodies, ``dbl_step`` then ``f_sqr_fold`` is B4's body
+    and ``add_step`` then ``f_fold`` B5's, bit for bit: f and T."""
+    if which == "dbl":
+        f, T, P = _dbl_fold_inputs(0xD0 + G)
+        To, line = _b17_body(harness, "dbl_step", G, (T, P))
+        (fo,) = _b17_body(harness, "f_sqr_fold", G, (f, line))
+        fused = _run(harness, 0, G, N, [x.numpy().tobytes()
+                                        for x in (f, T, P)])
+    else:
+        f, T, Q, P = _add_fold_inputs(0xA0 + G)
+        To, line = _b17_body(harness, "add_step", G, (T, Q, P))
+        (fo,) = _b17_body(harness, "f_fold", G, (f, line))
+        fused = _run(harness, 8, G, N, [x.numpy().tobytes()
+                                        for x in (f, T, Q, P)])
+    assert torch.equal(fo, torch.from_numpy(
+        fused[:288 * N].reshape(288, N).copy()))
+    assert torch.equal(To, torch.from_numpy(
+        fused[288 * N:].reshape(144, N).copy()))
+
+
 def _fq12(x):
     """12 Fq components in the packed order -> a host Fq12."""
     fq2 = [(x[2 * i], x[2 * i + 1]) for i in range(6)]
@@ -466,18 +595,17 @@ def pk_unpack(packed):
             for i in range(12)]
 
 
-@pytest.mark.parametrize("name,sched", [("dbl_fold", 0), ("cyclo_sqr", 1),
-                                        ("cyclo_sqr_mul", 2), ("fq12_mul", 3),
-                                        ("add_fold", 4), ("fq12_sqr", 5)])
+@pytest.mark.parametrize("name,sched", [(n, i) for i, n in enumerate(SCHEDS)])
 @pytest.mark.parametrize("G", [GROUP, 4])
 def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
     """Thread g's share of a phase writes the slots of ops g, g + G, …:
     over the group the shares are disjoint and cover every op of the
     phase once; the product phases hold the 122 (B4), 18 (B6), 72 (B7),
-    54 (B8), 80 (B5) or 36 (B9) Fq products, and the busiest thread runs
+    54 (B8), 80 (B5), 36 (B9) or B17's 47 (dbl_step), 75 (f_sqr_fold), 41
+    (add_step) and 39 (f_fold) Fq products, and the busiest thread runs
     Σ ceil(layer / G) of them."""
     text = open(os.path.join(_build.CSRC, "tower_group.cuh")).read()
-    prefix = ("kB4", "kB6", "kB7", "kB8", "kB5", "kB9")[sched]
+    prefix = PREFIXES[sched]
     slots = int(re.search(rf"constexpr int {prefix}Slots = (\d+);",
                           text).group(1))
     rnd = random.Random(sched)
@@ -502,7 +630,9 @@ def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
     if G == GROUP:
         assert busiest == {"dbl_fold": 16, "cyclo_sqr": 3,
                            "cyclo_sqr_mul": 10, "fq12_mul": 7,
-                           "add_fold": 11, "fq12_sqr": 5}[name]
+                           "add_fold": 11, "fq12_sqr": 5, "dbl_step": 7,
+                           "f_sqr_fold": 10, "add_step": 7,
+                           "f_fold": 5}[name]
 
 
 def _gen():
@@ -537,20 +667,22 @@ def _schedule_forms(gen, make):
     return out
 
 
-@pytest.mark.parametrize("steps", ["product", "stored", "kB9"])
+@pytest.mark.parametrize("steps", ["product", "stored", "kB9", "kDblStep",
+                                   "kAddStep"])
 def test_forms_reduce_as_their_steps_say(harness, steps):
     """A form Σ c·slot with the generator's reduction steps: stored, the
     canonical value; as a product operand, its value mod p below 2^384
     (below 3p after QSTEP) and within the weight bound the product needs.
     Slots of 0, 1, p − 1, p − 2 and random values; 1 to 24 terms with
-    coefficients up to ±127, all of one sign among them; or ("kB9") the
-    forms of B9's schedule over its 48 slots, each product's two operands
-    within a·b < R·p."""
+    coefficients up to ±127, all of one sign among them; or ("kB9",
+    "kDblStep", "kAddStep") the forms of B9's or B17's step schedules over
+    their slots, each product's two operands within a·b < R·p."""
     gen = _gen()
     P = FQ.p
     rnd = random.Random(0xF0 + len(steps))
-    if steps == "kB9":
-        sched = _schedule_forms(gen, gen.SCHEDULES["kB9"])
+    whole = steps.startswith("k")
+    if whole:
+        sched = _schedule_forms(gen, gen.SCHEDULES[steps])
         n_slots = 1 + max(s for f, _, _ in sched for s in f)
         vals = [0, 1, P - 1, P - 2] + [rnd.randrange(P)
                                        for _ in range(n_slots - 4)]
@@ -559,7 +691,7 @@ def test_forms_reduce_as_their_steps_say(harness, steps):
         vals = [0, 1, P - 1, P - 2] + [rnd.randrange(P) for _ in range(12)]
     init = np.array([w for v in vals for w in _words(v)], np.uint32)
     forms, whats = [], []
-    for i in range(0 if steps == "kB9" else 300):
+    for i in range(0 if whole else 300):
         nt = rnd.randint(1, 24)
         slots = rnd.sample(range(len(vals)), min(nt, len(vals)))
         sign = [1, -1, 0][i % 3]
@@ -577,7 +709,7 @@ def test_forms_reduce_as_their_steps_say(harness, steps):
         terms += [s << 8 | (c & 0xFF) for s, c in f.items()]
         words.append(len(f) | red << 8)
         whats.append(steps)
-    if steps == "kB9":
+    if whole:
         for f, word, what in sched:
             forms.append(f)
             starts.append(len(terms))
@@ -602,10 +734,10 @@ def test_forms_reduce_as_their_steps_say(harness, steps):
         else:
             assert g <= weight * P
             bound.append(weight)
-    if steps == "kB9":
+    if whole:
         # a product's two operands (consecutive forms, each below its bound
         # times p) within the product's bound a·b < R·p
-        assert len(bound) == 2 * 36
+        assert len(bound) == 2 * sum(gen.SCHEDULES[steps]().product_counts())
         for ba, bb in zip(bound[::2], bound[1::2]):
             assert ba * bb * P < 1 << 384
 
@@ -635,10 +767,8 @@ def test_header_tables_are_the_generators():
     text = open(gen.HEADER).read()
     assert gen.header_with(text, gen.block()) == text
     assert [s().product_counts() for s in gen.SCHEDULES.values()] == [
-        PRODUCTS["dbl_fold"], PRODUCTS["cyclo_sqr"],
-        PRODUCTS["cyclo_sqr_mul"], PRODUCTS["fq12_mul"],
-        PRODUCTS["add_fold"], PRODUCTS["fq12_sqr"]]
-    assert list(gen.SCHEDULES) == ["kB4", "kB6", "kB7", "kB8", "kB5", "kB9"]
+        PRODUCTS[name] for name in SCHEDS]
+    assert list(gen.SCHEDULES) == PREFIXES
 
 
 def test_cpu_tensors_take_the_plain_versions():

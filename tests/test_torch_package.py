@@ -90,6 +90,86 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
         convert.g1_from_jax(*x)
 
 
+# Entry points whose ``device`` default is None and means the card: the
+# mesh takes ``default_device`` (cuda:{local rank}), ``global_mesh`` the
+# device ``initialize`` chose, ``rlc_exponents`` the first absorbed
+# tensor's device, else the card.
+NONE_MEANS_CARD = {"threshold_crypto_tpu_torch.parallel.mesh.make_mesh",
+                   "threshold_crypto_tpu_torch.parallel.multihost.global_mesh",
+                   "threshold_crypto_tpu_torch.ops.threshold.rlc_exponents"}
+
+
+def _device_defaults():
+    """{module.function: default} of every public function (and public
+    method of a public class) of the port with a ``device`` parameter
+    that has a default."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import threshold_crypto_tpu_torch as pkg
+
+    out = {}
+    for info in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) \
+                    != mod.__name__:
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else []
+            if inspect.isclass(obj):
+                fns += [(f"{name}.{k}", getattr(v, "__func__", v))
+                        for k, v in vars(obj).items()
+                        if not k.startswith("_")]
+            for qual, fn in fns:
+                if not inspect.isfunction(fn):
+                    continue
+                par = inspect.signature(fn).parameters.get("device")
+                if par is not None and par.default is not par.empty:
+                    out[f"{mod.__name__}.{qual}"] = par.default
+    return out
+
+
+def test_every_entry_point_defaults_to_the_card():
+    """Read from the signatures: every entry point of the port that takes
+    a ``device`` runs on the card unless the caller asks for the CPU; its
+    default is "cuda", or None where the function resolves None to the
+    card (``NONE_MEANS_CARD``). ``run_world`` and ``dryrun_multichip``
+    among them."""
+    defaults = _device_defaults()
+    assert defaults["threshold_crypto_tpu_torch.parallel.multihost."
+                    "run_world"] == "cuda"
+    assert defaults["threshold_crypto_tpu_torch.parallel.dryrun."
+                    "dryrun_multichip"] == "cuda"
+    assert defaults["threshold_crypto_tpu_torch.parallel.multihost."
+                    "initialize"] == "cuda"
+    assert defaults["threshold_crypto_tpu_torch.hashing.hash_g2_batch"] \
+        == "cuda"
+    assert len(defaults) >= 15
+    off = {k: v for k, v in defaults.items()
+           if not (v == "cuda" or (v is None and k in NONE_MEANS_CARD))}
+    assert off == {}
+    assert {k for k, v in defaults.items() if v is None} == NONE_MEANS_CARD
+
+
+def test_none_device_defaults_resolve_to_the_card(monkeypatch):
+    """The None defaults of ``NONE_MEANS_CARD`` reach for the card: without
+    CUDA the mesh and ``rlc_exponents`` with nothing to absorb raise, and
+    name device='cpu' as the way to the CPU."""
+    from threshold_crypto_tpu_torch.ops import threshold as tops
+    from threshold_crypto_tpu_torch.parallel import mesh, multihost
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mesh.make_mesh()
+    monkeypatch.setattr(multihost, "_device", None)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.global_mesh()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tops.rlc_exponents(4, bytes(32))
+    assert mesh.make_mesh(device="cpu").device == torch.device("cpu")
+
+
 def test_build_command_targets_sm90a_from_package_sources():
     srcs = _build.sources()
     assert srcs and all(
@@ -105,8 +185,11 @@ def test_build_command_targets_sm90a_from_package_sources():
 
 @pytest.mark.parametrize("name", ["miller", "fq12"])
 def test_tower_sources_build_alone_with_the_shared_headers(name):
-    """Each tower source is one nvcc of its own .cu, finding fq.cuh and
-    tower.cuh beside it, and its library name hashes those headers too."""
+    """Each tower source is one nvcc of its own .cu, finding the
+    lane-group engine tower_group.cuh (and the register engine it
+    includes) beside it, and its library name hashes every header too. No
+    tower source includes tower.cuh, whose one-thread lane bodies no
+    launcher runs."""
     srcs = [os.path.basename(s) for s in _build.sources()]
     assert srcs == ["fq12.cu", "fr.cu", "keccak.cu", "ladder.cu",
                     "miller.cu", "mont.cu", "msm.cu", "shared.cu"]
@@ -119,7 +202,8 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
     assert inputs == [os.path.join(_build.CSRC, name + ".cu")]
     assert not any(a.startswith(("-I", "-l", "-L")) for a in cmd)
     text = open(inputs[0]).read()
-    assert '#include "tower.cuh"' in text
+    assert '#include "tower_group.cuh"' in text
+    assert '#include "tower.cuh"' not in text
     assert "#include <torch" not in text and "#include <ATen" not in text
     assert sorted(fn for fn, _ in _build.SIGNATURES[name]) == sorted(
         re.findall(r'extern "C" int (\w+)\(', text))

@@ -1,6 +1,11 @@
-// B3, the engine: per-lane Montgomery arithmetic over BLS12-381 Fq (and,
-// for B14's Fr in fr.cuh, any field of S 32-bit words), shared by the
-// tower and curve kernels.
+// B3's first engine: per-lane Montgomery arithmetic over BLS12-381 Fq
+// (and, for B14's Fr in fr.cuh, any field of S 32-bit words). No launcher
+// runs its `__noinline__` field functions any more: B3's test entry runs
+// on ladder_engine.cuh's `reg::` field (`engine_lane_r`), as every
+// redesigned kernel does. They stay as the engine of tower.cuh's and
+// curve.cuh's old bodies, which the g++ harnesses and tools/*_variants.py
+// hold the kernels against; `load_row` / `store_row`, `Modulus` and
+// `kThreads` still serve mont.cu, fr.cuh and keccak.cu.
 //
 // Replaces the stacked in-kernel engine of threshold_crypto_tpu/device/
 // pallas_tower.py: `_k_mul16` (:140) / `_k_mul13` (:197) and `k_add`,

@@ -14,12 +14,20 @@
 // thread). B9 `fq12_sqr_group_kernel` replaces `_k_fq12_sqr` (:964), the
 // complex square, on the same engine: B4's first layer without the
 // doubling, 36 products in one phase (5 a thread). `engine_kernel`
-// runs B3 (fq.cuh, replacing `_k_mul16`/`_k_mul13` and `k_add`, `k_sub`,
-// `k_neg`, `k_small`, :140-323) on its own: B3 has no launch of its own on
-// the path, so this entry is how it is held against the plain field
-// operations.
+// runs B3 (replacing `_k_mul16`/`_k_mul13` and `k_add`, `k_sub`, `k_neg`,
+// `k_small`, :140-323) on its own: B3 has no launch of its own on the
+// path, so this entry is how it is held against the plain field
+// operations. It runs the field every redesigned kernel runs on,
+// ladder_engine.cuh's `reg::` engine (`engine_lane_r`: operands in
+// registers, the carry-save product `mont_mul_words<FqField>` inlined,
+// carry-chain add and subtract, `fp_neg`, and k·a by a short add chain),
+// one thread a (component, lane) over a 2-D grid (lanes × components),
+// where before one thread ran a lane's m components on fq.cuh's
+// `__noinline__` functions over a local-memory frame. Its 7 × 24 int32
+// rows a value (a, b in; five results out) are read and written once,
+// coalesced across the warp's lanes: bound by bytes.
 //
-// Layout. Packed limb-major int32[12·24, n] Fq12 values (tower.cuh);
+// Layout. Packed limb-major int32[12·24, n] Fq12 values (device/packed.py);
 // neighbouring threads read neighbouring words.
 //
 // What bounds it. Per lane, B6 runs 18 Fq products (10,584 IMAD results)
@@ -39,12 +47,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "tower.cuh"
 #include "tower_group.cuh"
 
 namespace {
 
-using tc::kThreads;
+// Threads of a B3 block (lanes of one component).
+constexpr int kEngineThreads = 128;
 
 // B6: 2^lane_shift lanes a block, kGroup threads a lane.
 __global__ void __launch_bounds__(tc::grp::kMaxThreads, tc::grp::kMinBlocks)
@@ -128,15 +136,13 @@ fq12_sqr_group_kernel(const int32_t* __restrict__ a,
             kB9LaneWords);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// B3: lanes along x, the m components along y.
+__global__ void __launch_bounds__(kEngineThreads)
 engine_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
               int32_t* __restrict__ out, int m, int k, int n) {
   const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;
-  tc::engine_lane(a, b, out, m, k, n, lane);
+  if (lane < n) tc::engine_lane_r(a, b, out, blockIdx.y, m, k, n, lane);
 }
-
-inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
 
 const int32_t* in(const void* p) { return static_cast<const int32_t*>(p); }
 int32_t* out(void* p) { return static_cast<int32_t*>(p); }
@@ -204,8 +210,9 @@ extern "C" int tc_fq12_sqr(const void* a, void* fo, int n, void* stream) {
 extern "C" int tc_fq_engine(const void* a, const void* b, void* out_, int m,
                             int k, int n, void* stream) {
   if (n <= 0 || m <= 0) return 0;
-  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
-  engine_kernel<<<grid_for(n), kThreads, 0,
+  if (k < 1 || m > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((n + kEngineThreads - 1) / kEngineThreads, m);
+  engine_kernel<<<grid, kEngineThreads, 0,
                   static_cast<cudaStream_t>(stream)>>>(in(a), in(b), out(out_),
                                                        m, k, n);
   return static_cast<int>(cudaGetLastError());

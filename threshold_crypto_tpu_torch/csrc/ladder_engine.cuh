@@ -2,7 +2,9 @@
 // `step4_lane_r`, B15's `step_lane_r`, B11's `winacc_lane_r`, B10's
 // `madd_lane_r` and B16's `selmadd_lane_r` and `dblw_lane_r`; its field
 // product, square and subtraction also carry B1 and B2 (csrc/mont.cu) and
-// B14 (csrc/fr.cuh), in Fq and Fr.
+// B14 (csrc/fr.cuh), in Fq and Fr, and its Fq field (`fp_mul`, `fp_add`,
+// `fp_sub`, `fp_neg`, `fp_small`) B3's test entry `engine_lane_r`
+// (csrc/fq12.cu), in place of fq.cuh's `__noinline__` engine.
 //
 // Replaces, for kernels B13 and B15 (csrc/ladder.cu `step4_kernel`,
 // `step_kernel`), B11 and B10 (csrc/msm.cu `winacc_kernel`, `madd_kernel`)
@@ -480,6 +482,32 @@ __device__ __forceinline__ void fp_add(Fp& r, const Fp& a, const Fp& b) {
 // r = (a − b) mod p for canonical a, b.
 __device__ __forceinline__ void fp_sub(Fp& r, const Fp& a, const Fp& b) {
   mod_sub_words<FqField>(r.w, a.w, b.w);
+}
+
+// r = −a mod p for canonical a: 0 − a, p added back on the borrow (0 for
+// a = 0).
+__device__ __forceinline__ void fp_neg(Fp& r, const Fp& a) {
+  Fp z;
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) z.w[j] = 0;
+  mod_sub_words<FqField>(r.w, z.w, a.w);
+}
+
+// r = k·a mod p for canonical a and k ≥ 1: a short add chain from k's top
+// bit (per lower bit a doubling, and an add of a where the bit is set),
+// every step canonical. k is the same in every thread, so the chain does
+// not diverge. r may alias a.
+__device__ __forceinline__ void fp_small(Fp& r, const Fp& a, int k) {
+  const Fp x = a;
+  int top = 30;
+#pragma unroll 1
+  while (top > 0 && ((k >> top) & 1) == 0) --top;
+  r = x;
+#pragma unroll 1
+  for (int i = top - 1; i >= 0; --i) {
+    fp_add(r, r, r);
+    if ((k >> i) & 1) fp_add(r, r, x);
+  }
 }
 
 __device__ __forceinline__ bool fp_is_zero(const Fp& a) {
@@ -1002,6 +1030,31 @@ __device__ __forceinline__ void step_lane_r(const int32_t* acc_in,
   reg::f_store(out, T.X, 0, n, lane);
   reg::f_store(out, T.Y, kc, n, lane);
   reg::f_store(out, T.Z, 2 * kc, n, lane);
+}
+
+// B3's test entry (csrc/fq12.cu `engine_kernel`): for component c of the
+// m stacked Fq values of a and b ([m·24, n]), a·b, a + b, a − b, −a and
+// k·a into the five [m·24, n] blocks of out ([5·m·24, n]), on the field
+// every redesigned kernel runs on; one thread a (component, lane), so a
+// warp reads and writes neighbouring columns of each limb row.
+__device__ __forceinline__ void engine_lane_r(const int32_t* a_in,
+                                              const int32_t* b_in,
+                                              int32_t* out, int c, int m,
+                                              int k, int n, int lane) {
+  const size_t block = static_cast<size_t>(m) * reg::kLimbs * n;
+  reg::Fp a, b, r;
+  reg::fp_load(a, a_in, c, n, lane);
+  reg::fp_load(b, b_in, c, n, lane);
+  reg::fp_mul_body(r, a, b);
+  reg::fp_store(out, r, c, n, lane);
+  reg::fp_add(r, a, b);
+  reg::fp_store(out + block, r, c, n, lane);
+  reg::fp_sub(r, a, b);
+  reg::fp_store(out + 2 * block, r, c, n, lane);
+  reg::fp_neg(r, a);
+  reg::fp_store(out + 3 * block, r, c, n, lane);
+  reg::fp_small(r, a, k);
+  reg::fp_store(out + 4 * block, r, c, n, lane);
 }
 
 }  // namespace tc

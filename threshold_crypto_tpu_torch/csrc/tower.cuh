@@ -1,10 +1,12 @@
 // The BLS12-381 tower Fq2/Fq6/Fq12 and the Miller-loop step formulas as
-// per-lane device functions over the engine of fq.cuh, and the per-lane
-// bodies of the tower kernels B17. B4-B9 run on the lane-group engine of
-// tower_group.cuh; `dbl_fold_lane`, `add_fold_lane` and `fq12_mul_lane`,
-// B4's, B5's, B8's and B9's bodies before it, are run by no launcher: they
-// stay as the reference bodies of the g++ harness
-// (tests/test_torch_csrc_host.py) and of tools/tower_variants.py's old
+// per-lane device functions over the engine of fq.cuh, and the one-thread
+// per-lane bodies the tower kernels ran before their engines. B4-B9 and
+// B17 run on the lane-group engine of tower_group.cuh, B3's test entry on
+// ladder_engine.cuh's register field; `dbl_fold_lane`, `add_fold_lane`,
+// `fq12_mul_lane`, `dbl_step_lane`, `add_step_lane`, `f_sqr_fold_lane`,
+// `f_fold_lane` and `engine_lane` are run by no launcher: they stay as the
+// reference bodies of the g++ harnesses (tests/test_torch_csrc_host.py,
+// tests/test_torch_miller_steps.py) and of tools/tower_variants.py's old
 // kernels.
 //
 // Replaces the in-kernel tower of threshold_crypto_tpu/device/
@@ -424,8 +426,8 @@ __device__ __forceinline__ void store_line(int32_t* dst, const Line& l, int n,
   store_fq2(dst, l.c4, 4, n, lane);
 }
 
-// B17, the unfused Miller pieces: B4 and B5 cut at the line, which goes
-// through device memory in between. `dbl_step_lane` then `f_sqr_fold_lane`
+// B17's old bodies, the unfused Miller pieces: B4 and B5 cut at the line,
+// which goes through device memory in between. `dbl_step_lane` then `f_sqr_fold_lane`
 // computes what `dbl_fold_lane` does, and `add_step_lane` then
 // `f_fold_lane` what `add_fold_lane` does, bit for bit.
 
@@ -511,7 +513,7 @@ __device__ __forceinline__ void fq12_mul_lane(const int32_t* a_in,
   store_fq12(f_out, a, n, lane);
 }
 
-// The B3 test entry: for each of m stacked Fq values of a and b
+// B3's old test entry: for each of m stacked Fq values of a and b
 // ([m·24, n]), write a·b, a + b, a − b, −a and k·a to the five
 // [m·24, n] blocks of out ([5·m·24, n]).
 __device__ __forceinline__ void engine_lane(const int32_t* a_in,

@@ -1,25 +1,33 @@
 // The lane-group tower engine: one pairing lane spread over a group of
 // kGroup threads of one warp, on B13's register product; the bodies of B4
 // `dbl_fold`, B5 `add_fold`, B6 `cyclo_sqr`, B7 `cyclo_sqr_mul`, B8
-// `fq12_mul` and B9 `fq12_sqr`.
+// `fq12_mul`, B9 `fq12_sqr` and B17's four pieces `dbl_step`,
+// `f_sqr_fold`, `add_step` and `f_fold`.
 //
-// Replaces, for B4 and B5 (csrc/miller.cu `dbl_fold_kernel`,
-// `add_fold_kernel`), B6-B9 (csrc/fq12.cu `cyclo_sqr_group_kernel`,
-// `cyclo_sqr_mul_group_kernel`, `fq12_mul_group_kernel`,
-// `fq12_sqr_group_kernel`), one-thread-per-lane bodies on tower.cuh
-// (`dbl_fold_lane`, `add_fold_lane`, `fq12_mul_lane`, and the
-// `cyclo_sqr_lane` that B6 and B7 ran), which ran the formulas of
+// Replaces, for B4, B5 and B17 (csrc/miller.cu `dbl_fold_kernel`,
+// `add_fold_kernel`, `dbl_step_kernel`, `f_sqr_fold_kernel`,
+// `add_step_kernel`, `f_fold_kernel`), B6-B9 (csrc/fq12.cu
+// `cyclo_sqr_group_kernel`, `cyclo_sqr_mul_group_kernel`,
+// `fq12_mul_group_kernel`, `fq12_sqr_group_kernel`), one-thread-per-lane
+// bodies on tower.cuh (`dbl_fold_lane`, `add_fold_lane`, `fq12_mul_lane`,
+// `dbl_step_lane`, `f_sqr_fold_lane`, `add_step_lane`, `f_fold_lane`, and
+// the `cyclo_sqr_lane` that B6 and B7 ran), which ran the formulas of
 // threshold_crypto_tpu/device/pallas_tower.py `dbl_fold` (:619-668),
 // `add_fold` (:671-699), `fq12_cyclo_sqr` (:540-582), `fq12_mul`
-// (:492-509) and `fq12_sqr` (:511-521) as `__noinline__` calls over
-// structs in a local-memory frame (B4: 96 registers, 3,504 bytes; B9: 64,
-// 3,696).
+// (:492-509) and `fq12_sqr` (:511-521), and the kernels `_k_dbl_step`
+// (:886), `_k_add_step` (:895), `_k_f_sqr_fold` (:940) and `_k_f_fold`
+// (:948), as `__noinline__` calls over structs in a local-memory frame
+// (B4: 96 registers, 3,504 bytes; B9: 64, 3,696).
 //
 // What bounds it. B4 is 122 Fq products a lane in four dependent layers
 // (48, 19, 16 and 39), B5 80 in four (6, 14, 48, 12: `add_step`'s layers,
 // the line product's 39 in the third), B6 18 in one, B7 72 in two (18,
 // 54), B8 54 in one, B9 36 in one, against 3,648, 4,032, 2,304, 3,456,
 // 3,456 and 2,304 bytes a lane: the 32-bit multiply issue rate, by far.
+// B17's pieces are B4 and B5 cut where the line is written: `dbl_step`
+// 47 products in three layers (12, 19, 16) against 1,920 bytes a lane,
+// `f_sqr_fold` 75 in two (36, 39) against 2,880, `add_step` 41 in four
+// (6, 14, 9, 12) against 2,304 and `f_fold` 39 in one against 2,880.
 // At the RLC check's widths (1,024 B4 and B5 lanes, 512 B6-B9 lanes) one
 // thread per lane fills 8 and 4 of 132 SMs with 4 warps each, and a launch
 // takes the latency of one thread's 122 (80, 72, 54, 36) products in
@@ -42,7 +50,7 @@
 //   syncs between phases. B4's products per thread fall from 122 to
 //   Σ ceil(layer / kGroup) = 16 at kGroup = 8; B5's from 80 to 11, B6's
 //   from 18 to 3, B7's from 72 to 3 + 7 = 10, B8's from 54 to 7, B9's
-//   from 36 to 5.
+//   from 36 to 5; B17's from 47, 75, 41 and 39 to 7, 10, 7 and 5.
 // * The field is ladder_engine.cuh's: operands in registers and the one
 //   out-of-line carry-save product `reg::fp_mul_call`. A linear form is
 //   summed unreduced, one 64-bit column a word (one multiply-add a word
@@ -55,9 +63,10 @@
 //   one copy of each piece of code.
 // * Slots are reused by liveness: B4 needs 68 (3,280 bytes a lane with the
 //   bank padding), B5 80 (3,856 bytes), B6 42, B7 and B8 78 (3,760
-//   bytes), B9 48 (2,320 bytes). The launcher picks blocks of 128, 64 or 32 threads, the
-//   largest that still gives at least one block per SM, and the block
-//   stages its lanes' inputs and outputs as coalesced rows.
+//   bytes), B9 48 (2,320 bytes); B17's `dbl_step` 39, `f_sqr_fold` and
+//   `f_fold` 57, `add_step` 33. The launcher picks blocks of 128, 64 or
+//   32 threads, the largest that still gives at least one block per SM,
+//   and the block stages its lanes' inputs and outputs as coalesced rows.
 // * Every Fq value is canonical, so every output equals the plain
 //   versions' limbs; the schedules compute the JAX package's T, line and
 //   Granger-Scott elements (B4 and B5 its projective T and line scaling).
@@ -1075,15 +1084,388 @@ __device__ const int32_t kB9Terms[] = {
 __device__ const int32_t kB9OutSlots[] = {
     0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11,
 };
+// B17 dbl_step: 5 phases, 47 Fq products in the product phases (12, 19, 16), 191 terms, 39 slots.
+constexpr int kDblStepPhases = 5;
+constexpr int kDblStepSlots = 39;
+constexpr int kDblStepInputs = 8;
+constexpr int kDblStepOutputs = 12;
+__device__ const int32_t kDblStepPhaseOps[] = {
+    0, 12, 12, 19, 31, 6, 37, 16,
+    53, 6,
+};
+__device__ const int32_t kDblStepOps[] = {
+    8, 0, 2, 2, 9, 4, 1, 1,
+    10, 6, 2, 2, 11, 10, 1, 1,
+    12, 12, 1, 1, 13, 14, 1, 1,
+    14, 16, 2, 2, 15, 20, 1, 1,
+    16, 22, 1, 1, 17, 24, 2, 2,
+    18, 28, 2, 2, 19, 32, 1, 1,
+    20, 34, 2, 2, 21, 38, 3, 3,
+    22, 44, 2, 2, 23, 48, 258, 258,
+    24, 52, 1, 257, 25, 54, 2, 2,
+    26, 58, 2, 3, 27, 63, 1, 1,
+    28, 65, 1, 1, 29, 67, 2, 2,
+    30, 71, 1, 1, 31, 73, 1, 1,
+    32, 75, 2, 2, 33, 79, 1, 1,
+    34, 81, 1, 1, 35, 83, 2, 2,
+    36, 87, 1, 1, 37, 89, 1, 1,
+    38, 91, 2, 2, 5, 95, 1286, 0,
+    1, 101, 1284, 0, 3, 105, 1284, 0,
+    4, 109, 1284, 0, 0, 113, 1283, 0,
+    2, 116, 1283, 0, 15, 119, 1, 2,
+    16, 122, 1, 3, 17, 126, 258, 2,
+    18, 130, 1, 1, 19, 132, 1, 1,
+    20, 134, 258, 2, 21, 138, 1, 1,
+    22, 140, 1, 1, 23, 142, 2, 2,
+    24, 146, 2, 1, 27, 149, 3, 1,
+    28, 153, 2, 2, 29, 157, 2, 1,
+    30, 160, 3, 1, 31, 164, 2, 1,
+    32, 167, 3, 1, 3, 171, 1286, 0,
+    2, 177, 1284, 0, 7, 181, 1283, 0,
+    6, 184, 1282, 0, 1, 186, 1539, 0,
+    0, 189, 1026, 0,
+};
+__device__ const int32_t kDblStepTerms[] = {
+    1, 257, 1, 511, 1, 257, 513, 769,
+    513, 1023, 513, 769, 513, 1025, 769, 1281,
+    513, 769, 1025, 1281, 1, 513, 257, 769,
+    1, 257, 513, 769, 1025, 1281, 1025, 1535,
+    1025, 1281, 3841, 4351, 3073, 3583, 4095, 4351,
+    4353, 3327, 3583, 3585, 4350, 4353, 3582, 3585,
+    2051, 2310, 2051, 2554, 2051, 2310, 3582, 3585,
+    3074, 3839, 3073, 3583, 3327, 3583, 3585, 2049,
+    1, 2306, 257, 2049, 2306, 1, 257, 2561,
+    1025, 2818, 1281, 2561, 2818, 1025, 1281, 2049,
+    1025, 2306, 1281, 2049, 2306, 1025, 1281, 513,
+    4609, 769, 4866, 513, 769, 4609, 4866, 7165,
+    7421, 7427, 7682, 7938, 8446, 5128, 5384, 5880,
+    6146, 5364, 5620, 5644, 6398, 6915, 7421, 7934,
+    7938, 5368, 5384, 5889, 5132, 5620, 6143, 2,
+    3073, 3583, 258, 3327, 3583, 3585, 2, 258,
+    3582, 3585, 2051, 513, 2310, 769, 2051, 2310,
+    513, 769, 2561, 6401, 2818, 6658, 2561, 2818,
+    6401, 6658, 3073, 3583, 6401, 3327, 3583, 3585,
+    6658, 3582, 3585, 6401, 6658, 8701, 8707, 1537,
+    8451, 8707, 9213, 1537, 9218, 9726, 1793, 9470,
+    9726, 9730, 1793, 4863, 5119, 5121, 5384, 5640,
+    6136, 4609, 5119, 5624, 5640, 6392, 7160, 7176,
+    6152, 7160, 4095, 4351, 4353, 3841, 4351,
+};
+__device__ const int32_t kDblStepOutSlots[] = {
+    0, 1, 2, 3, 6, 7, 4, 5, 29, 30, 31, 32,
+};
+// B17 f_sqr_fold: 5 phases, 75 Fq products in the product phases (36, 39), 642 terms, 57 slots.
+constexpr int kFSqrFoldPhases = 5;
+constexpr int kFSqrFoldSlots = 57;
+constexpr int kFSqrFoldInputs = 18;
+constexpr int kFSqrFoldOutputs = 12;
+__device__ const int32_t kFSqrFoldPhaseOps[] = {
+    0, 36, 36, 12, 48, 12, 60, 39,
+    99, 12,
+};
+__device__ const int32_t kFSqrFoldOps[] = {
+    18, 0, 1, 1, 19, 2, 1, 1,
+    20, 4, 2, 2, 21, 8, 1, 1,
+    22, 10, 1, 1, 23, 12, 2, 2,
+    24, 16, 1, 1, 25, 18, 1, 1,
+    26, 20, 2, 2, 27, 24, 2, 2,
+    28, 28, 2, 2, 29, 32, 260, 260,
+    30, 40, 2, 2, 31, 44, 2, 2,
+    32, 48, 260, 260, 33, 56, 2, 2,
+    34, 60, 2, 2, 35, 64, 260, 260,
+    36, 72, 2, 3, 37, 77, 2, 3,
+    38, 82, 260, 259, 39, 89, 2, 2,
+    40, 93, 2, 2, 41, 97, 260, 260,
+    42, 105, 2, 2, 43, 109, 2, 2,
+    44, 113, 260, 260, 45, 121, 260, 260,
+    46, 129, 260, 260, 47, 137, 264, 264,
+    48, 153, 260, 261, 49, 162, 260, 261,
+    50, 171, 264, 263, 51, 186, 260, 261,
+    52, 195, 260, 261, 53, 204, 264, 263,
+    5, 219, 1292, 0, 11, 231, 1292, 0,
+    3, 243, 1291, 0, 9, 254, 1291, 0,
+    1, 265, 1289, 0, 7, 274, 1289, 0,
+    0, 283, 1288, 0, 2, 291, 1288, 0,
+    4, 299, 1288, 0, 6, 307, 1288, 0,
+    8, 315, 1288, 0, 10, 323, 1288, 0,
+    18, 331, 1284, 0, 19, 335, 1284, 0,
+    20, 339, 1539, 0, 21, 342, 1539, 0,
+    22, 345, 1539, 0, 23, 348, 1539, 0,
+    24, 351, 1025, 0, 25, 352, 1025, 0,
+    26, 353, 1025, 0, 27, 354, 1025, 0,
+    28, 355, 1025, 0, 29, 356, 1025, 0,
+    0, 357, 1, 1, 1, 359, 1, 1,
+    2, 361, 2, 2, 3, 365, 1, 1,
+    4, 367, 1, 1, 5, 369, 2, 2,
+    6, 373, 1, 1, 7, 375, 1, 1,
+    8, 377, 2, 2, 9, 381, 2, 2,
+    10, 385, 2, 2, 11, 389, 260, 260,
+    30, 397, 1, 1, 31, 399, 1, 1,
+    32, 401, 2, 2, 33, 405, 1, 1,
+    34, 407, 1, 1, 35, 409, 2, 2,
+    36, 413, 1, 1, 37, 415, 1, 1,
+    38, 417, 2, 2, 39, 421, 1, 1,
+    40, 423, 1, 1, 41, 425, 2, 2,
+    42, 429, 2, 1, 43, 432, 2, 1,
+    44, 435, 4, 2, 45, 441, 2, 2,
+    46, 445, 2, 2, 47, 449, 260, 260,
+    48, 457, 2, 2, 49, 461, 2, 2,
+    50, 465, 260, 260, 51, 473, 260, 3,
+    52, 480, 260, 3, 53, 487, 264, 262,
+    54, 501, 2, 1, 55, 504, 2, 1,
+    56, 507, 4, 2, 21, 513, 1301, 0,
+    23, 534, 1295, 0, 20, 549, 1294, 0,
+    19, 563, 1292, 0, 15, 575, 1291, 0,
+    18, 586, 1290, 0, 22, 596, 1290, 0,
+    17, 606, 1289, 0, 14, 615, 1288, 0,
+    13, 623, 1287, 0, 12, 630, 1286, 0,
+    16, 636, 1286, 0,
+};
+__device__ const int32_t kFSqrFoldTerms[] = {
+    1, 1537, 257, 1793, 1, 257, 1537, 1793,
+    513, 2049, 769, 2305, 513, 769, 2049, 2305,
+    1025, 2561, 1281, 2817, 1025, 1281, 2561, 2817,
+    513, 1025, 2049, 2561, 769, 1281, 2305, 2817,
+    513, 769, 1025, 1281, 2049, 2305, 2561, 2817,
+    1, 513, 1537, 2049, 257, 769, 1793, 2305,
+    1, 257, 513, 769, 1537, 1793, 2049, 2305,
+    1, 1025, 1537, 2561, 257, 1281, 1793, 2817,
+    1, 257, 1025, 1281, 1537, 1793, 2561, 2817,
+    1, 1537, 1, 2561, 3071, 257, 1793, 257,
+    2561, 2817, 1, 257, 1537, 1793, 1, 257,
+    2562, 513, 2049, 513, 1537, 769, 2305, 769,
+    1793, 513, 769, 2049, 2305, 513, 769, 1537,
+    1793, 1025, 2561, 1025, 2049, 1281, 2817, 1281,
+    2305, 1025, 1281, 2561, 2817, 1025, 1281, 2049,
+    2305, 513, 1025, 2049, 2561, 513, 1025, 1537,
+    2049, 769, 1281, 2305, 2817, 769, 1281, 1793,
+    2305, 513, 769, 1025, 1281, 2049, 2305, 2561,
+    2817, 513, 769, 1025, 1281, 1537, 1793, 2049,
+    2305, 1, 513, 1537, 2049, 1, 513, 1537,
+    2561, 3071, 257, 769, 1793, 2305, 257, 769,
+    1793, 2561, 2817, 1, 257, 513, 769, 1537,
+    1793, 2049, 2305, 1, 257, 513, 769, 1537,
+    1793, 2562, 1, 1025, 1537, 2561, 1, 1025,
+    2049, 2561, 3071, 257, 1281, 1793, 2817, 257,
+    1281, 2305, 2561, 2817, 1, 257, 1025, 1281,
+    1537, 1793, 2561, 2817, 1, 257, 1025, 1281,
+    2049, 2305, 2562, 4609, 4865, 5375, 5631, 5887,
+    5889, 6145, 6401, 6911, 8703, 8959, 8961, 9217,
+    9473, 9983, 10239, 10495, 10497, 10753, 11009, 11519,
+    13311, 13567, 13569, 4609, 4865, 5375, 5377, 5633,
+    6143, 6654, 6657, 7935, 8191, 8193, 9217, 9473,
+    9983, 9985, 10241, 10751, 11262, 11265, 12543, 12799,
+    12801, 4863, 5119, 5121, 5634, 6143, 6402, 6911,
+    7422, 7425, 9471, 9727, 9729, 10242, 10751, 11010,
+    11519, 12030, 12033, 4609, 5119, 5630, 5889, 6398,
+    6657, 6914, 7679, 4863, 4865, 5631, 5633, 6146,
+    6911, 7681, 8191, 4863, 4865, 5377, 5887, 6399,
+    6401, 8449, 8959, 9217, 9727, 10238, 10497, 11006,
+    11265, 11522, 12287, 9471, 9473, 10239, 10241, 10754,
+    11519, 12289, 12799, 9471, 9473, 9985, 10495, 11007,
+    11009, 13057, 13567, 255, 1279, 1281, 1537, 511,
+    1279, 1535, 1793, 255, 767, 2049, 511, 1023,
+    2305, 767, 1279, 2561, 1023, 1535, 2817, 2,
+    258, 514, 770, 1026, 1282, 4609, 3073, 4865,
+    3329, 4609, 4865, 3073, 3329, 5121, 3585, 5377,
+    3841, 5121, 5377, 3585, 3841, 5633, 3585, 5889,
+    3841, 5633, 5889, 3585, 3841, 4609, 5121, 3073,
+    3585, 4865, 5377, 3329, 3841, 4609, 4865, 5121,
+    5377, 3073, 3329, 3585, 3841, 5633, 3073, 5889,
+    3329, 5633, 5889, 3073, 3329, 7169, 4097, 7425,
+    4353, 7169, 7425, 4097, 4353, 6145, 4097, 6401,
+    4353, 6145, 6401, 4097, 4353, 6657, 4097, 6913,
+    4353, 6657, 6913, 4097, 4353, 4609, 6145, 3073,
+    4865, 6401, 3329, 4609, 4865, 6145, 6401, 3073,
+    3329, 5121, 6657, 3585, 4097, 5377, 6913, 3841,
+    4353, 5121, 5377, 6657, 6913, 3585, 3841, 4097,
+    4353, 5633, 7169, 3585, 4097, 5889, 7425, 3841,
+    4353, 5633, 5889, 7169, 7425, 3585, 3841, 4097,
+    4353, 4609, 5121, 6145, 6657, 3073, 3585, 4097,
+    4865, 5377, 6401, 6913, 3329, 3841, 4353, 4609,
+    4865, 5121, 5377, 6145, 6401, 6657, 6913, 3073,
+    3329, 3585, 3841, 4097, 4353, 5633, 7169, 3073,
+    5889, 7425, 3329, 5633, 5889, 7169, 7425, 3073,
+    3329, 255, 511, 513, 1023, 1279, 1281, 2305,
+    2561, 3071, 9217, 9473, 9983, 10753, 11009, 11519,
+    11521, 11777, 12287, 13311, 13567, 13569, 769, 1025,
+    1535, 7681, 7937, 8447, 9985, 10241, 10751, 11775,
+    12031, 12033, 14079, 14335, 14337, 1, 511, 769,
+    1279, 2559, 2561, 9471, 9473, 11007, 11009, 11775,
+    11777, 13057, 13567, 1, 257, 767, 1794, 2303,
+    8706, 9215, 11007, 11263, 11265, 12798, 12801, 1,
+    257, 767, 769, 1025, 1535, 2559, 2815, 2817,
+    8958, 8961, 255, 257, 1790, 2049, 8702, 8961,
+    10753, 11263, 12290, 13055, 1023, 1025, 7935, 7937,
+    10239, 10241, 11521, 12031, 13825, 14335, 1023, 1279,
+    1281, 7935, 8191, 8193, 9471, 9727, 9729, 255,
+    257, 1023, 1025, 2305, 2815, 8450, 9215, 255,
+    511, 513, 2046, 2049, 10494, 10497, 1, 511,
+    1538, 2303, 9986, 10751, 769, 1279, 7681, 8191,
+    9217, 9727,
+};
+__device__ const int32_t kFSqrFoldOutSlots[] = {
+    12, 13, 14, 15, 16, 17, 18, 19, 20, 21, 22, 23,
+};
+// B17 add_step: 8 phases, 41 Fq products in the product phases (6, 14, 9, 12), 188 terms, 33 slots.
+constexpr int kAddStepPhases = 8;
+constexpr int kAddStepSlots = 33;
+constexpr int kAddStepInputs = 12;
+constexpr int kAddStepOutputs = 12;
+__device__ const int32_t kAddStepPhaseOps[] = {
+    0, 6, 6, 4, 10, 14, 24, 2,
+    26, 9, 35, 4, 39, 12, 51, 6,
+};
+__device__ const int32_t kAddStepOps[] = {
+    12, 0, 1, 1, 13, 2, 1, 1,
+    14, 4, 2, 2, 15, 8, 1, 1,
+    16, 10, 1, 1, 17, 12, 2, 2,
+    19, 16, 1284, 0, 21, 20, 1284, 0,
+    18, 24, 1539, 0, 20, 27, 1539, 0,
+    12, 30, 2, 2, 13, 34, 1, 1,
+    14, 36, 2, 2, 15, 40, 1, 1,
+    16, 42, 1, 1, 17, 44, 1, 1,
+    22, 46, 2, 2, 23, 50, 1, 1,
+    24, 52, 1, 1, 25, 54, 2, 2,
+    26, 58, 1, 1, 27, 60, 1, 1,
+    28, 62, 1, 1, 29, 64, 1, 1,
+    7, 66, 1286, 0, 6, 72, 1284, 0,
+    8, 76, 1, 1, 9, 78, 1, 1,
+    10, 80, 2, 2, 11, 84, 1, 1,
+    16, 86, 1, 1, 17, 88, 2, 2,
+    22, 92, 1, 1, 23, 94, 1, 1,
+    24, 96, 2, 2, 1, 100, 1289, 0,
+    13, 109, 1289, 0, 0, 118, 1286, 0,
+    12, 124, 1286, 0, 11, 130, 1, 1,
+    14, 132, 1, 1, 15, 134, 2, 2,
+    16, 138, 1, 1, 17, 140, 1, 1,
+    22, 142, 2, 2, 23, 146, 2, 1,
+    24, 149, 3, 1, 25, 153, 2, 2,
+    30, 157, 2, 1, 31, 160, 3, 1,
+    32, 164, 2, 2, 3, 168, 1286, 0,
+    2, 174, 1284, 0, 1, 178, 1539, 0,
+    5, 181, 1539, 0, 0, 184, 1026, 0,
+    4, 186, 1026, 0,
+};
+__device__ const int32_t kAddStepTerms[] = {
+    2049, 1025, 2305, 1281, 2049, 2305, 1025, 1281,
+    1537, 1025, 1793, 1281, 1537, 1793, 1025, 1281,
+    1023, 3327, 3583, 3585, 511, 4095, 4351, 4353,
+    767, 3073, 3583, 255, 3841, 4351, 5121, 5377,
+    5121, 5631, 5121, 5377, 4609, 4865, 4609, 5119,
+    4609, 4865, 4609, 1537, 4865, 1793, 4609, 4865,
+    1537, 1793, 5121, 2049, 5377, 2305, 5121, 5377,
+    2049, 2305, 4863, 2561, 5119, 2561, 5121, 2817,
+    5377, 2817, 4351, 4607, 5633, 5889, 6145, 6655,
+    4097, 4607, 6143, 6145, 5121, 3073, 5377, 3330,
+    5121, 5377, 3073, 3330, 3073, 1, 3330, 257,
+    3073, 3330, 1, 257, 3585, 1025, 3842, 1281,
+    3585, 3842, 1025, 1281, 2049, 2305, 2815, 2818,
+    4098, 4606, 5887, 6143, 6145, 2303, 2559, 2561,
+    3069, 4349, 4355, 5633, 5889, 6399, 2303, 2305,
+    3070, 4098, 5633, 6143, 2049, 2559, 2819, 4349,
+    5887, 5889, 5121, 1, 5377, 257, 5121, 5377,
+    1, 257, 4609, 3073, 4865, 3329, 4609, 4865,
+    3073, 3329, 2049, 2559, 513, 2303, 2559, 2561,
+    769, 2558, 2561, 513, 769, 2049, 2559, 1025,
+    2303, 2559, 2561, 1281, 2558, 2561, 1025, 1281,
+    4351, 4607, 5633, 5889, 6145, 6655, 4097, 4607,
+    6143, 6145, 3071, 3839, 3841, 7935, 8191, 8193,
+    2817, 3839, 7681, 8191,
+};
+__device__ const int32_t kAddStepOutSlots[] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 26, 27, 28, 29,
+};
+// B17 f_fold: 2 phases, 39 Fq products in the product phases (39), 285 terms, 57 slots.
+constexpr int kFFoldPhases = 2;
+constexpr int kFFoldSlots = 57;
+constexpr int kFFoldInputs = 18;
+constexpr int kFFoldOutputs = 12;
+__device__ const int32_t kFFoldPhaseOps[] = {
+    0, 39, 39, 12,
+};
+__device__ const int32_t kFFoldOps[] = {
+    18, 0, 1, 1, 19, 2, 1, 1,
+    20, 4, 2, 2, 21, 8, 1, 1,
+    22, 10, 1, 1, 23, 12, 2, 2,
+    24, 16, 1, 1, 25, 18, 1, 1,
+    26, 20, 2, 2, 27, 24, 2, 2,
+    28, 28, 2, 2, 29, 32, 260, 260,
+    30, 40, 1, 1, 31, 42, 1, 1,
+    32, 44, 2, 2, 33, 48, 1, 1,
+    34, 50, 1, 1, 35, 52, 2, 2,
+    36, 56, 1, 1, 37, 58, 1, 1,
+    38, 60, 2, 2, 39, 64, 1, 1,
+    40, 66, 1, 1, 41, 68, 2, 2,
+    42, 72, 2, 1, 43, 75, 2, 1,
+    44, 78, 4, 2, 45, 84, 2, 2,
+    46, 88, 2, 2, 47, 92, 260, 260,
+    48, 100, 2, 2, 49, 104, 2, 2,
+    50, 108, 260, 260, 51, 116, 260, 3,
+    52, 123, 260, 3, 53, 130, 264, 262,
+    54, 144, 2, 1, 55, 147, 2, 1,
+    56, 150, 4, 2, 9, 156, 1301, 0,
+    11, 177, 1295, 0, 8, 192, 1294, 0,
+    7, 206, 1292, 0, 3, 218, 1291, 0,
+    6, 229, 1290, 0, 10, 239, 1290, 0,
+    5, 249, 1289, 0, 2, 258, 1288, 0,
+    1, 266, 1287, 0, 0, 273, 1286, 0,
+    4, 279, 1286, 0,
+};
+__device__ const int32_t kFFoldTerms[] = {
+    1, 3073, 257, 3329, 1, 257, 3073, 3329,
+    513, 3585, 769, 3841, 513, 769, 3585, 3841,
+    1025, 3585, 1281, 3841, 1025, 1281, 3585, 3841,
+    1, 513, 3073, 3585, 257, 769, 3329, 3841,
+    1, 257, 513, 769, 3073, 3329, 3585, 3841,
+    1025, 3073, 1281, 3329, 1025, 1281, 3073, 3329,
+    2561, 4097, 2817, 4353, 2561, 2817, 4097, 4353,
+    1537, 4097, 1793, 4353, 1537, 1793, 4097, 4353,
+    2049, 4097, 2305, 4353, 2049, 2305, 4097, 4353,
+    1, 1537, 3073, 257, 1793, 3329, 1, 257,
+    1537, 1793, 3073, 3329, 513, 2049, 3585, 4097,
+    769, 2305, 3841, 4353, 513, 769, 2049, 2305,
+    3585, 3841, 4097, 4353, 1025, 2561, 3585, 4097,
+    1281, 2817, 3841, 4353, 1025, 1281, 2561, 2817,
+    3585, 3841, 4097, 4353, 1, 513, 1537, 2049,
+    3073, 3585, 4097, 257, 769, 1793, 2305, 3329,
+    3841, 4353, 1, 257, 513, 769, 1537, 1793,
+    2049, 2305, 3073, 3329, 3585, 3841, 4097, 4353,
+    1025, 2561, 3073, 1281, 2817, 3329, 1025, 1281,
+    2561, 2817, 3073, 3329, 4863, 5119, 5121, 5631,
+    5887, 5889, 6913, 7169, 7679, 9217, 9473, 9983,
+    10753, 11009, 11519, 11521, 11777, 12287, 13311, 13567,
+    13569, 5377, 5633, 6143, 7681, 7937, 8447, 9985,
+    10241, 10751, 11775, 12031, 12033, 14079, 14335, 14337,
+    4609, 5119, 5377, 5887, 7167, 7169, 9471, 9473,
+    11007, 11009, 11775, 11777, 13057, 13567, 4609, 4865,
+    5375, 6402, 6911, 8706, 9215, 11007, 11263, 11265,
+    12798, 12801, 4609, 4865, 5375, 5377, 5633, 6143,
+    7167, 7423, 7425, 8958, 8961, 4863, 4865, 6398,
+    6657, 8702, 8961, 10753, 11263, 12290, 13055, 5631,
+    5633, 7935, 7937, 10239, 10241, 11521, 12031, 13825,
+    14335, 5631, 5887, 5889, 7935, 8191, 8193, 9471,
+    9727, 9729, 4863, 4865, 5631, 5633, 6913, 7423,
+    8450, 9215, 4863, 5119, 5121, 6654, 6657, 10494,
+    10497, 4609, 5119, 6146, 6911, 9986, 10751, 5377,
+    5887, 7681, 8191, 9217, 9727,
+};
+__device__ const int32_t kFFoldOutSlots[] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11,
+};
 // END SCHEDULE TABLES
 
-// Words of a lane's scratch in B4-B9.
+// Words of a lane's scratch in B4-B9 and B17.
 constexpr int kB4LaneWords = lane_words(kB4Slots);
 constexpr int kB5LaneWords = lane_words(kB5Slots);
 constexpr int kB6LaneWords = lane_words(kB6Slots);
 constexpr int kB7LaneWords = lane_words(kB7Slots);
 constexpr int kB8LaneWords = lane_words(kB8Slots);
 constexpr int kB9LaneWords = lane_words(kB9Slots);
+constexpr int kDblStepLaneWords = lane_words(kDblStepSlots);
+constexpr int kFSqrFoldLaneWords = lane_words(kFSqrFoldSlots);
+constexpr int kAddStepLaneWords = lane_words(kAddStepSlots);
+constexpr int kFFoldLaneWords = lane_words(kFFoldSlots);
 
 // ---------------------------------------------------------------------------
 // Launch shape (nvcc only)

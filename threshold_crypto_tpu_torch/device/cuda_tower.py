@@ -13,12 +13,14 @@ Each kernel is the counterpart of one Pallas megakernel of
 * B17, the unfused Miller pieces: ``dbl_step`` (``_k_dbl_step``: T ← 2T and
   the tangent line out), ``add_step`` (``_k_add_step``: T ← T + Q and the
   chord line out), ``f_sqr_fold`` (``_k_f_sqr_fold``: f²·line) and
-  ``f_fold`` (``_k_f_fold``: f·line). A step then its fold is B4 or B5 bit
-  for bit. No JAX path calls them, so they are on no entry point's path;
-  ``chip_smoke.py`` drives a whole Miller loop through them;
-* ``fq_engine`` is the test entry of B3, the engine of ``csrc/fq.cuh``
+  ``f_fold`` (``_k_f_fold``: f·line), also on the lane-group engine, each
+  B4's or B5's schedule cut at the line. A step then its fold is B4 or B5
+  bit for bit. No JAX path calls them, so they are on no entry point's
+  path; ``chip_smoke.py`` drives a whole Miller loop through them;
+* ``fq_engine`` is the test entry of B3, the field engine
   (``_k_mul16``/``_k_mul13``, ``k_add``, ``k_sub``, ``k_neg``,
-  ``k_small``), which runs inside B17: it has no launch on any path.
+  ``k_small``), on the register engine ``csrc/ladder_engine.cuh`` that
+  every redesigned kernel runs on: it has no launch on any path.
 
 They take and return the packed layout of :mod:`.packed`, contiguous
 ``int32[k·24, N]`` CUDA tensors (f: k = 12, T: 6, Q: 4, P: 2, a line
@@ -304,7 +306,7 @@ def p_f_fold(f, line):
 _SRC = "threshold_crypto_tpu_torch/csrc/"
 _TPU = "threshold_crypto_tpu/device/pallas_tower.py:"
 KERNELS = (
-    Kernel("fq_engine", fq_engine, fq_engine_ref, ENGINE, _SRC + "fq.cuh",
+    Kernel("fq_engine", fq_engine, fq_engine_ref, ENGINE, _SRC + "fq12.cu",
            _TPU + "140"),
     Kernel("dbl_fold", dbl_fold, dbl_fold_ref, DBL_FOLD, _SRC + "miller.cu",
            _TPU + "906"),

@@ -210,14 +210,17 @@ def _child_main(argv) -> int:
     return 0
 
 
-def run_world(target: str, n: int, *, device="cpu", backend=None,
+def run_world(target: str, n: int, *, device="cuda", backend=None,
               kwargs=None, timeout_s: float = 900, path=(),
               echo: bool = False) -> list:
     """Run ``target`` ("module:function", called as fn(mesh, **kwargs) and
     returning JSON data) in n child processes, ranks 0..n−1 of one group
     over a free localhost port; ``path`` is put on their sys.path beside
     this package. Returns the n results in rank order. Each child gets
-    LOCAL_RANK = its rank and one CPU thread. All children must exit 0
+    LOCAL_RANK = its rank and one CPU thread; ``device`` is each rank's
+    ``initialize`` device, "cuda" (the default: ``cuda:{rank % device
+    count}``, nccl unless ``backend`` says otherwise) or "cpu" (gloo),
+    as for every entry point of the port. All children must exit 0
     before the deadline; else (or 20 s after one child fails) every child
     still running is killed and RuntimeError carries the tail of each
     one's output. echo: copy each

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """The static schedules of B4 (``dbl_fold``), B5 (``add_fold``), B6
-(``cyclo_sqr``), B7 (``cyclo_sqr_mul``), B8 (``fq12_mul``) and B9
-(``fq12_sqr``) on the lane-group tower engine, and the tables of
-``csrc/tower_group.cuh``.
+(``cyclo_sqr``), B7 (``cyclo_sqr_mul``), B8 (``fq12_mul``), B9
+(``fq12_sqr``) and B17's four pieces (``dbl_step``, ``f_sqr_fold``,
+``add_step``, ``f_fold``) on the lane-group tower engine, and the tables
+of ``csrc/tower_group.cuh``.
 
     python3 tools/tower_group_schedule.py           # print the table block
     python3 tools/tower_group_schedule.py --write   # write it into the header
@@ -29,13 +30,18 @@ is free for a phase's outputs once every op that reads its value has run
 in an earlier phase. The inputs take the first slots, in the packed
 components' order (B4: f 0-11, T 12-17, P 18-19; B5: f 0-11, T 12-17,
 Q 18-21, P 22-23; B6: f 0-11; B7: f 0-11, g 12-23; B8: a 0-11, b 12-23;
-B9: a 0-11).
+B9: a 0-11; ``dbl_step``: T 0-5, P 6-7; ``add_step``: T 0-5, Q 6-9,
+P 10-11; ``f_sqr_fold`` and ``f_fold``: f 0-11, the line 12-17).
 
 B4 follows the JAX package's four product layers (`pallas_tower.dbl_fold`:
 48, 19, 16 and 39 Fq products), B5 `add_step`'s four (6, 14, 9, 12) with
 the line product's 39 in the third, B6 its one layer of 18, B7 B6's layer
 and then `fq12_mul`'s 54 (`pallas_tower.fq12_mul`), B8 those 54 alone,
-B9 `fq12_sqr`'s 36 (B4's first layer without the doubling).
+B9 `fq12_sqr`'s 36 (B4's first layer without the doubling). B17 is B4
+and B5 cut where the line is written: ``dbl_step`` B4's layers 1-3
+without f² (12, 19, 16), ``f_sqr_fold`` f² (B9's 36) and B4's layer 4
+(39), ``add_step`` B5's layers without the line product (6, 14, 9, 12),
+``f_fold`` that product (39); B4 and B5 are built from the same pieces.
 The engine deals
 the ops of each phase round-robin over the G threads of a lane's group:
 thread g runs ops g, g + G, …; the product phases' ops are all one
@@ -344,30 +350,35 @@ def fq12_flat(f):
 # B4 and B6
 # ---------------------------------------------------------------------------
 
-def b4_schedule():
-    """`pallas_tower.dbl_fold` (tower.cuh `dbl_step`, `fq12_sqr`,
-    `fq12_mul_by_014`): T ← 2T, f ← f²·l_tangent(P). Inputs f (12), T
-    (6), P (2); outputs f (12), then T (6)."""
-    s = Schedule("B4", 20)
-    x = s.inputs()
-    f = fq12_from(x[:12])
-    X, Y, Z = (x[12], x[13]), (x[14], x[15]), (x[16], x[17])
-    xp, yp = x[18], x[19]
-    a0, a1 = f
-
-    # Layer 1: the doubling's X², Y², Y·Z, X·Y, Z² and f²'s 12 Fq2
-    # products (tt = a0·a1, ss = (a0 + a1)(a0 + v·a1)).
+def fq12_sqr_reqs(a):
+    """`pallas_tower.fq12_sqr`'s 12 Fq2 products (36 Fq): with
+    a = (a0, a1), tt = a0·a1 and ss = (a0 + a1)(a0 + v·a1)."""
+    a0, a1 = a
     sv = add6(a0, mul_by_v(a1))
-    r = s.products([sqr2(X), sqr2(Y), mul2(Y, Z), mul2(X, Y), sqr2(Z)]
-                   + fq6_mul_reqs(a0, a1) + fq6_mul_reqs(add6(a0, a1), sv))
-    # tt and ss, then f² = (ss − tt − v·tt, 2tt): two linear phases cost
-    # about half the adds of one. The doubling's values stay forms over
-    # layer 1's products (10 slots fewer at the peak, 68 against 78).
-    m = s.linear2(list(fq6_mul_fin(r[5:11])) + list(fq6_mul_fin(r[11:17])))
+    return fq6_mul_reqs(a0, a1) + fq6_mul_reqs(add6(a0, a1), sv)
+
+
+def fq12_sqr_linear(s, t):
+    """f² from `fq12_sqr_reqs`' products in two linear phases, tt and ss,
+    then (ss − tt − v·tt, 2tt): two linear phases cost about half the adds
+    of one."""
+    m = s.linear2(list(fq6_mul_fin(t[0:6])) + list(fq6_mul_fin(t[6:12])))
     tt, ss = tuple(m[:3]), tuple(m[3:])
     m = s.linear2(list(sub6(sub6(ss, tt), mul_by_v(tt))) + list(add6(tt, tt)))
-    f2 = (tuple(m[:3]), tuple(m[3:]))
-    XX, YY, S, XY, ZZ = r[:5]
+    return (tuple(m[:3]), tuple(m[3:]))
+
+
+def dbl_layer1_reqs(X, Y, Z):
+    """The doubling's first layer: X², Y², Y·Z, X·Y, Z² (12 Fq)."""
+    return [sqr2(X), sqr2(Y), mul2(Y, Z), mul2(X, Y), sqr2(Z)]
+
+
+def dbl_rest(s, X, Y, Z, xp, yp, r):
+    """The doubling's layers 2 and 3 over its first layer's fins r; returns
+    T' as Fq2 nodes and the line (c0, c1, c4). The doubling's values stay
+    forms over layer 1's products (in B4 10 slots fewer at the peak, 68
+    against 78)."""
+    XX, YY, S, XY, ZZ = r
     W = small2(3, XX)
 
     # Layer 2: B = XY·S, W², S², XX·X, YY·Z, XX·Z, Y·ZZ.
@@ -384,17 +395,43 @@ def b4_schedule():
         [mul2(small2(2, H), S), mul2(W, D), mul2(YY, SS), mul2(S, SS),
          scale2(small2(-3, XXZ), xp), scale2(small2(2, YZZ), yp)])
     To = s.linear2([Xo, sub2(WD, small2(8, YYSS)), small2(8, SSS)])
+    return To, (c0, c1, c4)
 
-    # Layer 4: `fq12_mul_by_014(f², c0, c1, c4)`.
-    f0, f1 = f2
+
+def fold_014_reqs(f, c0, c1, c4):
+    """`fq12_mul_by_014(f, c0, c1, c4)`'s 13 Fq2 products (39 Fq)."""
+    f0, f1 = f
     o = add2(c1, c4)
-    t = s.products(sparse01_reqs(f0, c0, c1)
-                   + [mul2(f1[2], c4), mul2(f1[0], c4), mul2(f1[1], c4)]
-                   + sparse01_reqs(add6(f0, f1), c0, o))
+    return (sparse01_reqs(f0, c0, c1)
+            + [mul2(f1[2], c4), mul2(f1[0], c4), mul2(f1[1], c4)]
+            + sparse01_reqs(add6(f0, f1), c0, o))
+
+
+def fold_014_fin(t):
+    """`fq12_mul_by_014` after its products (`fold_014_reqs`' fins)."""
     t0 = sparse01_fin(t[0:5])
     t1 = (xi(t[5]), t[6], t[7])
     t3 = sparse01_fin(t[8:13])
-    fo = (add6(t0, mul_by_v(t1)), sub6(t3, add6(t0, t1)))
+    return (add6(t0, mul_by_v(t1)), sub6(t3, add6(t0, t1)))
+
+
+def b4_schedule():
+    """`pallas_tower.dbl_fold` (tower.cuh `dbl_step`, `fq12_sqr`,
+    `fq12_mul_by_014`): T ← 2T, f ← f²·l_tangent(P). Inputs f (12), T
+    (6), P (2); outputs f (12), then T (6)."""
+    s = Schedule("B4", 20)
+    x = s.inputs()
+    f = fq12_from(x[:12])
+    X, Y, Z = (x[12], x[13]), (x[14], x[15]), (x[16], x[17])
+    xp, yp = x[18], x[19]
+
+    # Layer 1: the doubling's 5 Fq2 products and f²'s 12.
+    r = s.products(dbl_layer1_reqs(X, Y, Z) + fq12_sqr_reqs(f))
+    f2 = fq12_sqr_linear(s, r[5:17])
+    # Layers 2 and 3: the doubling and its line.
+    To, line = dbl_rest(s, X, Y, Z, xp, yp, r[:5])
+    # Layer 4: `fq12_mul_by_014(f², c0, c1, c4)`.
+    fo = fold_014_fin(s.products(fold_014_reqs(f2, *line)))
     s.output(s.linear(fq12_flat(fo)) + [c for v in To for c in v])
     return s
 
@@ -477,17 +514,9 @@ def b8_schedule():
     return s
 
 
-def b5_schedule():
-    """`pallas_tower.add_fold` (tower.cuh `add_step`, `fq12_mul_by_014`):
-    T ← T + Q, f ← f·l_chord(P). Inputs f (12), T (6), Q (4), P (2);
-    outputs f (12), then T (6)."""
-    s = Schedule("B5", 24)
-    x = s.inputs()
-    f = fq12_from(x[:12])
-    X, Y, Z = (x[12], x[13]), (x[14], x[15]), (x[16], x[17])
-    x2, y2 = (x[18], x[19]), (x[20], x[21])
-    xp, yp = x[22], x[23]
-
+def add_layers12(s, X, Y, Z, x2, y2, xp, yp):
+    """`add_step`'s layers 1 and 2: u = y2·Z − Y, v = x2·Z − X, then v²,
+    u², and the line (c0 = u·x2 − v·y2, c1 = −u·xp, c4 = v·yp)."""
     # Layer 1: y2·Z, x2·Z; u = y2·Z − Y, v = x2·Z − X.
     yZ, xZ = s.products([mul2(y2, Z), mul2(x2, Z)])
     u, v = s.linear2([sub2(yZ, Y), sub2(xZ, X)])
@@ -498,29 +527,111 @@ def b5_schedule():
         [sqr2(v), sqr2(u), mul2(u, x2), mul2(v, y2),
          scale2(small2(-1, u), xp), scale2(v, yp)])
     (c0,) = s.linear2([sub2(ux2, vy2)])
+    return u, v, vv, uu, (c0, c1, c4)
+
+
+def add_layer3_reqs(v, vv, uu, X, Z):
+    """`add_step`'s third layer: v³, Rr = v²·X, u²·Z (9 Fq)."""
+    return [mul2(v, vv), mul2(vv, X), mul2(uu, Z)]
+
+
+def add_A(t):
+    """A = u²Z − v³ − 2Rr and Rr − A, flat, from the third layer's fins."""
+    vvv, Rr, uuZ = t
+    A = sub2(sub2(uuZ, vvv), small2(2, Rr))
+    return list(A) + list(sub2(Rr, A))
+
+
+def add_layer4(s, u, v, vvv, A, RA, Y, Z):
+    """`add_step`'s last layer: X' = v·A, Y' = u(Rr − A) − v³·Y,
+    Z' = v³·Z; T' as flat nodes."""
+    Xo, uRA, vvvY, Zo = s.products([mul2(v, A), mul2(u, RA), mul2(vvv, Y),
+                                    mul2(vvv, Z)])
+    return s.linear(list(Xo) + list(sub2(uRA, vvvY)) + list(Zo))
+
+
+def b5_schedule():
+    """`pallas_tower.add_fold` (tower.cuh `add_step`, `fq12_mul_by_014`):
+    T ← T + Q, f ← f·l_chord(P). Inputs f (12), T (6), Q (4), P (2);
+    outputs f (12), then T (6)."""
+    s = Schedule("B5", 24)
+    x = s.inputs()
+    f = fq12_from(x[:12])
+    X, Y, Z = (x[12], x[13]), (x[14], x[15]), (x[16], x[17])
+    x2, y2 = (x[18], x[19]), (x[20], x[21])
+    xp, yp = x[22], x[23]
+    u, v, vv, uu, line = add_layers12(s, X, Y, Z, x2, y2, xp, yp)
 
     # Layer 3: v³, Rr = v²·X, u²·Z, and the 39 products of
     # `fq12_mul_by_014(f, c0, c1, c4)`, which need only f and the line.
-    f0, f1 = f
-    o = add2(c1, c4)
-    t = s.products([mul2(v, vv), mul2(vv, X), mul2(uu, Z)]
-                   + sparse01_reqs(f0, c0, c1)
-                   + [mul2(f1[2], c4), mul2(f1[0], c4), mul2(f1[1], c4)]
-                   + sparse01_reqs(add6(f0, f1), c0, o))
-    vvv, Rr, uuZ = t[:3]
-    t0 = sparse01_fin(t[3:8])
-    t1 = (xi(t[8]), t[9], t[10])
-    t3 = sparse01_fin(t[11:16])
-    # f's fin, and A = u²Z − v³ − 2Rr and Rr − A, in one linear phase.
-    A = sub2(sub2(uuZ, vvv), small2(2, Rr))
-    m = s.linear(fq12_flat((add6(t0, mul_by_v(t1)), sub6(t3, add6(t0, t1))))
-                 + list(A) + list(sub2(Rr, A)))
+    t = s.products(add_layer3_reqs(v, vv, uu, X, Z)
+                   + fold_014_reqs(f, *line))
+    # f's fin, and A and Rr − A, in one linear phase.
+    m = s.linear(fq12_flat(fold_014_fin(t[3:])) + add_A(t[:3]))
     fo, A, RA = m[:12], (m[12], m[13]), (m[14], m[15])
 
-    # Layer 4: X' = v·A, Y' = u(Rr − A) − v³·Y, Z' = v³·Z.
-    Xo, uRA, vvvY, Zo = s.products([mul2(v, A), mul2(u, RA), mul2(vvv, Y),
-                                    mul2(vvv, Z)])
-    s.output(fo + s.linear(list(Xo) + list(sub2(uRA, vvvY)) + list(Zo)))
+    # Layer 4: X', Y', Z'.
+    s.output(fo + add_layer4(s, u, v, t[0], A, RA, Y, Z))
+    return s
+
+
+def b17_dbl_step_schedule():
+    """B17 `dbl_step` (`pallas_tower._k_dbl_step`): B4 cut at the line,
+    its layers 1-3 without f² (12, 19 and 16 Fq products): T ← 2T and the
+    tangent line at P. Inputs T (6), P (2); outputs T (6), then the line
+    c0, c1, c4 (6)."""
+    s = Schedule("B17 dbl_step", 8)
+    x = s.inputs()
+    X, Y, Z = (x[0], x[1]), (x[2], x[3]), (x[4], x[5])
+    xp, yp = x[6], x[7]
+    To, line = dbl_rest(s, X, Y, Z, xp, yp,
+                        s.products(dbl_layer1_reqs(X, Y, Z)))
+    s.output([c for v in To + list(line) for c in v])
+    return s
+
+
+def b17_f_sqr_fold_schedule():
+    """B17 `f_sqr_fold` (`pallas_tower._k_f_sqr_fold`): B4's other half,
+    f² (B9's 36 Fq products and B4's two linear phases), then B4's layer 4
+    (39) with the line an input: f ← f²·line. Inputs f (12), the line c0,
+    c1, c4 (6); output f (12)."""
+    s = Schedule("B17 f_sqr_fold", 18)
+    x = s.inputs()
+    f2 = fq12_sqr_linear(s, s.products(fq12_sqr_reqs(fq12_from(x[:12]))))
+    line = ((x[12], x[13]), (x[14], x[15]), (x[16], x[17]))
+    fo = fold_014_fin(s.products(fold_014_reqs(f2, *line)))
+    s.output(s.linear(fq12_flat(fo)))
+    return s
+
+
+def b17_add_step_schedule():
+    """B17 `add_step` (`pallas_tower._k_add_step`): B5 cut at the line, its
+    layers 1 and 2, the 9 products of layer 3 that are not the line
+    product's, and layer 4 (6, 14, 9, 12 Fq products): T ← T + Q and the
+    chord line at P. Inputs T (6), Q (4), P (2); outputs T (6), then the
+    line c0, c1, c4 (6)."""
+    s = Schedule("B17 add_step", 12)
+    x = s.inputs()
+    X, Y, Z = (x[0], x[1]), (x[2], x[3]), (x[4], x[5])
+    x2, y2 = (x[6], x[7]), (x[8], x[9])
+    xp, yp = x[10], x[11]
+    u, v, vv, uu, line = add_layers12(s, X, Y, Z, x2, y2, xp, yp)
+    t = s.products(add_layer3_reqs(v, vv, uu, X, Z))
+    m = s.linear(add_A(t))
+    To = add_layer4(s, u, v, t[0], (m[0], m[1]), (m[2], m[3]), Y, Z)
+    s.output(To + [c for v in line for c in v])
+    return s
+
+
+def b17_f_fold_schedule():
+    """B17 `f_fold` (`pallas_tower._k_f_fold`): B5's line product, its 39
+    Fq products and their fin: f ← f·line. Inputs f (12), the line c0, c1,
+    c4 (6); output f (12)."""
+    s = Schedule("B17 f_fold", 18)
+    x = s.inputs()
+    line = ((x[12], x[13]), (x[14], x[15]), (x[16], x[17]))
+    fo = fold_014_fin(s.products(fold_014_reqs(fq12_from(x[:12]), *line)))
+    s.output(s.linear(fq12_flat(fo)))
     return s
 
 
@@ -533,9 +644,7 @@ def b9_schedule():
     makes tt and ss (`_fq6_mul_fin`) into c0 = ss − tt − v·tt and
     c1 = 2·tt. Input a (12); output a² (12)."""
     s = Schedule("B9", 12)
-    a0, a1 = fq12_from(s.inputs())
-    sv = add6(a0, mul_by_v(a1))
-    t = s.products(fq6_mul_reqs(a0, a1) + fq6_mul_reqs(add6(a0, a1), sv))
+    t = s.products(fq12_sqr_reqs(fq12_from(s.inputs())))
     tt, ss = fq6_mul_fin(t[0:6]), fq6_mul_fin(t[6:12])
     s.output(s.linear(fq12_flat((sub6(sub6(ss, tt), mul_by_v(tt)),
                                  add6(tt, tt)))))
@@ -543,7 +652,11 @@ def b9_schedule():
 
 
 SCHEDULES = {"kB4": b4_schedule, "kB6": b6_schedule, "kB7": b7_schedule,
-             "kB8": b8_schedule, "kB5": b5_schedule, "kB9": b9_schedule}
+             "kB8": b8_schedule, "kB5": b5_schedule, "kB9": b9_schedule,
+             "kDblStep": b17_dbl_step_schedule,
+             "kFSqrFold": b17_f_sqr_fold_schedule,
+             "kAddStep": b17_add_step_schedule,
+             "kFFold": b17_f_fold_schedule}
 
 
 def _array(name, values, per_line):

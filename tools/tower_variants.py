@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """B4 (``dbl_fold``), B5 (``add_fold``), B6 (``cyclo_sqr``), B7
-(``cyclo_sqr_mul``), B8 (``fq12_mul``) and B9 (``fq12_sqr``) on the
-lane-group engine (``csrc/tower_group.cuh``) against their old bodies and
-other group sizes, on one card.
+(``cyclo_sqr_mul``), B8 (``fq12_mul``), B9 (``fq12_sqr``) and B17
+(``dbl_step``, ``add_step``, ``f_sqr_fold``, ``f_fold``) on the lane-group
+engine (``csrc/tower_group.cuh``), and B3's test entry (``fq_engine``) on
+the register engine (``csrc/ladder_engine.cuh``), against their old bodies
+and other group sizes, on one card.
 
     python3 tools/tower_variants.py [--split] [--parent ROOT]
 
@@ -10,22 +12,25 @@ The variants, each built with the package's nvcc flags into
 ``threshold_crypto_tpu_torch/_build/variants/``:
 
 * ``old``: the one-thread-per-lane kernels the package ran before the
-  engine (``tower.cuh`` ``dbl_fold_lane``, ``add_fold_lane`` and
-  ``fq12_mul_lane``, B9 its form without b, and ``cyclo_sqr_lane`` with
-  its Granger-Scott ``fq12_cyclo_sqr``, kept here as text; 128-thread
-  blocks);
+  engines (``tower.cuh`` ``dbl_fold_lane``, ``add_fold_lane``,
+  ``fq12_mul_lane``, B9 its form without b, ``dbl_step_lane``,
+  ``add_step_lane``, ``f_sqr_fold_lane``, ``f_fold_lane``, B3's
+  ``engine_lane`` on ``fq.cuh``'s ``__noinline__`` field, and
+  ``cyclo_sqr_lane`` with its Granger-Scott ``fq12_cyclo_sqr``, kept here
+  as text; 128-thread blocks);
 * ``g1``, ``g4``, ``g8``, ``g16``, ``g32``: the package's ``miller.cu``
   and ``fq12.cu`` with ``tc::grp::kGroup`` set to 1, 4, 8 (the package's),
   16 or 32 threads a lane. G = 1 keeps the register product and the
   staging in shared memory without the split.
 
-For each: ptxas's registers, stack frame and spills of the B4-B9
-kernels; bit-exact against the package's kernels (which are held against
-their plain versions here too) on ``chip_smoke.tower_inputs`` (zero and
-infinity lanes) at both widths of each kernel: slice 2's (B4 and B5
-16,384 pair lanes, B6-B9 8192) and the RLC check's (B4 and B5
-2 × RLC_CHECK_BATCH = 1,024, B6-B9 512); and the kernel time with CUDA
-events, in turns
+For each: ptxas's registers, stack frame and spills of the B3-B9 and
+B17 kernels; bit-exact against the package's kernels (which are held
+against their plain versions here too) on ``chip_smoke.tower_inputs``
+(zero and infinity lanes) at both widths of each kernel: slice 2's (B4,
+B5 and B17 16,384 pair lanes, B6-B9 8192) and the RLC check's (B4, B5
+and B17 2 × RLC_CHECK_BATCH = 1,024, B6-B9 512), B3 at [288, 16384]
+(``chip_smoke.TOWER_CHECKS``); and the kernel time with CUDA events, in
+turns
 (old, g1, …, g16, g16, …, old) at each width, beside ``chip_smoke``'s
 bound: launched one by one from Python (``chip_smoke.cuda_time_ms``, as
 the path launches them) and replayed from a CUDA graph (the device time
@@ -47,7 +52,10 @@ events, B9's launch in it (``chip_smoke.kernel_event_timer``), the
 per-pair call ``ops.verify_batch_pallas`` at 8192 lanes with its B9
 launch the same way, and that call alone at the check's 512
 lanes (the per-pair inputs' first RLC_CHECK_BATCH lanes), CHECK_CALLS
-times a turn. Prints one JSON line last and writes it to ``tower_variants.json``
+times a turn, and the B17 composition (``chip_smoke.run_b17_composition``:
+one whole Miller loop over the per-pair inputs through B17, and through
+B4/B5, each in its turns). Prints one JSON line last and writes it to
+``tower_variants.json``
 beside the builds. Without CUDA it exits 2.
 """
 
@@ -190,7 +198,101 @@ cyclo_sqr_mul_kernel(const int32_t* __restrict__ f,
   tc::cyclo_sqr_lane(f, g, fo, n, lane);
 }
 
+// B17's pieces and B3's test entry before the engines.
+__global__ void __launch_bounds__(kThreads)
+dbl_step_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ P,
+                int32_t* __restrict__ To, int32_t* __restrict__ line, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::dbl_step_lane(T, P, To, line, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+add_step_kernel(const int32_t* __restrict__ T, const int32_t* __restrict__ Q,
+                const int32_t* __restrict__ P, int32_t* __restrict__ To,
+                int32_t* __restrict__ line, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::add_step_lane(T, Q, P, To, line, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+f_sqr_fold_kernel(const int32_t* __restrict__ f,
+                  const int32_t* __restrict__ line, int32_t* __restrict__ fo,
+                  int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::f_sqr_fold_lane(f, line, fo, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+f_fold_kernel(const int32_t* __restrict__ f, const int32_t* __restrict__ line,
+              int32_t* __restrict__ fo, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::f_fold_lane(f, line, fo, n, lane);
+}
+
+__global__ void __launch_bounds__(kThreads)
+engine_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+              int32_t* __restrict__ out, int m, int k, int n) {
+  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= n) return;
+  tc::engine_lane(a, b, out, m, k, n, lane);
+}
+
+inline dim3 grid_for(int n) { return dim3((n + kThreads - 1) / kThreads); }
+
+const int32_t* in(const void* p) { return static_cast<const int32_t*>(p); }
+int32_t* out(void* p) { return static_cast<int32_t*>(p); }
+
 }  // namespace
+
+extern "C" int tc_dbl_step(const void* T, const void* P, void* To, void* line,
+                           int n, void* stream) {
+  if (n <= 0) return 0;
+  dbl_step_kernel<<<grid_for(n), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      in(T), in(P), out(To), out(line), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_add_step(const void* T, const void* Q, const void* P,
+                           void* To, void* line, int n, void* stream) {
+  if (n <= 0) return 0;
+  add_step_kernel<<<grid_for(n), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      in(T), in(Q), in(P), out(To), out(line), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_f_sqr_fold(const void* f, const void* line, void* fo, int n,
+                             void* stream) {
+  if (n <= 0) return 0;
+  f_sqr_fold_kernel<<<grid_for(n), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      in(f), in(line), out(fo), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_f_fold(const void* f, const void* line, void* fo, int n,
+                         void* stream) {
+  if (n <= 0) return 0;
+  f_fold_kernel<<<grid_for(n), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      in(f), in(line), out(fo), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int tc_fq_engine(const void* a, const void* b, void* out_, int m,
+                            int k, int n, void* stream) {
+  if (n <= 0 || m <= 0) return 0;
+  if (k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  engine_kernel<<<grid_for(n), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(in(a), in(b), out(out_),
+                                                       m, k, n);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int tc_dbl_fold(const void* f, const void* T, const void* P,
                            void* fo, void* To, int n, void* stream) {
@@ -277,27 +379,45 @@ SPLIT = {
 }
 GROUP_LINE = "constexpr int kGroup = 8;"
 GROUPS = (1, 4, 8, 16, 32)
-# The B4-B9 kernels' names (demangled) in the variants: old (B8 and B9
-# share fq12_mul_kernel), group.
+# The B3-B9 and B17 kernels' names (demangled) in the variants: old (B8
+# and B9 share fq12_mul_kernel; B17 and B3 have their names in both),
+# group.
 KERNEL_NAMES = ("dbl_fold_kernel", "add_fold_kernel", "cyclo_sqr_kernel",
                 "cyclo_sqr_mul_kernel", "fq12_mul_kernel",
                 "cyclo_sqr_group_kernel", "cyclo_sqr_mul_group_kernel",
-                "fq12_mul_group_kernel", "fq12_sqr_group_kernel")
+                "fq12_mul_group_kernel", "fq12_sqr_group_kernel",
+                "dbl_step_kernel", "add_step_kernel", "f_sqr_fold_kernel",
+                "f_fold_kernel", "engine_kernel")
 WIDTHS = {"dbl_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
           "add_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
           "cyclo_sqr": (cs.LANES, cs.RLC_CHECK_BATCH),
           "cyclo_sqr_mul": (cs.LANES, cs.RLC_CHECK_BATCH),
           "fq12_mul": (cs.LANES, cs.RLC_CHECK_BATCH),
-          "fq12_sqr": (cs.LANES, cs.RLC_CHECK_BATCH)}
+          "fq12_sqr": (cs.LANES, cs.RLC_CHECK_BATCH),
+          "dbl_step": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
+          "add_step": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
+          "f_sqr_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
+          "f_fold": (2 * cs.LANES, 2 * cs.RLC_CHECK_BATCH),
+          "fq_engine": (cs.TOWER_CHECKS["fq_engine"][3],)}
 REPS = {"dbl_fold": 20, "add_fold": 20, "cyclo_sqr": 50,
-        "cyclo_sqr_mul": 20, "fq12_mul": 20, "fq12_sqr": 20}
-# Per kernel: its C entry, and its input and output tensors.
-ENTRIES = {"dbl_fold": ("miller", "tc_dbl_fold", 3, 2),
-           "add_fold": ("miller", "tc_add_fold", 4, 2),
-           "cyclo_sqr": ("fq12", "tc_cyclo_sqr", 1, 1),
-           "cyclo_sqr_mul": ("fq12", "tc_cyclo_sqr_mul", 2, 1),
-           "fq12_mul": ("fq12", "tc_fq12_mul", 2, 1),
-           "fq12_sqr": ("fq12", "tc_fq12_sqr", 1, 1)}
+        "cyclo_sqr_mul": 20, "fq12_mul": 20, "fq12_sqr": 20,
+        "dbl_step": 20, "add_step": 20, "f_sqr_fold": 20, "f_fold": 20,
+        "fq_engine": 50}
+# Per kernel: its C entry, its input tensors and its outputs' rows (B3:
+# five blocks of its inputs' rows, and m, k before n).
+ENTRIES = {"dbl_fold": ("miller", "tc_dbl_fold", 3, (288, 144)),
+           "add_fold": ("miller", "tc_add_fold", 4, (288, 144)),
+           "cyclo_sqr": ("fq12", "tc_cyclo_sqr", 1, (288,)),
+           "cyclo_sqr_mul": ("fq12", "tc_cyclo_sqr_mul", 2, (288,)),
+           "fq12_mul": ("fq12", "tc_fq12_mul", 2, (288,)),
+           "fq12_sqr": ("fq12", "tc_fq12_sqr", 1, (288,)),
+           "dbl_step": ("miller", "tc_dbl_step", 2, (144, 144)),
+           "add_step": ("miller", "tc_add_step", 3, (144, 144)),
+           "f_sqr_fold": ("miller", "tc_f_sqr_fold", 2, (288,)),
+           "f_fold": ("miller", "tc_f_fold", 2, (288,)),
+           "fq_engine": ("fq12", "tc_fq_engine", 2, None)}
+# B3's k in the check (chip_smoke.check_tower's).
+ENGINE_K = 8
 # The stages of an RLC call read in each turn (chip_smoke.stage_timer's
 # labels): the check, and the two MSM tables (B10).
 TURN_STAGES = {"check_ms": "check", "table_g1_ms": "  table (B10) G1",
@@ -315,7 +435,9 @@ CHECK_CALLS = 20
 # as argv[2]), as many with the kernels of TURN_KERNELS (argv[3])
 # bracketed, and as many per-pair calls at 8192 lanes, then as many with
 # those kernels bracketed, and CHECK_CALLS (argv[4]) per-pair calls at
-# RLC_CHECK_BATCH lanes, each after a warm-up call.
+# RLC_CHECK_BATCH lanes, each after a warm-up call; then TURN_CALLS B17
+# compositions (a Miller loop through B17 and one through B4/B5, in turns
+# inside each) after a warm-up one.
 TURN_CHILD = """
 import json, sys
 import torch
@@ -377,8 +499,11 @@ for i in range(1 + calls):
     kernel_ms(lambda: cs.rlc_call(pk_aff, sig_aff, h_jac,
                                   bytes([120 + i]) * 32), rlc_k)
     kernel_ms(lambda: ops.verify_batch_pallas(*args), pair_k)
+b17 = [cs.run_b17_composition(args, dev) for _ in range(1 + calls)]
 print(json.dumps({"rlc_s": rlc[1:], "pair_s": pair[1:],
                   "check512_s": check[1:],
+                  "b17_loop_ms": [c["split_ms"] for c in b17[1:]],
+                  "b4b5_loop_ms": [c["fused_ms"] for c in b17[1:]],
                   **{k: v[1:] for k, v in staged.items()},
                   **{f"rlc_{k}_ms": v[1:] for k, v in rlc_k.items()},
                   **{f"pair_{k}_ms": v[1:] for k, v in pair_k.items()}}))
@@ -449,11 +574,13 @@ def build_variants(bdir, split):
 
 def load(so, kernel):
     """The C entry of kernel (ENTRIES) in the library at so, with its
-    signature: the input and output pointers, n, the stream."""
-    _, fn, n_in, n_out = ENTRIES[kernel]
+    signature: the input and output pointers, (B3: m, k,) n, the
+    stream."""
+    _, fn, n_in, out_rows = ENTRIES[kernel]
     entry = getattr(ctypes.CDLL(so), fn)
-    entry.argtypes = ([ctypes.c_void_p] * (n_in + n_out)
-                      + [ctypes.c_int, ctypes.c_void_p])
+    ints = 1 if out_rows else 3
+    entry.argtypes = ([ctypes.c_void_p] * (n_in + len(out_rows or (0,)))
+                      + [ctypes.c_int] * ints + [ctypes.c_void_p])
     entry.restype = ctypes.c_int
     return entry
 
@@ -484,7 +611,8 @@ def turns(parent):
     """Both checkouts' calls in turns (parent, this, this, parent, twice):
     {"parent": {...}, "this": {...}}, each key a list over the turns."""
     roots = {"parent": os.path.abspath(parent), "this": ROOT}
-    keys = ["rlc_s", "pair_s", "check512_s", *TURN_STAGES,
+    keys = ["rlc_s", "pair_s", "check512_s", "b17_loop_ms", "b4b5_loop_ms",
+            *TURN_STAGES,
             *(f"{w}_{k}_ms" for w in ("rlc", "pair") for k in TURN_KERNELS)]
     out = {k: {key: [] for key in keys} for k in roots}
     for who in ("parent", "this", "this", "parent") * 2:
@@ -565,10 +693,17 @@ def main():
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     def run(variant, kernel, ins):
-        # outputs: f (the first input's shape), then T (the second's)
-        out = tuple(torch.empty_like(x) for x in ins[:ENTRIES[kernel][3]])
+        out_rows, n = ENTRIES[kernel][3], ins[0].shape[1]
+        if out_rows is None:     # B3: a·b, a + b, a − b, −a, k·a
+            out = (torch.empty((5,) + tuple(ins[0].shape),
+                               dtype=torch.int32, device=dev),)
+            extra = (ins[0].shape[0] // 24, ENGINE_K, n)
+        else:
+            out = tuple(torch.empty((r, n), dtype=torch.int32, device=dev)
+                        for r in out_rows)
+            extra = (n,)
         err = libs[variant][kernel](*(x.data_ptr() for x in (*ins, *out)),
-                                    ins[0].shape[1], stream())
+                                    *extra, stream())
         if err:
             raise RuntimeError(f"{variant} {kernel}: launch error {err}")
         return out
@@ -579,11 +714,12 @@ def main():
         pkg = getattr(ctw, kernel)
         plain = getattr(ctw, kernel + "_ref")
         comps, out_comps, products, _ = cs.TOWER_CHECKS[kernel]
+        k_arg = (ENGINE_K,) if kernel == "fq_engine" else ()
         for n in widths:
             ins = cs.tower_inputs(kernel, gen, dev, n)
-            want = pkg(*ins)
+            want = pkg(*ins, *k_arg)
             want = want if isinstance(want, tuple) else (want,)
-            ref = plain(*ins)
+            ref = plain(*ins, *k_arg)
             ref = ref if isinstance(ref, tuple) else (ref,)
             if not all(torch.equal(a, b) for a, b in zip(want, ref)):
                 raise RuntimeError(f"the package's {kernel} differs from its "
