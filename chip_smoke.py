@@ -365,13 +365,9 @@ def bound_ms(bytes_moved, imads, card):
 def registry():
     """(module, kernel) for every kernel of the port, module by module:
     B1-B2, B3-B9, B10, B11, B13, B15, B16, B12, B14."""
-    from threshold_crypto_tpu_torch.device import (cuda_curve, cuda_fr,
-                                                   cuda_mont, cuda_tower,
-                                                   keccak)
+    from threshold_crypto_tpu_torch.utils import trace
 
-    return [(mod, k) for mod in (cuda_mont, cuda_tower, cuda_curve, keccak,
-                                 cuda_fr)
-            for k in mod.KERNELS]
+    return trace.kernels()
 
 
 @contextlib.contextmanager
@@ -1676,82 +1672,43 @@ def host_affine(aff, g2):
 
 
 @contextlib.contextmanager
-def spans_around(spans, patches):
-    """Bracket every call of each patched module attribute with CUDA events:
-    patches are (module, name, label), label(*args) naming the span. The
-    entry points reach each stage through these attributes; they are
-    restored at the end."""
-    import torch
-
-    def wrap(label, fn):
-        def run(*args, **kw):
-            start = torch.cuda.Event(enable_timing=True)
-            stop = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*args, **kw)
-            stop.record()
-            spans.append((label(*args), start, stop))
-            return out
-        return run
-
-    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
-    for mod, name, label in patches:
-        setattr(mod, name, wrap(label, getattr(mod, name)))
-    try:
-        yield wrap
-    finally:
-        for mod, name, fn in saved:
-            setattr(mod, name, fn)
-
-
-@contextlib.contextmanager
 def stage_timer(spans):
-    """Bracket the stages of an RLC call with CUDA events: the transcript,
-    ChaCha, each MSM with its table (B10), Horner (B11) and fold, the
-    affine conversions and the check."""
-    from threshold_crypto_tpu_torch.device import chacha
-    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
-    from threshold_crypto_tpu_torch.device import curve as dcv
-    from threshold_crypto_tpu_torch.device import keccak
-    from threshold_crypto_tpu_torch.ops import threshold as tops
+    """The program's own spans over the block (``utils/trace.py``: the
+    stages of the entry points, the pairing, ladder and MSM drivers, the
+    folds, the Fr layer, the transcript and the hash chain): after it,
+    ``spans`` holds their records, device times from CUDA events."""
+    from threshold_crypto_tpu_torch.utils import trace
 
-    def group(g2):
-        return "G2" if g2 else "G1"
-
-    patches = [
-        (keccak, "transcript_digests", lambda *a: "transcript"),
-        (chacha, "rlc_exponent_limbs", lambda *a: "chacha"),
-        (ccv, "msm_pallas_shared",
-         lambda c, *a: f"msm {group(c is dcv.G2)}"),
-        (ccv, "p_madd", lambda g2, *a: f"  table (B10) {group(g2)}"),
-        (ccv, "p_winacc", lambda g2, *a: f"  horner (B11) {group(g2)}"),
-        (tops, "jacobian_to_affine", lambda *a: "affine"),
-        (tops, "verify_batch_pallas", lambda *a: "check"),
-    ]
-    with spans_around(spans, patches) as wrap:
-        for curve in (dcv.G1, dcv.G2):
-            g = curve.name
-            curve.fold_sum = wrap(lambda *a, g=g: f"  fold {g}",
-                                  curve.fold_sum)
-        try:
+    trace.clear()
+    try:
+        with trace.enabled():
             yield
-        finally:
-            for curve in (dcv.G1, dcv.G2):
-                del curve.fold_sum
+        spans.extend(trace.records())
+    finally:
+        trace.clear()
 
 
 def print_split(what, spans, wall_s):
-    """Sum the spans by label and print them beside the call's wall."""
-    split = {}
-    for label, start, stop in spans:
-        split[label] = split.get(label, 0.0) + start.elapsed_time(stop)
-    top = sum(v for key, v in split.items() if not key.startswith(" "))
-    print(f"{what} stages of one call (CUDA events; wall "
-          f"{wall_s * 1e3:.1f} ms, outside the stages "
+    """Sum the spans' device ms by their path of names from the outermost
+    span, print the paths as a tree (children in the order they first
+    ran) beside the call's wall, the outermost spans' sum set against it.
+    Returns {"a / b / c": ms}."""
+    paths, split = {}, {}
+    for r in spans:
+        paths[r["id"]] = paths.get(r["parent"], ()) + (r["name"],)
+        split[paths[r["id"]]] = split.get(paths[r["id"]], 0.0) + \
+            r["device_ms"]
+    order = {p: k for k, p in enumerate(split)}
+    top = sum(v for p, v in split.items() if len(p) == 1)
+    print(f"{what} stages of one call (the program's spans, CUDA events; "
+          f"wall {wall_s * 1e3:.1f} ms, outside the stages "
           f"{wall_s * 1e3 - top:.1f} ms):", flush=True)
-    for label, ms in split.items():
-        print(f"  {label}: {ms:.1f} ms", flush=True)
-    return split
+    tree = sorted(split, key=lambda p: [order[p[:k + 1]]
+                                        for k in range(len(p))])
+    for p in tree:
+        print(f"  {'  ' * (len(p) - 1)}{p[-1]}: {split[p]:.1f} ms",
+              flush=True)
+    return {" / ".join(p): split[p] for p in tree}
 
 
 def kernel_split(what, spans, wall_s):
@@ -2083,7 +2040,6 @@ def hash_call(pk_aff, msgs, sig_aff, want_t):
 def run_hash(dev):
     """Slice 4: drive ``verify_with_hash_batch`` at HASH_N and check it."""
     from threshold_crypto_tpu_torch import hashing
-    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
     from threshold_crypto_tpu_torch.device import curve as dcv
     from threshold_crypto_tpu_torch.device import hash2g2
     from threshold_crypto_tpu_torch.host import curve as hcv
@@ -2153,22 +2109,11 @@ def run_hash(dev):
     kernel_s, per_kernel = kernel_split("verify_with_hash_batch", spans, kwall)
 
     stages = []
-    patches = [
-        (hashing, "digest_words", lambda *a: "host digests"),
-        (hash2g2, "_chacha_words_multikey", lambda *a: "ChaCha streams"),
-        (hash2g2, "extract_candidates", lambda *a: "candidate extraction"),
-        (hash2g2, "residue_test", lambda *a: "residue test (B2)"),
-        (hash2g2, "fq2_sqrt", lambda *a: "Fq2 sqrt (two fq2_pow_fixed)"),
-        (ccv, "scalar_mul_fixed_pallas",
-         lambda *a: "table + cofactor ladder (B10, B13)"),
-        (tops, "splice_host_hashes", lambda *a: "host splice"),
-        (tops, "jacobian_to_affine", lambda *a: "affine"),
-        (tops, "verify_batch_pallas", lambda *a: "check"),
-    ]
-    with spans_around(stages, patches):
+    with stage_timer(stages):
         swall = hash_call(pk_aff, msgs, sig_aff, want)
     split = print_split("verify_with_hash_batch", stages, swall)
-    splice_ms = split.get("host splice", 0.0)
+    splice_ms = sum(r["device_ms"] for r in stages
+                    if r["name"] == "ops.splice_host_hashes")
     print(f"host splice (native hashing.hash_g2): {splice_ms:.1f} ms for "
           f"{len(not_ok)} lanes not ok "
           f"({splice_ms / max(len(not_ok), 1):.2f} ms a lane)", flush=True)
@@ -2592,40 +2537,6 @@ def combine_call(curve, shares, xs, path):
     return pt, bool(ok), time.time() - t0
 
 
-@contextlib.contextmanager
-def combine_stage_timer(spans):
-    """Bracket the stages of a combine call with CUDA events: the product
-    tree of the x, B14 (with its fold), the inversion, the canonical form,
-    the shares' affine form, the table (B10), B11 / B15 / B16 and the
-    fold."""
-    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
-    from threshold_crypto_tpu_torch.device import cuda_fr
-    from threshold_crypto_tpu_torch.device import curve as dcv
-    from threshold_crypto_tpu_torch.ops import fr as frops
-    from threshold_crypto_tpu_torch.ops import threshold as tops
-
-    patches = [
-        (frops, "_prod_leading", lambda *a: "product tree of the x (B1)"),
-        (cuda_fr, "lagrange_rowprod", lambda *a: "B14 and its fold"),
-        (frops, "batch_inv", lambda *a: "inverse (B2)"),
-        (frops, "fr_to_plain", lambda *a: "canonical lambda (B1)"),
-        (tops, "jacobian_to_affine", lambda *a: "affine (B2, B1)"),
-        (ccv, "p_madd", lambda *a: "table (B10)"),
-        (ccv, "p_winacc", lambda *a: "Horner (B11)"),
-        (ccv, "p_step", lambda *a: "bit ladders (B15)"),
-        (ccv, "p_dblw", lambda *a: "dblw (B16)"),
-        (ccv, "p_selmadd", lambda *a: "selmadd (B16)"),
-    ]
-    with spans_around(spans, patches) as wrap:
-        for curve in (dcv.G1, dcv.G2):
-            curve.fold_sum = wrap(lambda *a: "fold", curve.fold_sum)
-        try:
-            yield
-        finally:
-            for curve in (dcv.G1, dcv.G2):
-                del curve.fold_sum
-
-
 def run_combine_path(curve, shares, xs, path, want):
     """One path of the combine: its counted call (launches against
     ``combine_launches``), the median of 3 calls, the kernel share and the
@@ -2652,7 +2563,7 @@ def run_combine_path(curve, shares, xs, path, want):
         _, _, kwall = combine_call(curve, shares, xs, path)
     kernel_s, per_kernel = kernel_split(what, spans, kwall)
     stages = []
-    with combine_stage_timer(stages):
+    with stage_timer(stages):
         _, _, swall = combine_call(curve, shares, xs, path)
     split = print_split(what, stages, swall)
     print(f"{what} at t+1 = {xs.shape[0]}: equals the host's point; first "
@@ -3020,23 +2931,27 @@ def dkg_call(inp, after=None):
     seconds)."""
     import torch
     from threshold_crypto_tpu_torch.ops import threshold as tops
+    from threshold_crypto_tpu_torch.utils import trace
 
     t, xs, ys = inp["t"], inp["xs"], inp["ys"]
     done = after or (lambda stage: None)
+
+    def stage(name, fn, *args):
+        with trace.span(f"dkg {name}"):
+            out = fn(*args)
+        done(name)
+        return out
+
     torch.cuda.synchronize()
     t0 = time.time()
-    commit = tops.bivar_commit_batch(inp["plain"])
-    done("commit")
-    rows = tops.bivar_row_batch(inp["mont"], xs, t)
-    done("rows")
-    rowc = tops.bivar_commit_row_batch(commit, xs, t)
-    done("row commitments")
-    ev = tops.bivar_commit_eval_batch(commit, xs, ys, t)
-    done("value commitments")
-    row_ok = dkg_row_check(rows, rowc, t)
-    done("row check")
-    val_ok = dkg_value_check(rows, ev, ys, t)
-    done("value check")
+    commit = stage("commit", tops.bivar_commit_batch, inp["plain"])
+    rows = stage("rows", tops.bivar_row_batch, inp["mont"], xs, t)
+    rowc = stage("row commitments", tops.bivar_commit_row_batch, commit, xs,
+                 t)
+    ev = stage("value commitments", tops.bivar_commit_eval_batch, commit,
+               xs, ys, t)
+    row_ok = stage("row check", dkg_row_check, rows, rowc, t)
+    val_ok = stage("value check", dkg_value_check, rows, ev, ys, t)
     torch.cuda.synchronize()
     return (dict(commit=commit, rows=rows, rowc=rowc, ev=ev, row_ok=row_ok,
                  val_ok=val_ok), time.time() - t0)
@@ -3060,29 +2975,6 @@ def row_host(coeffs, t, x):
                 for j in range(t + 1)) % R for i in range(t + 1)]
 
 
-@contextlib.contextmanager
-def dkg_stage_timer(spans):
-    """Bracket the inner stages of a dealing call with CUDA events: the
-    powers (B1), the affine lifts (B2, B1), the ladder tables (B10), the
-    ladders (B13) and the folds."""
-    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
-    from threshold_crypto_tpu_torch.device import curve as dcv
-    from threshold_crypto_tpu_torch.ops import threshold as tops
-
-    patches = [
-        (tops, "powers_batch", lambda *a: "  powers (B1)"),
-        (tops, "jacobian_to_affine", lambda *a: "  affine lifts (B2, B1)"),
-        (ccv, "p_madd", lambda *a: "  tables (B10)"),
-        (ccv, "p_step4", lambda *a: "  ladders (B13)"),
-    ]
-    with spans_around(spans, patches) as wrap:
-        dcv.G1.fold_axis = wrap(lambda *a: "  folds", dcv.G1.fold_axis)
-        try:
-            yield
-        finally:
-            del dcv.G1.fold_axis
-
-
 def run_dkg(dev, card):
     """Slice 7: one dealer's part of the DKG at DKG_N nodes, threshold
     DKG_T (N = 3t + 1): ``bivar_commit_batch`` (npos = (t+1)(t+2)/2
@@ -3099,7 +2991,6 @@ def run_dkg(dev, card):
     ``dkg_launches``. Then the median of 3 whole calls, the kernel share,
     a stage split, and the B13 launches of one call each timed beside its
     bound (``ladder_bound`` on its digits)."""
-    import torch
     from threshold_crypto_tpu_torch.device import curve as dcv
     from threshold_crypto_tpu_torch.host import curve as hcv
     from threshold_crypto_tpu_torch.ops import fr as frops
@@ -3192,18 +3083,8 @@ def run_dkg(dev, card):
         _, kwall = dkg_call(inp)
     kernel_s, per_kernel = kernel_split("dkg", spans, kwall)
     stages = []
-    marks = [None]
-
-    def mark(stage):
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        stages.append((stage, marks[0], ev))
-        marks[0] = ev
-
-    with dkg_stage_timer(stages):
-        marks[0] = torch.cuda.Event(enable_timing=True)
-        marks[0].record()
-        _, swall = dkg_call(inp, after=mark)
+    with stage_timer(stages):
+        _, swall = dkg_call(inp)
     split = print_split("dkg", stages, swall)
 
     from threshold_crypto_tpu_torch.device import cuda_curve as ccv

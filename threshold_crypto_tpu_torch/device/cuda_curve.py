@@ -61,6 +61,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import trace
 from . import curve as dcv
 from . import mont
 from . import packed as pk
@@ -499,6 +500,37 @@ def _ladder_table(curve, points_aff):
     return torch.cat(entries)
 
 
+# The stages of the per-lane ladders (table, digits, launches), named as
+# an MSM's accumulation or as the per-lane scalar-muls themselves.
+_MSM_STAGES = ("msm.table", "msm.digits", "msm.horner")
+_LADDER_STAGES = ("ladder.table", "ladder.digits", "ladder.steps")
+
+
+def _lane_ladders(curve, points_aff, scalars, nbits, window, stages):
+    """points_i·scalars_i per lane: window 4, the 15-entry table
+    (``_ladder_table``, 14 B10 launches) and one B13 launch over the
+    ⌈nbits/4⌉ base-16 digits; window 1, one B15 launch over the nbits bits
+    of the packed point. Dead (infinity) lanes get digit or bit 0, so they
+    stay at infinity. Returns a Jacobian tuple [N]."""
+    if window not in (1, 4):
+        raise ValueError(f"the lane ladders take window 1 or 4, got {window}")
+    x, y, inf = points_aff
+    g2 = curve is dcv.G2
+    table_stage, digits_stage, steps_stage = stages
+    with trace.span(table_stage):
+        table = (_ladder_table(curve, points_aff) if window == 4
+                 else pk.pack([*x, *y] if g2 else [x, y]))
+    with trace.span(digits_stage):
+        digits = (dcv.scalar_digits(scalars, nbits, 4) if window == 4
+                  else dcv.scalar_bits(scalars, nbits))
+        digits = (digits * (~inf).to(torch.int32)[None]).contiguous()
+    with trace.span(steps_stage):
+        acc0 = packed_infinity(g2, inf.shape[0], inf.device)
+        acc = (p_step4 if window == 4 else p_step)(g2, acc0, table, digits)
+    return unpack_jac(acc, g2)
+
+
+@trace.traced("msm")
 def msm_pallas(curve, points_aff, scalars, nbits: int = 64, window: int = 1,
                fold: bool = True):
     """Σ points_i·scalars_i on the per-lane ladder kernels; the counterpart
@@ -513,34 +545,22 @@ def msm_pallas(curve, points_aff, scalars, nbits: int = 64, window: int = 1,
     Jacobian sum (``fold_sum``), or with fold=False the per-lane products
     as a Jacobian tuple [N].
     """
-    if window not in (1, 4):
-        raise ValueError(f"msm_pallas takes window 1 or 4, got {window}")
-    x, y, inf = points_aff
-    g2 = curve is dcv.G2
-    n = inf.shape[0]
-    live = (~inf).to(torch.int32)[None]
-    acc0 = packed_infinity(g2, n, inf.device)
-    if window == 4:
-        table = _ladder_table(curve, points_aff)
-        digits = dcv.scalar_digits(scalars, nbits, 4) * live
-        acc = p_step4(g2, acc0, table, digits.contiguous())
-    else:
-        q = pk.pack([*x, *y] if g2 else [x, y])
-        bits = dcv.scalar_bits(scalars, nbits) * live
-        acc = p_step(g2, acc0, q, bits.contiguous())
-    jac = unpack_jac(acc, g2)
+    jac = _lane_ladders(curve, points_aff, scalars, nbits, window,
+                        _MSM_STAGES)
     return curve.fold_sum(jac) if fold else jac
 
 
+@trace.traced("ladder")
 def scalar_mul_pallas(curve, points_aff, scalars, nbits: int = 255,
                       window: int = 4):
     """Per-lane scalars_i·points_i on the ladder (no fold): the batched
     encryption's three scalar-muls (``pallas_curve.scalar_mul_pallas``
     :786). Returns a Jacobian tuple [N]."""
-    return msm_pallas(curve, points_aff, scalars, nbits=nbits, window=window,
-                      fold=False)
+    return _lane_ladders(curve, points_aff, scalars, nbits, window,
+                         _LADDER_STAGES)
 
 
+@trace.traced("ladder")
 def scalar_mul_gathered(curve, points_aff, index, scalars, nbits: int = 255):
     """Per-lane scalars_l·points[index_l], for many lanes over few
     distinct points (the DKG's row commitments and value checks): the
@@ -555,16 +575,19 @@ def scalar_mul_gathered(curve, points_aff, index, scalars, nbits: int = 255):
     """
     g2 = curve is dcv.G2
     n, dev = index.shape[0], index.device
-    table = _ladder_table(curve, points_aff)
+    with trace.span("ladder.table"):
+        table = _ladder_table(curve, points_aff)
     live = (~points_aff[2]).to(torch.int32)
     accs = []
     for start in range(0, n, LADDER_CHUNK):
         idx = index[start:start + LADDER_CHUNK]
-        digits = dcv.scalar_digits(scalars[start:start + LADDER_CHUNK],
-                                   nbits, 4) * live[idx][None]
-        accs.append(p_step4(g2, packed_infinity(g2, idx.shape[0], dev),
-                            table.index_select(1, idx),
-                            digits.contiguous()))
+        with trace.span("ladder.digits"):
+            digits = dcv.scalar_digits(scalars[start:start + LADDER_CHUNK],
+                                       nbits, 4) * live[idx][None]
+        with trace.span("ladder.steps"):    # the chunk's table gathered too
+            accs.append(p_step4(g2, packed_infinity(g2, idx.shape[0], dev),
+                                table.index_select(1, idx),
+                                digits.contiguous()))
     return unpack_jac(torch.cat(accs, 1), g2)
 
 
@@ -576,6 +599,7 @@ def fixed_digits(k: int, window: int = 4):
             for i in range(nd - 1, -1, -1)]
 
 
+@trace.traced("ladder")
 def scalar_mul_fixed_pallas(curve, points_aff, k: int, window: int = 4):
     """Per-lane k·P_i for one public scalar k of any width
     (``pallas_curve.scalar_mul_fixed_pallas`` :796): one table and one B13
@@ -588,15 +612,18 @@ def scalar_mul_fixed_pallas(curve, points_aff, k: int, window: int = 4):
     inf = points_aff[2]
     g2 = curve is dcv.G2
     n = inf.shape[0]
-    table = _ladder_table(curve, points_aff)
-    digs = torch.tensor(fixed_digits(k, window), dtype=torch.int32,
-                        device=inf.device)
-    digits = digs[:, None] * (~inf).to(torch.int32)[None]
-    acc = p_step4(g2, packed_infinity(g2, n, inf.device), table,
-                  digits.contiguous())
+    with trace.span("ladder.table"):
+        table = _ladder_table(curve, points_aff)
+    with trace.span("ladder.digits"):
+        digs = torch.tensor(fixed_digits(k, window), dtype=torch.int32,
+                            device=inf.device)
+        digits = (digs[:, None] * (~inf).to(torch.int32)[None]).contiguous()
+    with trace.span("ladder.steps"):
+        acc = p_step4(g2, packed_infinity(g2, n, inf.device), table, digits)
     return unpack_jac(acc, g2)
 
 
+@trace.traced("msm")
 def msm_pallas_shared(curve, points_aff, scalars, nbits: int = 64,
                       window: int = 3, accumulators=None,
                       fused: bool = True):
@@ -621,24 +648,27 @@ def msm_pallas_shared(curve, points_aff, scalars, nbits: int = 64,
     g2 = curve is dcv.G2
     n = inf.shape[0]
     k = 2 if g2 else 1
-    digits = dcv.scalar_digits(scalars, nbits, window)         # [D, N]
-    digits = torch.where(inf[None], torch.zeros_like(digits), digits)
-    q = pk.pack([*x, *y] if g2 else [x, y])
-    base = torch.cat([q, pk._one_rows(k, n, q.device)])        # Z = 1
-    entries = [base]
-    for _ in range((1 << window) - 2):
-        entries.append(p_madd(g2, entries[-1], q))
-    table = torch.cat(entries)
-    digits = digits.contiguous()
+    with trace.span("msm.digits"):
+        digits = dcv.scalar_digits(scalars, nbits, window)     # [D, N]
+        digits = torch.where(inf[None], torch.zeros_like(digits),
+                             digits).contiguous()
+    with trace.span("msm.table"):
+        q = pk.pack([*x, *y] if g2 else [x, y])
+        base = torch.cat([q, pk._one_rows(k, n, q.device)])    # Z = 1
+        entries = [base]
+        for _ in range((1 << window) - 2):
+            entries.append(p_madd(g2, entries[-1], q))
+        table = torch.cat(entries)
     A = min(accumulators, max(n, 1))
-    if fused:
-        acc = p_winacc(g2, table, digits, A, window)
-    else:
-        acc = packed_infinity(g2, A, q.device)
-        for row in digits:
-            acc = p_dblw(g2, acc, window)
-            for start in range(0, n, A):
-                acc = p_selmadd(g2, acc, table, row, start)
+    with trace.span("msm.horner"):
+        if fused:
+            acc = p_winacc(g2, table, digits, A, window)
+        else:
+            acc = packed_infinity(g2, A, q.device)
+            for row in digits:
+                acc = p_dblw(g2, acc, window)
+                for start in range(0, n, A):
+                    acc = p_selmadd(g2, acc, table, row, start)
     return curve.fold_sum(unpack_jac(acc, g2))
 
 

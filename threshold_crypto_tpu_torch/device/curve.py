@@ -32,6 +32,7 @@ import torch
 
 from ..host import curve as hcv
 from ..host.params import G1_GEN, G2_GEN
+from ..utils import trace
 from . import mont
 from . import tower as tw
 from .mont import FQ
@@ -445,6 +446,7 @@ class DeviceCurve:
             self, jacobian_to_affine(self, points), scalars, nbits=nbits,
             window=window, fused=False)
 
+    @trace.traced("msm")
     def msm_scalarwise(self, points, scalars, nbits: int = 255,
                        window: int = 1):
         """Σ points_i·scalars_i over Jacobian points [N]: N per-lane
@@ -453,6 +455,7 @@ class DeviceCurve:
         return self.fold_sum(self.scalar_mul(points, scalars, nbits=nbits,
                                              window=window))
 
+    @trace.traced("curve.fold")
     def fold_axis(self, pts, axis: int = 0):
         """Σ over one batch axis by a pairwise tree of complete adds:
         ⌈log₂ n⌉ levels, each one stacked add of the first half of the
@@ -462,16 +465,17 @@ class DeviceCurve:
         pts = tree_map(lambda a: a.movedim(axis, 0), pts)
         n = self.f.shape(pts[2])[0]
         while n > 1:
-            if n % 2:
-                rest = self.f.shape(pts[2])[1:]
-                pad = self.infinity((1,) + tuple(rest),
-                                    leaves(pts)[0].device)
-                pts = tree_map(lambda a, b: torch.cat([a, b]), pts, pad)
-                n += 1
-            half = n // 2
-            pts = self.add(tree_map(lambda a: a[:half], pts),
-                           tree_map(lambda a: a[half:], pts))
-            n = half
+            with trace.span("curve.fold.level"):
+                if n % 2:
+                    rest = self.f.shape(pts[2])[1:]
+                    pad = self.infinity((1,) + tuple(rest),
+                                        leaves(pts)[0].device)
+                    pts = tree_map(lambda a, b: torch.cat([a, b]), pts, pad)
+                    n += 1
+                half = n // 2
+                pts = self.add(tree_map(lambda a: a[:half], pts),
+                               tree_map(lambda a: a[half:], pts))
+                n = half
         return tree_map(lambda a: a[0], pts)
 
     def fold_sum(self, pts):

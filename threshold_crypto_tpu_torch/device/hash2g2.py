@@ -51,6 +51,7 @@ import functools
 import torch
 
 from ..host.params import B_G2, H2, P
+from ..utils import trace
 from . import chacha as dchacha
 from . import cuda_curve as ccv
 from . import curve as dcv
@@ -222,6 +223,7 @@ def fq2_sqrt(a):
                          tw.fq2_mul(b_exp, x0))
 
 
+@trace.traced("hash.g2")
 def hash_g2_device(digests, attempts: int = DEFAULT_ATTEMPTS,
                    n_words: int = DEFAULT_WORDS):
     """Batched G2::random(ChaChaRng(digest)) on the digests' device.
@@ -238,21 +240,25 @@ def hash_g2_device(digests, attempts: int = DEFAULT_ATTEMPTS,
     A = attempts
     rows = torch.arange(n, device=dev)
 
-    words = _chacha_words_multikey(digests, n_words)
-    xc0_w, xc1_w, grt, nvalid = extract_candidates(words, A)
-    x = (_words_to_limbs(xc0_w), _words_to_limbs(xc1_w))     # [N, A, 24]
-    rhs, ok_k = residue_test(x, nvalid)
+    with trace.span("hash.chacha"):
+        words = _chacha_words_multikey(digests, n_words)
+    with trace.span("hash.candidates"):
+        xc0_w, xc1_w, grt, nvalid = extract_candidates(words, A)
+        x = (_words_to_limbs(xc0_w), _words_to_limbs(xc1_w))  # [N, A, 24]
+    with trace.span("hash.residue"):
+        rhs, ok_k = residue_test(x, nvalid)
 
-    # the first usable candidate per lane (slot A − 1 where none is)
-    found = ok_k.any(1)
-    chosen = torch.where(found, ok_k.to(torch.int32).argmax(1),
-                         torch.full_like(rows, A - 1))
-    xs = (x[0][rows, chosen], x[1][rows, chosen])
-    g = grt[rows, chosen]
-    y = fq2_sqrt((rhs[0][rows, chosen], rhs[1][rows, chosen]))
+    with trace.span("hash.sqrt"):
+        # the first usable candidate per lane (slot A − 1 where none is)
+        found = ok_k.any(1)
+        chosen = torch.where(found, ok_k.to(torch.int32).argmax(1),
+                             torch.full_like(rows, A - 1))
+        xs = (x[0][rows, chosen], x[1][rows, chosen])
+        g = grt[rows, chosen]
+        y = fq2_sqrt((rhs[0][rows, chosen], rhs[1][rows, chosen]))
 
-    # the root the `greatest` draw asks for (host get_point_from_x)
-    y = tw.fq2_select(_fq2_is_greatest(y) == g, y, tw.fq2_neg(y))
+        # the root the `greatest` draw asks for (host get_point_from_x)
+        y = tw.fq2_select(_fq2_is_greatest(y) == g, y, tw.fq2_neg(y))
 
     # the cofactor H2: one ladder over its 127 static base-16 digits
     aff = (xs, y, torch.zeros(n, dtype=torch.bool, device=dev))

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from ..host.params import X_BITS
+from ..utils import trace
 from . import cuda_tower as ctw
 from . import mont
 from . import packed as pk
@@ -184,23 +185,27 @@ def _expx_packed(f):
     return pk.packed_conj12(acc)
 
 
+@trace.traced("pairing.final_exp")
 def final_exponentiation_packed(f):
     """The final exponentiation on the packed layout; the same GT limbs as
     ``final_exponentiation``. The easy part (one Fermat inversion, one B2
     launch) and the Frobenius run on the tower; the hard part is the lattice
     chain t1 = x^X·conj(x), t2 = t1^X·conj(t1), t3 = t2^X·frob1(t2),
     t5 = t3^X^X·frob2(t3)·conj(t3), result t5·x²·x, in B6-B9 launches."""
-    f = pk.pack12(_easy_part(pk.unpack12(f)))
-    t = ctw.p_fq12_mul(_expx_packed(f), pk.packed_conj12(f))
-    t = ctw.p_fq12_mul(_expx_packed(t), pk.packed_conj12(t))
-    t = ctw.p_fq12_mul(_expx_packed(t), _packed_frob(t, 1))
-    tx2 = _expx_packed(_expx_packed(t))
-    t = ctw.p_fq12_mul(ctw.p_fq12_mul(tx2, _packed_frob(t, 2)),
-                       pk.packed_conj12(t))
-    f3 = ctw.p_fq12_mul(ctw.p_fq12_sqr(f), f)
-    return ctw.p_fq12_mul(t, f3)
+    with trace.span("final_exp.easy"):
+        f = pk.pack12(_easy_part(pk.unpack12(f)))
+    with trace.span("final_exp.hard"):
+        t = ctw.p_fq12_mul(_expx_packed(f), pk.packed_conj12(f))
+        t = ctw.p_fq12_mul(_expx_packed(t), pk.packed_conj12(t))
+        t = ctw.p_fq12_mul(_expx_packed(t), _packed_frob(t, 1))
+        tx2 = _expx_packed(_expx_packed(t))
+        t = ctw.p_fq12_mul(ctw.p_fq12_mul(tx2, _packed_frob(t, 2)),
+                           pk.packed_conj12(t))
+        f3 = ctw.p_fq12_mul(ctw.p_fq12_sqr(f), f)
+        return ctw.p_fq12_mul(t, f3)
 
 
+@trace.traced("pairing.miller")
 def _miller_packed(p_aff, q_aff):
     """Conjugated Miller values of every (P, Q) lane, flattened; lanes with
     an infinite P or Q are exactly 1."""
@@ -211,6 +216,7 @@ def _miller_packed(p_aff, q_aff):
     return torch.where((p_inf | q_inf)[None, :], one, f)
 
 
+@trace.traced("pairing.check")
 def pairing_check_pallas(p_aff, q_aff):
     """bool[...]: ∏ e(P_i, Q_i) == 1 over the leading pair axis, on the
     megakernel path. The k pairs of a lane sit in k bands of the lane axis
@@ -218,12 +224,14 @@ def pairing_check_pallas(p_aff, q_aff):
     exponentiation."""
     k = p_aff[2].shape[0]
     f = _miller_packed(p_aff, q_aff)
-    n = f.shape[1] // k
-    acc = f[:, :n].contiguous()
-    for i in range(1, k):
-        acc = ctw.p_fq12_mul(acc, f[:, i * n:(i + 1) * n].contiguous())
+    with trace.span("pairing.fold_pairs"):
+        n = f.shape[1] // k
+        acc = f[:, :n].contiguous()
+        for i in range(1, k):
+            acc = ctw.p_fq12_mul(acc, f[:, i * n:(i + 1) * n].contiguous())
     gt = final_exponentiation_packed(acc)
-    return pk.packed_is_one12(gt).reshape(p_aff[2].shape[1:])
+    with trace.span("pairing.is_one"):
+        return pk.packed_is_one12(gt).reshape(p_aff[2].shape[1:])
 
 
 def pairing_pallas(p_aff, q_aff):

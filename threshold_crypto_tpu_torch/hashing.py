@@ -29,6 +29,7 @@ import torch
 from . import native
 from .backend import get_backend
 from .device import mont
+from .utils import trace
 from .utils.rng import ChaChaRng
 
 
@@ -44,6 +45,7 @@ def hash_g2(msg: bytes):
     return b.G2.random(ChaChaRng.from_seed(sha3_256(msg)))
 
 
+@trace.traced("hash.digests")
 def digest_words(msgs, device):
     """int64[N, 8] tensor on ``device``: the little-endian u32 words of each
     message's SHA3-256 digest, the keys of the device ChaCha streams."""

@@ -30,6 +30,7 @@ import torch
 from ..device import cuda_fr
 from ..device import mont
 from ..device.mont import FR
+from ..utils import trace
 
 
 class FrOps:
@@ -133,6 +134,7 @@ _prod_leading = cuda_fr.fold_products
 _LAGRANGE_MATRIX_MAX = 1024
 
 
+@trace.traced("fr.lagrange")
 def lagrange_coeffs_at_zero(xs):
     """λᵢ = Π_{j≠i} x_j / (x_j − x_i) for a batch of distinct x.
 
@@ -150,7 +152,8 @@ def _finish(xs, prod_all, row_prod, dup):
     inversion, λ_i = Π_j x_j / den_i."""
     den = mont.mul(FR, xs, row_prod)
     zero_x = mont.is_zero(FR, xs).any()
-    den_inv = batch_inv(den)
+    with trace.span("fr.lagrange.inv"):
+        den_inv = batch_inv(den)
     lam = mont.mul(FR, prod_all.expand_as(den_inv), den_inv)
     return lam, ~(dup | zero_x)
 
@@ -159,8 +162,10 @@ def _lagrange_pallas(xs):
     """The kernel form: the O(N²) denominator sweep in B14; the duplicate
     flag from its zero count (exactly 1, the diagonal, on every lane iff
     the x are distinct)."""
-    prod_all = _prod_leading(xs)
-    row_prod, zcnt = cuda_fr.lagrange_rowprod(xs.contiguous())
+    with trace.span("fr.lagrange.tree"):
+        prod_all = _prod_leading(xs)
+    with trace.span("fr.lagrange.rowprod"):
+        row_prod, zcnt = cuda_fr.lagrange_rowprod(xs.contiguous())
     return _finish(xs, prod_all, row_prod, (zcnt != 1).any())
 
 
@@ -168,12 +173,14 @@ def _lagrange_matrix(xs):
     """The N×N difference matrix: diffs[i, j] = x_j − x_i with the diagonal
     set to 1, its row products over j."""
     n, dev = xs.shape[0], xs.device
-    prod_all = _prod_leading(xs)
-    diffs = mont.sub(FR, xs[None, :, :], xs[:, None, :])     # [i, j, L]
-    eye = torch.eye(n, dtype=torch.bool, device=dev)
-    dup = (mont.is_zero(FR, diffs) & ~eye).any()
-    diffs = mont.select(eye, mont.one(FR, (n, n), dev), diffs)
-    row_prod = _prod_leading(diffs.movedim(1, 0))             # over j
+    with trace.span("fr.lagrange.tree"):
+        prod_all = _prod_leading(xs)
+    with trace.span("fr.lagrange.rowprod"):
+        diffs = mont.sub(FR, xs[None, :, :], xs[:, None, :])  # [i, j, L]
+        eye = torch.eye(n, dtype=torch.bool, device=dev)
+        dup = (mont.is_zero(FR, diffs) & ~eye).any()
+        diffs = mont.select(eye, mont.one(FR, (n, n), dev), diffs)
+        row_prod = _prod_leading(diffs.movedim(1, 0))         # over j
     return _finish(xs, prod_all, row_prod, dup)
 
 
@@ -187,6 +194,7 @@ def interpolate_at_zero(xs, ys):
     return sum_leading(mont.mul(FR, lam, ys)), ok
 
 
+@trace.traced("fr.sum_leading")
 def sum_leading(a):
     """Σ over the leading axis, mod r, by a pairwise tree of additions
     (⌈log₂ N⌉ levels, an odd level carrying its last entry up)."""

@@ -62,6 +62,7 @@ from ..device.mont import FQ, FR
 from ..host import chacha as hchacha
 from ..host.params import G1_GEN, P
 from ..poly import coeff_pos
+from ..utils import trace
 from . import fr as frops
 
 
@@ -110,6 +111,7 @@ def batch_inv_field(f, a):
     return tree_map(lambda x: x.reshape(tuple(bs) + x.shape[1:]), out)
 
 
+@trace.traced("affine")
 def jacobian_to_affine(curve, p):
     """Batched Jacobian -> affine tuple (x, y, inf) for the pairing: one
     batched inversion of Z. Infinity lanes (Z = 0) get inf = True and
@@ -180,6 +182,7 @@ def verify_batch(pk_aff, h_aff, sig_aff):
     return dpr.pairing_check(p, q)
 
 
+@trace.traced("ops.verify_batch_pallas")
 def verify_batch_pallas(pk_aff, h_aff, sig_aff):
     """``verify_batch`` on the megakernel path
     (``device.pairing.pairing_check_pallas``): the same bool[N], with each
@@ -191,6 +194,7 @@ def verify_batch_pallas(pk_aff, h_aff, sig_aff):
                                     _pair2(h_aff, sig_aff))
 
 
+@trace.traced("ops.verify_with_hash_batch")
 def verify_with_hash_batch(pk_aff, msgs, sig_aff, attempts: int = 8):
     """N signatures over N distinct messages, the message hash included:
     e(pk_i, H(m_i)) == e(G1, sig_i) per lane, the reference's per-share
@@ -212,6 +216,7 @@ def verify_with_hash_batch(pk_aff, msgs, sig_aff, attempts: int = 8):
     return verify_batch_pallas(pk_aff, h_aff, sig_aff).cpu().numpy()
 
 
+@trace.traced("ops.splice_host_hashes")
 def splice_host_hashes(h_aff, ok, msgs):
     """The G2 affine tuple h_aff with each lane that is not ``ok`` replaced
     by ``hashing.hash_g2`` of its message (the native library's chain)."""
@@ -226,6 +231,7 @@ def splice_host_hashes(h_aff, ok, msgs):
     return tree_map(lambda a, b: a.index_put((idx,), b), h_aff, fb)
 
 
+@trace.traced("ops.verify_dec_share_batch")
 def verify_dec_share_batch(share_aff, huv_aff, pk_aff, w_aff):
     """bool[N]: e(share_i, H(u, v)_i) == e(pk_i, w_i) per lane
     (``src/lib.rs:182-186``), as e(share, H)·e(−pk, w) == 1 through
@@ -235,6 +241,7 @@ def verify_dec_share_batch(share_aff, huv_aff, pk_aff, w_aff):
         _pair2(share_aff, _neg_aff(dcv.G1, pk_aff)), _pair2(huv_aff, w_aff))
 
 
+@trace.traced("ops.ciphertext_verify_batch")
 def ciphertext_verify_batch(u_aff, w_aff, huv_aff):
     """bool[N]: e(G1, w_i) == e(u_i, H(u, v)_i) per lane, the ciphertext
     check (``src/lib.rs:508-513``), as e(G1, w)·e(−u, H) == 1 through
@@ -249,6 +256,7 @@ def ciphertext_verify_batch(u_aff, w_aff, huv_aff):
 # Sign, decrypt share, encrypt: per-lane scalar-muls on the ladder
 # ---------------------------------------------------------------------------
 
+@trace.traced("ops.sign_batch")
 def sign_batch(h_jac, sk_plain):
     """sig_i = H_i·sk_i (``src/lib.rs:372-374``): h_jac a G2 Jacobian tuple
     [N] (a shared hash point broadcast to the batch), sk_plain int32[N, 16]
@@ -259,6 +267,7 @@ def sign_batch(h_jac, sk_plain):
                                  sk_plain)
 
 
+@trace.traced("ops.decrypt_share_batch")
 def decrypt_share_batch(u_jac, sk_plain):
     """d_i = u_i·sk_i (G1), the decryption share (``src/lib.rs:460-462``),
     as ``sign_batch`` is in G2. Returns a G1 Jacobian tuple [N]."""
@@ -295,6 +304,7 @@ def encrypt_batch(pk_jac, r_plain, huv_jac):
     return u, g, encrypt_finish_batch(huv_jac, r_plain)
 
 
+@trace.traced("ops.encrypt_batch_pallas")
 def encrypt_batch_pallas(pk_aff, r_plain, huv_aff):
     """The three scalar-muls of batched encryption (``src/lib.rs:128-137``)
     on the per-lane ladder (``cuda_curve.scalar_mul_pallas``: B10 tables,
@@ -316,6 +326,7 @@ def encrypt_batch_pallas(pk_aff, r_plain, huv_aff):
 COMBINE_PATHS = ("pallas", "scalarwise", "bitscan")
 
 
+@trace.traced("ops.combine_batch")
 def combine_batch(curve, shares_jac, xs_mont, path: str = "scalarwise"):
     """Σᵢ λᵢ·shareᵢ with λ from the batch's x (``src/lib.rs:719-767``).
 
@@ -364,6 +375,7 @@ def derive_shares(coeffs_mont, xs_mont):
 # Commitments and the DKG (``src/poly.rs:372-377, 589-632, 693-744``)
 # ---------------------------------------------------------------------------
 
+@trace.traced("ops.commit_batch")
 def commit_batch(coeffs_plain):
     """Feldman commitment G1·c_k of every coefficient: coeffs_plain
     int32[D+1, 16] canonical Fr limbs -> a G1 Jacobian tuple [D+1]
@@ -372,6 +384,7 @@ def commit_batch(coeffs_plain):
     return dcv.G1.scalar_mul(gen, coeffs_plain)
 
 
+@trace.traced("fr.powers")
 def powers_batch(xs_mont, degree: int):
     """[x⁰ .. x^degree] per lane: int32[M, 16] -> [M, degree+1, 16]
     Montgomery limbs, by ``degree`` products (B1) one after another."""
@@ -394,6 +407,7 @@ def _pos_grid(degree: int, device):
                          for i in range(degree + 1)], device=device)
 
 
+@trace.traced("ops.bivar_row_batch")
 def bivar_row_batch(coeffs_mont, xs_mont, degree: int):
     """The dealer's rows for a batch of nodes: out[m, i] =
     Σ_j c[pos(i, j)]·x_m^j (``src/poly.rs:607-623``). coeffs_mont:
@@ -407,6 +421,7 @@ def bivar_row_batch(coeffs_mont, xs_mont, degree: int):
     return frops.sum_leading(terms.movedim(2, 0))
 
 
+@trace.traced("ops.bivar_commit_row_batch")
 def bivar_commit_row_batch(commit_jac, xs_mont, degree: int):
     """The row commitments from a ``BivarCommitment`` for a batch of
     nodes: out[m, i] = Σ_j C[pos(i, j)]·x_m^j (``src/poly.rs:693-726``),
@@ -430,6 +445,7 @@ def bivar_commit_row_batch(commit_jac, xs_mont, degree: int):
     return dcv.G1.fold_axis(prods, 2)
 
 
+@trace.traced("ops.bivar_commit_eval_batch")
 def bivar_commit_eval_batch(commit_jac, xs_mont, ys_mont, degree: int):
     """``BivarCommitment.evaluate(x_m, y_m)`` for a batch of pairs:
     Σ_{i ≤ j} C[pos(i, j)]·(x^i·y^j + x^j·y^i) (the second term for i ≠ j;
@@ -514,6 +530,7 @@ def rlc_aggregate_pallas(pk_aff, sig_aff, r_plain, nbits: int = 64,
             jacobian_to_affine(dcv.G2, one(asg)))
 
 
+@trace.traced("ops.verify_sig_shares_rlc_pallas")
 def verify_sig_shares_rlc_pallas(pk_aff, h_jac, sig_aff, r_plain,
                                  check_batch: int = 512,
                                  msm: str = "shared"):
@@ -541,6 +558,7 @@ def verify_sig_shares_rlc_pallas(pk_aff, h_jac, sig_aff, r_plain,
     return verify_batch_pallas(bc(pk_a), bc(h_a), bc(sg_a))[0]
 
 
+@trace.traced("rlc.exponents")
 def rlc_exponents(n: int, seed: bytes, *trees, pk_aff=None, sig_aff=None,
                   h_jac=None, on_device: bool = True, device=None):
     """Deterministic 64-bit batch-verification exponents, bound to the
@@ -562,19 +580,21 @@ def rlc_exponents(n: int, seed: bytes, *trees, pk_aff=None, sig_aff=None,
         device = next((x.device for x in leaf_list
                        if isinstance(x, torch.Tensor)), "cuda")
     device = mont.device_of(device)
-    digests = dkeccak.transcript_digests(leaf_list) if absorb else []
-    material = (bytes(seed) + n.to_bytes(8, "little")
-                + len(digests).to_bytes(8, "little") + b"".join(digests))
-    digest = hashlib.sha3_256(material).digest()
+    with trace.span("rlc.transcript"):
+        digests = dkeccak.transcript_digests(leaf_list) if absorb else []
+        material = (bytes(seed) + n.to_bytes(8, "little")
+                    + len(digests).to_bytes(8, "little") + b"".join(digests))
+        digest = hashlib.sha3_256(material).digest()
 
-    if on_device:
-        key = torch.from_numpy(
-            np.frombuffer(digest, dtype="<u4").astype(np.int64)).to(device)
-        return dchacha.rlc_exponent_limbs(key, n)
-    w = hchacha.chacha20_words(digest, 2 * n).astype(np.uint64)
-    v = w[0::2] | (w[1::2] << np.uint64(32))
-    v = np.where(v == 0, np.uint64(1), v)
-    out = np.zeros((n, 16), np.int32)
-    for limb in range(4):
-        out[:, limb] = (v >> np.uint64(16 * limb)) & np.uint64(0xFFFF)
-    return torch.from_numpy(out).to(device)
+    with trace.span("rlc.chacha"):
+        if on_device:
+            key = torch.from_numpy(
+                np.frombuffer(digest, dtype="<u4").astype(np.int64)).to(device)
+            return dchacha.rlc_exponent_limbs(key, n)
+        w = hchacha.chacha20_words(digest, 2 * n).astype(np.uint64)
+        v = w[0::2] | (w[1::2] << np.uint64(32))
+        v = np.where(v == 0, np.uint64(1), v)
+        out = np.zeros((n, 16), np.int32)
+        for limb in range(4):
+            out[:, limb] = (v >> np.uint64(16 * limb)) & np.uint64(0xFFFF)
+        return torch.from_numpy(out).to(device)

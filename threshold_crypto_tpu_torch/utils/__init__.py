@@ -1,1 +1,1 @@
-"""Host utilities of the port: the RNGs."""
+"""Host utilities of the port: the RNGs and the stage spans."""

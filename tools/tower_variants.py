@@ -46,9 +46,9 @@ With ``--parent ROOT`` (another checkout: its ``chip_smoke.py`` and
 ``threshold_crypto_tpu_torch/``) it also times both checkouts' calls in
 turns, one child process per turn (parent, this, this, parent, twice):
 the RLC call (``chip_smoke.rlc_call``, N = 262,144, exponents included),
-its MSM table stages (B10, G1 and G2) and its check stage
-(``verify_batch_pallas`` at 512 lanes), from ``chip_smoke.stage_timer``'s
-events, B9's launch in it (``chip_smoke.kernel_event_timer``), the
+its MSM table stages (B10, G1 and G2 together) and its check stage
+(``verify_batch_pallas`` at 512 lanes), from the program's spans
+(``chip_smoke.stage_timer``), B9's launch in it (``chip_smoke.kernel_event_timer``), the
 per-pair call ``ops.verify_batch_pallas`` at 8192 lanes with its B9
 launch the same way, and that call alone at the check's 512
 lanes (the per-pair inputs' first RLC_CHECK_BATCH lanes), CHECK_CALLS
@@ -418,10 +418,10 @@ ENTRIES = {"dbl_fold": ("miller", "tc_dbl_fold", 3, (288, 144)),
            "fq_engine": ("fq12", "tc_fq_engine", 2, None)}
 # B3's k in the check (chip_smoke.check_tower's).
 ENGINE_K = 8
-# The stages of an RLC call read in each turn (chip_smoke.stage_timer's
-# labels): the check, and the two MSM tables (B10).
-TURN_STAGES = {"check_ms": "check", "table_g1_ms": "  table (B10) G1",
-               "table_g2_ms": "  table (B10) G2"}
+# The stages of an RLC call read in each turn (the program's span names):
+# the check, and the two MSM tables (B10).
+TURN_STAGES = {"check_ms": "ops.verify_batch_pallas",
+               "table_ms": "msm.table"}
 # Kernels summed from chip_smoke.kernel_event_timer's events in each turn's
 # RLC and per-pair calls: B9.
 TURN_KERNELS = {"b9": "fq12_sqr"}
@@ -474,9 +474,9 @@ for i in range(1 + calls):
     torch.cuda.synchronize()
     if not ok:
         raise SystemExit("the valid batch was rejected")
-    for key, label in stages.items():
-        staged[key].append(sum(a.elapsed_time(b) for k, a, b in spans
-                               if k == label))
+    for key, name in stages.items():
+        staged[key].append(sum(r["device_ms"] for r in spans
+                               if r["name"] == name))
 pk, h, sig, want = cs.build_inputs()
 args = (dpr.g1_affine_from_host(pk, device=dev),
         dpr.g2_affine_from_host(h, device=dev),
