@@ -176,8 +176,9 @@ IMAD_PER_CLK_PER_SM = 64
 FQ_PRODUCT_IMADS = 4 * 12 * 12 + 12
 # The megakernel path's launches per call (X_BITS[1:]: 63 bits, five 1s).
 PALLAS_LAUNCHES = {"dbl_fold": 63, "add_fold": 5, "cyclo_sqr": 290,
-                   "cyclo_sqr_mul": 25, "fq12_mul": 8, "fq12_sqr": 1,
-                   "mont_pow": 1}
+                   "cyclo_sqr_mul": 25, "fq12_mul": 6, "fq12_sqr": 1,
+                   "frob_mul": 2, "easy_down": 1, "easy_up": 1,
+                   "mont_pow": 1, "mont_mul": 0}
 # The RLC path of bench.py (_bench_rlc_pallas): N shares on one message,
 # 16 keys tiled, the aggregate check on 512 replicated lanes; four lanes
 # with pk and sig at infinity.
@@ -279,7 +280,7 @@ API_PLAINTEXT = b"chip_smoke slice 8: threshold-encrypted"
 # Per device op of slice 8, the kernels that must have launched in it
 # (86 shares stay under ops.fr's matrix bound, so B14 must not launch).
 TOWER_KERNELS = ("dbl_fold", "add_fold", "cyclo_sqr", "cyclo_sqr_mul",
-                 "fq12_mul", "fq12_sqr")
+                 "fq12_mul", "fq12_sqr", "frob_mul", "easy_down", "easy_up")
 API_KERNELS = {
     "rlc": ("sha3_chunks", "g1_madd", "g2_madd", "g1_winacc", "g2_winacc",
             "mont_mul", "mont_pow") + TOWER_KERNELS,
@@ -801,6 +802,150 @@ def check_tower(name, gen, dev, card, n=None):
           f"({by}), {ms / bound:.1f}x the bound", flush=True)
     return dict(lanes=n, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=by)
+
+
+# B18, the final exponentiation's tower steps on the lane-group engine, at
+# the pairing check's widths: the RLC check's one lane, the ciphertext
+# check's 256, slice 2's 8192 and the strict benchmark's 65,536. Their Fq
+# products per lane (tools/tower_group_schedule.py): frob_mul 10 + 54,
+# easy_down 36 + 15 + 9 + 2, easy_up 2 + 9 + 36 + 10 + 54; their packed
+# components in and out, easy_down's n and easy_up's n⁻¹ one component in
+# limb rows. The plain versions run in PLAIN_CHUNK-lane pieces (lanes are
+# independent; the whole 65,536 at once would take tens of GB in the plain
+# product's int64 columns).
+B18_WIDTHS = (1, 256, LANES, 65536)
+B18_CHECKS = {"frob_mul": (24, 12, 64), "easy_down": (12, 21, 62),
+              "easy_up": (21, 12, 111)}
+B18_KERNELS = {"frob_mul": "frob_mul_group_kernel",
+               "easy_down": "easy_down_group_kernel",
+               "easy_up": "easy_up_group_kernel"}
+PLAIN_CHUNK = 8192
+
+
+def b18_inputs(n, gen, dev):
+    """Packed Fq12 a, b over n lanes, made on the card: lanes 0-1 zero,
+    2-3 one, 4 every component p − 1 (where n allows), the rest random."""
+    import torch
+    from threshold_crypto_tpu_torch.device import packed as pk
+    from threshold_crypto_tpu_torch.device.mont import FQ
+
+    p_minus_1 = torch.tensor([FQ.p_limbs[0] - 1, *FQ.p_limbs[1:]] * 12,
+                             dtype=torch.int32, device=dev)
+    out = []
+    for _ in range(2):
+        x = random_packed(12, n, gen, dev)
+        if n >= 8:
+            x[:, 0:4] = pk.packed_one12(4, dev)
+            x[:, 0:2] = 0
+            x[:, 4] = p_minus_1
+        out.append(x)
+    return out
+
+
+def plain_in_chunks(fn, args, axes, out_axes):
+    """fn's plain version over PLAIN_CHUNK lanes at a time, the pieces
+    joined: ``axes`` gives each argument's lane axis (packed: 1, limb rows:
+    0, None: not a tensor), ``out_axes`` each output's."""
+    import torch
+
+    n = args[0].shape[axes[0]]
+    pieces = []
+    with plain_versions():
+        for lo in range(0, n, PLAIN_CHUNK):
+            part = fn(*(a if ax is None else
+                        a.narrow(ax, lo, min(PLAIN_CHUNK, n - lo)).contiguous()
+                        for a, ax in zip(args, axes)))
+            pieces.append(part if isinstance(part, tuple) else (part,))
+    return tuple(torch.cat(list(p), dim=ax)
+                 for p, ax in zip(zip(*pieces), out_axes))
+
+
+def check_b18(gen, dev, card, ptxas):
+    """B18 at B18_WIDTHS: ``frob_mul`` (k = 1, 2), ``easy_down`` and
+    ``easy_up`` bit-exact against their plain versions, and the composed
+    easy part (``cuda_tower.p_easy_part``: easy_down, B2, easy_up) against
+    the tower's (``easy_part_ref``, its products on the plain versions);
+    each kernel's time, the composed easy part's and the bounds; ptxas's
+    figures, where a stack frame or a spill fails the run. Returns
+    {kernel: result}, each at 65,536 lanes with the other widths under
+    "widths", and the easy part's own under "easy_part"."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_tower as ctw
+    from threshold_crypto_tpu_torch.device import mont
+    from threshold_crypto_tpu_torch.device.mont import FQ
+
+    results = {name: {"widths": []} for name in B18_CHECKS}
+    easy = []
+    for n in B18_WIDTHS:
+        a, b = b18_inputs(n, gen, dev)
+        norm, inter = ctw.easy_down(a)
+        ninv = mont.inv(FQ, norm)
+        runs = {"frob_mul": [((a, b, k), (1, 1, None), (1,)) for k in (1, 2)],
+                "easy_down": [((a,), (1,), (0, 1))],
+                "easy_up": [((inter, ninv), (1, 0), (1,))]}
+        for name, cases in runs.items():
+            kernel = getattr(ctw, name)
+            plain = getattr(ctw, name + "_ref")
+            comps, out_comps, products = B18_CHECKS[name]
+            for args, axes, out_axes in cases:
+                got = kernel(*args)
+                got = got if isinstance(got, tuple) else (got,)
+                torch.cuda.synchronize()
+                t0 = time.time()
+                want = plain_in_chunks(plain, args, axes, out_axes)
+                plain_s = time.time() - t0
+                err = max(int((g - w).abs().max().item())
+                          for g, w in zip(got, want))
+                if err or not all(torch.equal(g, w)
+                                  for g, w in zip(got, want)):
+                    fail(f"{name}{args[2:]}: kernel disagrees with its plain "
+                         f"version at {n} lanes (max abs limb error {err})")
+                ms = cuda_time_ms(lambda: kernel(*args), 10)
+                bound, by = bound_ms((comps + out_comps) * 24 * 4 * n,
+                                     n * products * FQ_PRODUCT_IMADS, card)
+                k = f" k = {args[2]}" if name == "frob_mul" else ""
+                print(f"{name}{k} at {n} lanes: bit-exact (zero, one and "
+                      f"p - 1 lanes included); kernel {ms:.4f} ms, plain "
+                      f"{1e3 * plain_s:.1f} ms, bound {bound:.4f} ms ({by}), "
+                      f"{ms / bound:.1f}x the bound", flush=True)
+                results[name]["widths"].append(dict(
+                    lanes=n, k=args[2] if k else None, max_abs_err=err,
+                    ms=ms, plain_ms=1e3 * plain_s, bound_ms=bound,
+                    bound_by=by))
+        got = ctw.p_easy_part(a)
+        want = plain_in_chunks(ctw.easy_part_ref, (a,), (1,), (1,))[0]
+        if not torch.equal(got, want):
+            fail(f"the easy part (easy_down, B2, easy_up) disagrees with the "
+                 f"tower's at {n} lanes")
+        ms = cuda_time_ms(lambda: ctw.p_easy_part(a), 10)
+        tower_ms = cuda_time_ms(lambda: ctw.easy_part_ref(a), 2)
+        bound = (sum(w["bound_ms"] for name in ("easy_down", "easy_up")
+                     for w in results[name]["widths"][-1:])
+                 + pow_bound(FQ, n, FQ.p - 2, card)[0])
+        print(f"the easy part at {n} lanes: equals the tower's; easy_down, "
+              f"B2, easy_up {ms:.4f} ms, the tower on B1/B2 {tower_ms:.3f} ms, "
+              f"bound {bound:.4f} ms, {ms / bound:.1f}x the bound",
+              flush=True)
+        easy.append(dict(lanes=n, ms=ms, tower_ms=tower_ms, bound_ms=bound))
+        del a, b, norm, inter, ninv
+        torch.cuda.empty_cache()
+    for name, fn in B18_KERNELS.items():
+        res = results[name]
+        top = res["widths"][-1]
+        res.update({k: top[k] for k in ("lanes", "max_abs_err", "ms",
+                                        "plain_ms", "bound_ms", "bound_by")})
+        figures = ptxas[fn]
+        res["ptxas"] = dict(zip(
+            ("registers", "stack_frame", "spill_stores", "spill_loads"),
+            figures))
+        print(f"{name} (fq12.cu {fn}, lane-group engine): {figures[0]} "
+              f"registers, {figures[1]} bytes stack frame, {figures[2]} "
+              f"bytes spill stores, {figures[3]} bytes spill loads",
+              flush=True)
+        if any(figures[1:]):
+            fail(f"{fn}: a stack frame or spills on the lane-group engine")
+    results["easy_up"]["easy_part"] = easy
+    return results
 
 
 # ---------------------------------------------------------------------------
@@ -1598,15 +1743,15 @@ def rlc_launches(n):
     6 + 6 B10, 1 + 1 B11, the megakernel check's B4-B9, 4 B2 (the inverses
     of jacobian_to_affine on both sums and on H, and the easy part) and B1
     for the fold (5 stacked products per complete add, one add per level,
-    ⌈log₂ A⌉ levels per group) plus 28 (the affine conversions 4 + 6 + 6
-    and the check's 12)."""
+    ⌈log₂ A⌉ levels per group) plus 16 (the affine conversions 4 + 6 +
+    6); the check's easy part and Frobenius products are B18's."""
     from threshold_crypto_tpu_torch.device import cuda_curve as ccv
 
     levels = (min(ccv.ACCUMULATORS, n) - 1).bit_length()
     expect = dict(PALLAS_LAUNCHES)
     expect.update({"sha3_chunks": 2, "g1_madd": 6, "g2_madd": 6,
                    "g1_winacc": 1, "g2_winacc": 1, "mont_pow": 4,
-                   "mont_mul": 2 * 5 * levels + 28})
+                   "mont_mul": 2 * 5 * levels + 16})
     return expect
 
 
@@ -1912,14 +2057,14 @@ def hash_launches():
     products (x², x³, the norm), the square root's two fq2_pow_fixed plus
     three products, the root's order (one), the cofactor ladder (14 B10 for
     the table, one B13), the affine conversion (one B2, six products) and
-    the megakernel check (B4-B9, one B2, 12 products)."""
+    the megakernel check (B4-B9, B18, one B2)."""
     from threshold_crypto_tpu_torch.host.params import P
 
     expect = dict(PALLAS_LAUNCHES)
     expect.update({
         "mont_pow": 3, "g2_madd": 14, "g2_step4": 1,
         "mont_mul": (3 + _pow_products((P - 3) // 4) + 2
-                     + _pow_products((P - 1) // 2) + 1 + 1 + 6 + 12)})
+                     + _pow_products((P - 1) // 2) + 1 + 1 + 6)})
     return expect
 
 
@@ -3118,11 +3263,11 @@ def rlc_scalarwise_launches(n):
     """Launches of one ``verify_sig_shares_rlc`` call: per group one B15
     and the affine lift of the points (one B2; 4 B1 in G1, 6 in G2), a
     fold of ⌈log₂ n⌉ levels (5 B1 each), then the affine sums and H and
-    the megakernel check as in ``rlc_launches`` (3 B2, 28 B1, B4-B9 and
-    the easy part's B2)."""
+    the megakernel check as in ``rlc_launches`` (3 B2, 16 B1, B4-B9,
+    B18 and the easy part's B2)."""
     expect = dict(PALLAS_LAUNCHES)
     expect.update({"g1_step": 1, "g2_step": 1, "mont_pow": 2 + 4,
-                   "mont_mul": 4 + 6 + 2 * 5 * _levels(n) + 28})
+                   "mont_mul": 4 + 6 + 2 * 5 * _levels(n) + 16})
     return expect
 
 
@@ -3753,6 +3898,7 @@ def main():
               flush=True)
         if any(figures[1:]):
             fail(f"{fn}: a stack frame or spills on the lane-group engine")
+    results.update(check_b18(gen, dev, card, ptxas))
     source, fn = ENGINE_KERNEL
     figures = ptxas[fn]
     results["fq_engine"]["ptxas"] = dict(zip(

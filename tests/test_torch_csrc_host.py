@@ -62,7 +62,8 @@ static void group_lanes(const int32_t* f, const int32_t* g, int32_t* fo,
     for (int ph = 0; ph < (mul ? kB7Phases : kB6Phases); ++ph)
       for (int tid = 0; tid < kGroup; ++tid)
         run_phase(mul ? kB7PhaseOps : kB6PhaseOps, mul ? kB7Ops : kB6Ops,
-                  mul ? kB7Terms : kB6Terms, ph, tid, kGroup, smem.data());
+                  mul ? kB7Terms : kB6Terms, kTowerConsts, ph, tid, kGroup,
+                  smem.data());
     for (int tid = 0; tid < kGroup; ++tid)
       stage_out(fo, mul ? kB7OutSlots : kB6OutSlots, 12, n, lane, 0, tid,
                 kGroup, smem.data(), words);

@@ -1,11 +1,11 @@
 """The lane-group tower engine (``csrc/tower_group.cuh``), compiled for the
-host, against the plain versions of B4, B5, B6, B7, B8, B9 and B17.
+host, against the plain versions of B4, B5, B6, B7, B8, B9, B17 and B18.
 
 On the card one lane of B4 ``dbl_fold`` / B5 ``add_fold`` / B6
 ``cyclo_sqr`` / B7 ``cyclo_sqr_mul`` / B8 ``fq12_mul`` / B9 ``fq12_sqr``
-/ B17 ``dbl_step``, ``f_sqr_fold``, ``add_step``, ``f_fold`` runs on a
-group of
-``kGroup`` threads: the block stages its lanes' inputs into shared
+/ B17 ``dbl_step``, ``f_sqr_fold``, ``add_step``, ``f_fold`` / B18
+``frob_mul``, ``easy_down``, ``easy_up`` runs on a group of ``kGroup``
+threads: the block stages its lanes' inputs into shared
 memory, each phase of the static schedule is dealt over the group's
 threads with a barrier after it, and the block writes its outputs. Here
 g++ compiles the header with CUDA's qualifiers defined away and a serial
@@ -20,16 +20,23 @@ phase functions in the barriers' order:
   blocks whose last one is ragged; B17's four bodies bit-exact with
   ``dbl_step_ref`` / ``f_sqr_fold_ref`` / ``add_step_ref`` /
   ``f_fold_ref`` the same way (the folds on zero, random and real lines),
-  and a step's body then its fold's equal to B4's or B5's body;
+  and a step's body then its fold's equal to B4's or B5's body; B18's
+  ``frob_mul`` bit-exact with ``frob_mul_ref`` at p and p², and
+  ``easy_down``, the plain inversion and ``easy_up`` with their plain
+  versions and with the tower's easy part, on zero lanes (which stay
+  zero), lanes of one, of p − 1, real Miller values and random lanes;
 * the dealing: each op of each phase runs on exactly one thread of the
   group, the product phases hold the 122 (B4: 48, 19, 16, 39), 80 (B5: 6,
   14, 48, 12), 18 (B6), 72 (B7: 18, 54), 54 (B8), 36 (B9) and B17's 47
-  (12, 19, 16), 75 (36, 39), 41 (6, 14, 9, 12) and 39 Fq products, and a
+  (12, 19, 16), 75 (36, 39), 41 (6, 14, 9, 12) and 39 Fq products, B18's
+  64 (10, 54) twice, 62 (36, 15, 9, 2) and 111 (2, 9, 36, 10, 54), and a
   thread runs Σ ceil(layer / G) of them;
+* a product whose second operand is a constant of the header's table is
+  the product by that constant;
 * a linear form reduced as its steps say (canonical when stored; as a
   product's operand, the bound the product needs) on edge and random
-  slots, B9's and B17's step schedules' own forms among them, and the
-  product canonical on operands up to that bound;
+  slots, B9's, B17's step schedules' and B18's own forms among them, and
+  the product canonical on operands up to that bound;
 * the tables in the header are the generator's
   (``tools/tower_group_schedule.py``);
 * a wrapper's dispatch sends a CPU tensor to the plain version.
@@ -53,7 +60,10 @@ from threshold_crypto_tpu_torch import _build
 from threshold_crypto_tpu_torch.device import cuda_tower as ctw
 from threshold_crypto_tpu_torch.device import mont
 from threshold_crypto_tpu_torch.device.mont import FQ
+from threshold_crypto_tpu_torch.host import curve as hcv
+from threshold_crypto_tpu_torch.host import pairing as hpr
 from threshold_crypto_tpu_torch.host import tower as htw
+from threshold_crypto_tpu_torch.host.params import R
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -75,7 +85,7 @@ struct Sched {
   const int32_t *phase_ops, *ops, *terms, *out_slots;
   int phases, slots, lane_words;
 };
-static const Sched kS[10] = {
+static const Sched kS[14] = {
     {kB4PhaseOps, kB4Ops, kB4Terms, kB4OutSlots, kB4Phases, kB4Slots,
      kB4LaneWords},
     {kB6PhaseOps, kB6Ops, kB6Terms, kB6OutSlots, kB6Phases, kB6Slots,
@@ -95,7 +105,15 @@ static const Sched kS[10] = {
     {kAddStepPhaseOps, kAddStepOps, kAddStepTerms, kAddStepOutSlots,
      kAddStepPhases, kAddStepSlots, kAddStepLaneWords},
     {kFFoldPhaseOps, kFFoldOps, kFFoldTerms, kFFoldOutSlots, kFFoldPhases,
-     kFFoldSlots, kFFoldLaneWords}};
+     kFFoldSlots, kFFoldLaneWords},
+    {kFrobMul1PhaseOps, kFrobMul1Ops, kFrobMul1Terms, kFrobMul1OutSlots,
+     kFrobMul1Phases, kFrobMul1Slots, kFrobMulLaneWords},
+    {kFrobMul2PhaseOps, kFrobMul2Ops, kFrobMul2Terms, kFrobMul2OutSlots,
+     kFrobMul2Phases, kFrobMul2Slots, kFrobMulLaneWords},
+    {kEasyDownPhaseOps, kEasyDownOps, kEasyDownTerms, kEasyDownOutSlots,
+     kEasyDownPhases, kEasyDownSlots, kEasyDownLaneWords},
+    {kEasyUpPhaseOps, kEasyUpOps, kEasyUpTerms, kEasyUpOutSlots,
+     kEasyUpPhases, kEasyUpSlots, kEasyUpLaneWords}};
 
 static std::vector<int32_t> rd(size_t count) {
   std::vector<int32_t> v(count);
@@ -104,7 +122,9 @@ static std::vector<int32_t> rd(size_t count) {
 }
 
 // One block after another of 2^shift lanes and 2^shift·G threads; each
-// loop over tid is what the block's threads do between two barriers.
+// loop over tid is what the block's threads do between two barriers. An
+// operand or output of 0 components is one Fq value as int32[n, 24] limb
+// rows.
 static void emulate(const Sched& s, const std::vector<const int32_t*>& in,
                     const std::vector<int>& in_comps,
                     const std::vector<int32_t*>& out,
@@ -117,20 +137,28 @@ static void emulate(const Sched& s, const std::vector<const int32_t*>& in,
     int slot0 = 0;
     for (size_t k = 0; k < in.size(); ++k) {
       for (int tid = 0; tid < nthreads; ++tid)
-        stage_in(in[k], in_comps[k], slot0, n, lane0, shift, tid, nthreads,
-                 smem.data(), s.lane_words);
-      slot0 += in_comps[k];
+        if (in_comps[k] == 0)
+          stage_in_rows(in[k], slot0, n, lane0, shift, tid, nthreads,
+                        smem.data(), s.lane_words);
+        else
+          stage_in(in[k], in_comps[k], slot0, n, lane0, shift, tid, nthreads,
+                   smem.data(), s.lane_words);
+      slot0 += in_comps[k] == 0 ? 1 : in_comps[k];
     }
     for (int ph = 0; ph < s.phases; ++ph)
       for (int tid = 0; tid < nthreads; ++tid)
-        run_phase(s.phase_ops, s.ops, s.terms, ph, tid % G, G,
+        run_phase(s.phase_ops, s.ops, s.terms, kTowerConsts, ph, tid % G, G,
                   smem.data() + static_cast<size_t>(tid / G) * s.lane_words);
     int c0 = 0;
     for (size_t k = 0; k < out.size(); ++k) {
       for (int tid = 0; tid < nthreads; ++tid)
-        stage_out(out[k], s.out_slots + c0, out_comps[k], n, lane0, shift,
-                  tid, nthreads, smem.data(), s.lane_words);
-      c0 += out_comps[k];
+        if (out_comps[k] == 0)
+          stage_out_rows(out[k], s.out_slots[c0], n, lane0, shift, tid,
+                         nthreads, smem.data(), s.lane_words);
+        else
+          stage_out(out[k], s.out_slots + c0, out_comps[k], n, lane0, shift,
+                    tid, nthreads, smem.data(), s.lane_words);
+      c0 += out_comps[k] == 0 ? 1 : out_comps[k];
     }
   }
 }
@@ -140,10 +168,15 @@ static void emulate(const Sched& s, const std::vector<const int32_t*>& in,
 // op 7: B8 (a, b -> a·b); op 8: B5 (f, T, Q, P -> f, T); op 9: B9 (a -> a²);
 // B17: op 20 dbl_step (T, P -> T, line), op 21 f_sqr_fold (f, line -> f),
 // op 22 add_step (T, Q, P -> T, line), op 23 f_fold (f, line -> f);
-// op 10 + s: for schedule s, a scratch of random values, then per phase
+// B18: op 24 / 25 frob_mul at p / p² (a, b -> a·σ(b)), op 26 easy_down
+// (f -> n as limb rows, s, m, c0-c2, tt), op 27 easy_up (s, m, c0-c2, tt,
+// n⁻¹ as limb rows -> f);
+// op 100 + s: for schedule s, a scratch of random values, then per phase
 // its op count, its product flag and per thread g the slots thread g's
 // share of it writes; op 4: n forms (words, first terms, `shift` terms)
-// over a scratch of G slots; op 5: n products.
+// over a scratch of G slots; op 5: n products; op 30: n values, each
+// times every constant of kTowerConsts by a product op whose second
+// operand is that constant.
 int main() {
   int32_t h[4];
   if (fread(h, 4, 4, stdin) != 4) return 2;
@@ -231,8 +264,42 @@ int main() {
       out.insert(out.end(), r.w, r.w + kWords);
     }
     fwrite(out.data(), 4, out.size(), stdout);
-  } else if (op >= 10 && op < 20) {
-    const Sched& s = kS[op - 10];
+  } else if (op == 24 || op == 25) {
+    auto a = rd(288ul * n), b = rd(288ul * n);
+    std::vector<int32_t> fo(288ul * n);
+    emulate(kS[op - 14], {a.data(), b.data()}, {12, 12}, {fo.data()}, {12}, n,
+            G, shift);
+    fwrite(fo.data(), 4, fo.size(), stdout);
+  } else if (op == 26) {
+    auto f = rd(288ul * n);
+    std::vector<int32_t> norm(24ul * n), inter(480ul * n);
+    emulate(kS[12], {f.data()}, {12}, {norm.data(), inter.data()}, {0, 20},
+            n, G, shift);
+    fwrite(norm.data(), 4, norm.size(), stdout);
+    fwrite(inter.data(), 4, inter.size(), stdout);
+  } else if (op == 27) {
+    auto inter = rd(480ul * n), ninv = rd(24ul * n);
+    std::vector<int32_t> fo(288ul * n);
+    emulate(kS[13], {inter.data(), ninv.data()}, {20, 0}, {fo.data()}, {12},
+            n, G, shift);
+    fwrite(fo.data(), 4, fo.size(), stdout);
+  } else if (op == 30) {  // n values times each constant
+    auto vals = rd(12ul * n);
+    const int32_t phase_ops[2] = {0, 1};
+    const int32_t ops[4] = {1, 0, 1, 1 | kConstForm};
+    std::vector<uint32_t> out;
+    for (int i = 0; i < n; ++i)
+      for (int c = 0; c < kTowerConstCount; ++c) {
+        const int32_t terms[2] = {1, c << 8 | 1};
+        std::vector<uint32_t> lane(2 * kWords);
+        for (int j = 0; j < kWords; ++j)
+          lane[j] = static_cast<uint32_t>(vals[12 * i + j]);
+        run_phase(phase_ops, ops, terms, kTowerConsts, 0, 0, 1, lane.data());
+        out.insert(out.end(), lane.begin() + kWords, lane.end());
+      }
+    fwrite(out.data(), 4, out.size(), stdout);
+  } else if (op >= 100 && op < 114) {
+    const Sched& s = kS[op - 100];
     auto init = rd(static_cast<size_t>(s.slots) * kWords);
     std::vector<int32_t> out;
     for (int ph = 0; ph < s.phases; ++ph) {
@@ -241,7 +308,8 @@ int main() {
       out.push_back(s.ops[4 * first + 3] > 0);
       for (int g = 0; g < G; ++g) {
         std::vector<uint32_t> lane(init.begin(), init.end());
-        run_phase(s.phase_ops, s.ops, s.terms, ph, g, G, lane.data());
+        run_phase(s.phase_ops, s.ops, s.terms, kTowerConsts, ph, g, G,
+                  lane.data());
         for (int k = 0; k < s.slots; ++k) {
           bool changed = false;
           for (int j = 0; j < kWords; ++j)
@@ -266,12 +334,16 @@ PRODUCTS = {"dbl_fold": [48, 19, 16, 39], "cyclo_sqr": [18],
             "cyclo_sqr_mul": [18, 54], "fq12_mul": [54],
             "add_fold": [6, 14, 48, 12], "fq12_sqr": [36],
             "dbl_step": [12, 19, 16], "f_sqr_fold": [36, 39],
-            "add_step": [6, 14, 9, 12], "f_fold": [39]}
+            "add_step": [6, 14, 9, 12], "f_fold": [39],
+            "frob_mul1": [10, 54], "frob_mul2": [10, 54],
+            "easy_down": [36, 15, 9, 2], "easy_up": [2, 9, 36, 10, 54]}
 # The schedules in the header's order (the harness's kS), by kernel.
 SCHEDS = ["dbl_fold", "cyclo_sqr", "cyclo_sqr_mul", "fq12_mul", "add_fold",
-          "fq12_sqr", "dbl_step", "f_sqr_fold", "add_step", "f_fold"]
+          "fq12_sqr", "dbl_step", "f_sqr_fold", "add_step", "f_fold",
+          "frob_mul1", "frob_mul2", "easy_down", "easy_up"]
 PREFIXES = ["kB4", "kB6", "kB7", "kB8", "kB5", "kB9", "kDblStep",
-            "kFSqrFold", "kAddStep", "kFFold"]
+            "kFSqrFold", "kAddStep", "kFFold", "kFrobMul1", "kFrobMul2",
+            "kEasyDown", "kEasyUp"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -583,6 +655,100 @@ def test_b17_step_then_fold_is_the_fused_body(harness, which, G):
         fused[288 * N:].reshape(144, N).copy()))
 
 
+def _b18_inputs(seed):
+    """Fq12 lanes for B18: 0-1 zero, 2-3 one, 4 every component p − 1,
+    5 one with c1 = p − 1 in every component, 8-11 real Miller values
+    (``host.pairing.miller_loop`` of random pairs), the rest random; as
+    host lists and packed."""
+    rnd = random.Random(seed)
+    f = _random(rnd, 12)
+    for c in f:
+        c[0] = c[1] = c[2] = c[3] = 0
+        c[4] = c[5] = FQ.p - 1
+    f[0][2] = f[0][3] = f[0][5] = 1
+    for c in f[1:6]:
+        c[5] = 0
+    for lane in range(8, 12):
+        p = hcv.G1.mul(hcv.G1.generator, rnd.randrange(1, R))
+        q = hcv.G2.mul(hcv.G2.generator, rnd.randrange(1, R))
+        for c, v in zip(f, _flat12(hpr.miller_loop(p, q))):
+            c[lane] = v
+    return f, _packed(f)
+
+
+@pytest.mark.parametrize("k", [1, 2])
+@pytest.mark.parametrize("G", [GROUP, 4, 16])
+def test_frob_mul_group_body_matches_plain_version(harness, k, G):
+    """B18 ``frob_mul``: a·σ_k(b) with a on B18's lanes (zero, one, p − 1,
+    real Miller values, random) and b zero on lanes 0, 1 and 3, p − 1 on
+    lane 2, cyclotomic on 8-13 and random elsewhere, the last block ragged,
+    against
+    ``fq12_mul(a, fq12_frob(b, k))`` and, on every lane, the host tower."""
+    a_host, a = _b18_inputs(0x18 + G + k)
+    b, b_host = _cyclo_inputs(0x180 + G + k)
+    for c in b_host:
+        c[3] = 0
+    b = _packed(b_host)
+    out = _run(harness, 23 + k, G, N, [a.numpy().tobytes(),
+                                       b.numpy().tobytes()])
+    fo = torch.from_numpy(out.reshape(288, N).copy())
+    assert torch.equal(fo, ctw.frob_mul_ref(a, b, k))
+    got = [mont.unstack_mont(FQ, c) for c in pk_unpack(fo)]
+    for lane in range(N):
+        e, h = (_fq12([x[i][lane] for i in range(12)])
+                for x in (a_host, b_host))
+        assert [got[i][lane] for i in range(12)] == \
+            _flat12(htw.fq12_mul(e, htw.fq12_frob(h, k)))
+
+
+@pytest.mark.parametrize("G", [GROUP, 1, 4, 16])
+def test_easy_part_group_bodies_match_plain_versions(harness, G):
+    """B18's easy part: ``easy_down``, then the plain Fermat inversion of
+    its n (``mont.inv``: zero to zero), then ``easy_up``, on B18's lanes
+    (zero lanes stay zero, one stays one), the last block ragged: each body
+    bit-exact with its plain version, and the whole with the tower's easy
+    part (``tower.fq12_easy_part``) and the host tower's."""
+    host, f = _b18_inputs(0xE5 + G)
+    out = _run(harness, 26, G, N, [f.numpy().tobytes()])
+    norm = torch.from_numpy(out[:24 * N].reshape(N, 24).copy())
+    inter = torch.from_numpy(out[24 * N:].reshape(480, N).copy())
+    want_norm, want_inter = ctw.easy_down_ref(f)
+    assert torch.equal(norm, want_norm)
+    assert torch.equal(inter, want_inter)
+    ninv = mont.inv(FQ, norm)
+    out = _run(harness, 27, G, N, [inter.numpy().tobytes(),
+                                   ninv.numpy().tobytes()])
+    fo = torch.from_numpy(out.reshape(288, N).copy())
+    assert torch.equal(fo, ctw.easy_up_ref(inter, ninv))
+    assert torch.equal(fo, ctw.easy_part_ref(f))
+    got = [mont.unstack_mont(FQ, c) for c in pk_unpack(fo)]
+    for lane in range(N):
+        e = _fq12([host[i][lane] for i in range(12)])
+        if lane < 2:
+            assert [got[i][lane] for i in range(12)] == [0] * 12
+            continue
+        x = htw.fq12_mul(htw.fq12_conj(e), htw.fq12_inv(e))
+        assert [got[i][lane] for i in range(12)] == \
+            _flat12(htw.fq12_mul(htw.fq12_frob(x, 2), x))
+    assert [got[i][2] for i in range(12)] == [1] + [0] * 11
+
+
+def test_constant_operand_is_the_tower_constant(harness):
+    """A product whose second operand is constant c of ``kTowerConsts``:
+    v·c for v of 0, 1, p − 1 and random values, c each of the generator's
+    constants (B18's Frobenius operands, Montgomery form in the table)."""
+    gen = _gen()
+    P = FQ.p
+    rnd = random.Random(0xC0)
+    vals = [0, 1, P - 1] + [rnd.randrange(P) for _ in range(5)]
+    words = np.array([_words(v * (1 << 384) % P) for v in vals], np.uint32)
+    out = _run(harness, 30, 0, len(vals), [words.tobytes()])
+    got = [_int(r) for r in out.view(np.uint32).reshape(-1, 12)]
+    assert len(gen.CONSTS) == 8
+    assert got == [v * c % P * (1 << 384) % P for v in vals
+                   for c in gen.CONSTS]
+
+
 def _fq12(x):
     """12 Fq components in the packed order -> a host Fq12."""
     fq2 = [(x[2 * i], x[2 * i + 1]) for i in range(6)]
@@ -611,7 +777,7 @@ def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
     rnd = random.Random(sched)
     init = np.array([(rnd.randrange(FQ.p) >> (32 * j)) & 0xFFFFFFFF
                      for _ in range(slots) for j in range(12)], np.uint32)
-    out = _run(harness, 10 + sched, G, 0, [init.tobytes()])
+    out = _run(harness, 100 + sched, G, 0, [init.tobytes()])
     pos, products, busiest = 0, [], 0
     while pos < out.size:
         count, is_product = int(out[pos]), bool(out[pos + 1])
@@ -632,7 +798,8 @@ def test_schedule_deals_each_op_to_one_thread(harness, name, sched, G):
                            "cyclo_sqr_mul": 10, "fq12_mul": 7,
                            "add_fold": 11, "fq12_sqr": 5, "dbl_step": 7,
                            "f_sqr_fold": 10, "add_step": 7,
-                           "f_fold": 5}[name]
+                           "f_fold": 5, "frob_mul1": 9, "frob_mul2": 9,
+                           "easy_down": 10, "easy_up": 17}[name]
 
 
 def _gen():
@@ -654,7 +821,8 @@ def _int(ws):
 
 def _schedule_forms(gen, make):
     """Every form of a schedule's ops, in op order, as (slot: coefficient,
-    word, "stored" for a linear op's form or "operand" for a product's)."""
+    word, "stored" for a linear op's form, "operand" for a product's or
+    "const" for a product's constant operand, whose one term is no slot)."""
     terms, ops, _, _, _ = make().tables()
     out = []
     for _, t0, fa, fb in ops:
@@ -663,26 +831,32 @@ def _schedule_forms(gen, make):
                 continue
             f = {t >> 8: (t & 0xFF) - ((t & 0x80) << 1)
                  for t in terms[start:start + (word & 0xFF)]}
-            out.append((f, word, "operand" if fb else "stored"))
+            what = ("const" if word >> 8 & gen.CONST else
+                    "operand" if fb else "stored")
+            out.append((f, word, what))
     return out
 
 
 @pytest.mark.parametrize("steps", ["product", "stored", "kB9", "kDblStep",
-                                   "kAddStep"])
+                                   "kAddStep", "kFrobMul1", "kEasyDown",
+                                   "kEasyUp"])
 def test_forms_reduce_as_their_steps_say(harness, steps):
     """A form Σ c·slot with the generator's reduction steps: stored, the
     canonical value; as a product operand, its value mod p below 2^384
     (below 3p after QSTEP) and within the weight bound the product needs.
     Slots of 0, 1, p − 1, p − 2 and random values; 1 to 24 terms with
     coefficients up to ±127, all of one sign among them; or ("kB9",
-    "kDblStep", "kAddStep") the forms of B9's or B17's step schedules over
-    their slots, each product's two operands within a·b < R·p."""
+    "kDblStep", "kAddStep", B18's "kFrobMul1", "kEasyDown", "kEasyUp") the
+    forms of B9's, B17's step schedules' or B18's schedules over their
+    slots, each product's two operands within a·b < R·p (a constant
+    operand below p)."""
     gen = _gen()
     P = FQ.p
     rnd = random.Random(0xF0 + len(steps))
     whole = steps.startswith("k")
     if whole:
-        sched = _schedule_forms(gen, gen.SCHEDULES[steps])
+        every = _schedule_forms(gen, gen.SCHEDULES[steps])
+        sched = [x for x in every if x[2] != "const"]
         n_slots = 1 + max(s for f, _, _ in sched for s in f)
         vals = [0, 1, P - 1, P - 2] + [rnd.randrange(P)
                                        for _ in range(n_slots - 4)]
@@ -736,7 +910,10 @@ def test_forms_reduce_as_their_steps_say(harness, steps):
             bound.append(weight)
     if whole:
         # a product's two operands (consecutive forms, each below its bound
-        # times p) within the product's bound a·b < R·p
+        # times p; a constant below p) within the product's bound a·b < R·p
+        for i, (_, _, what) in enumerate(every):
+            if what == "const":
+                bound.insert(sum(x[2] != "stored" for x in every[:i]), 1)
         assert len(bound) == 2 * sum(gen.SCHEDULES[steps]().product_counts())
         for ba, bb in zip(bound[::2], bound[1::2]):
             assert ba * bb * P < 1 << 384
@@ -777,7 +954,7 @@ def test_cpu_tensors_take_the_plain_versions():
     f, T, P = _dbl_fold_inputs(7)
     _, _, Q, _ = _add_fold_inputs(7)
     counts = (ctw.DBL_FOLD, ctw.ADD_FOLD, ctw.CYCLO_SQR, ctw.CYCLO_SQR_MUL,
-              ctw.FQ12_MUL)
+              ctw.FQ12_MUL, ctw.FROB_MUL, ctw.EASY_DOWN, ctw.EASY_UP)
     before = [c.launches for c in counts]
     got = ctw.p_dbl_fold(f, T, P)
     want = ctw.dbl_fold_ref(f, T, P)
@@ -788,6 +965,9 @@ def test_cpu_tensors_take_the_plain_versions():
     assert torch.equal(ctw.p_cyclo_sqr(f), ctw.cyclo_sqr_ref(f))
     assert torch.equal(ctw.p_cyclo_sqr_mul(f, f), ctw.cyclo_sqr_mul_ref(f, f))
     assert torch.equal(ctw.p_fq12_mul(f, f), ctw.fq12_mul_ref(f, f))
+    for k in (1, 2):
+        assert torch.equal(ctw.p_frob_mul(f, f, k), ctw.frob_mul_ref(f, f, k))
+    assert torch.equal(ctw.p_easy_part(f), ctw.easy_part_ref(f))
     assert [c.launches for c in counts] == before
     with pytest.raises(ValueError, match="CUDA"):
         ctw.dbl_fold(f, T, P)
@@ -799,3 +979,10 @@ def test_cpu_tensors_take_the_plain_versions():
         ctw.add_fold(f, T, Q, P)
     with pytest.raises(ValueError, match="CUDA"):
         ctw.fq12_mul(f, f)
+    with pytest.raises(ValueError, match="CUDA"):
+        ctw.frob_mul(f, f, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        ctw.easy_down(f)
+    with pytest.raises(ValueError, match="CUDA"):
+        ctw.easy_up(torch.zeros((480, N), dtype=torch.int32),
+                    torch.zeros((N, 24), dtype=torch.int32))

@@ -23,7 +23,7 @@ from threshold_crypto_tpu_torch.device import cuda_mont
 from threshold_crypto_tpu_torch.device import cuda_tower as ctw
 from threshold_crypto_tpu_torch.device import mont
 from threshold_crypto_tpu_torch.device import packed as pk
-from threshold_crypto_tpu_torch.device import pairing as dpr
+from threshold_crypto_tpu_torch.device import tower as dtw
 
 N = 128
 ZERO_LANES = (0, 1, 2, 3)
@@ -107,7 +107,7 @@ def cyclotomic(vals):
     of the cyclotomic subgroup (the zero lanes stay zero)."""
     def easy(comps):
         f = convert.fq12_from_jax(comps, device="cpu")
-        return ptw.flat12(convert.fq12_to_jax(dpr._easy_part(f)))
+        return ptw.flat12(convert.fq12_to_jax(dtw.fq12_easy_part(f)))
 
     return {"f": easy(vals["f"]), "g": easy(vals["g"])}
 
@@ -276,13 +276,18 @@ def test_registry_lists_every_kernel_with_its_plain_version():
     assert names == ["mont_mul", "mont_pow", "fq_engine", "dbl_fold",
                      "add_fold", "cyclo_sqr", "cyclo_sqr_mul", "fq12_mul",
                      "fq12_sqr", "dbl_step", "add_step", "f_sqr_fold",
-                     "f_fold"]
+                     "f_fold", "frob_mul", "easy_down", "easy_up"]
     for mod in (cuda_mont, ctw):
         for k in mod.KERNELS:
             assert getattr(mod, k.launch.__name__) is k.launch
             assert getattr(mod, k.plain.__name__) is k.plain
             assert k.source.startswith("threshold_crypto_tpu_torch/csrc/")
-            assert k.replaces.startswith("threshold_crypto_tpu/device/pallas_")
+            # B18 replaces the JAX package's XLA tower steps, no Pallas
+            # kernel
+            jax_file = ("pairing.py" if k.name in ("frob_mul", "easy_down",
+                                                   "easy_up") else "pallas_")
+            assert k.replaces.startswith("threshold_crypto_tpu/device/"
+                                         + jax_file)
 
 
 def test_cpu_tensors_never_reach_the_kernels(vals):

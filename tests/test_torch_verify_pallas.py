@@ -27,8 +27,11 @@ from threshold_crypto_tpu.host.params import R, X_BITS
 from threshold_crypto_tpu_torch import convert, ops
 from threshold_crypto_tpu_torch.device import cuda_mont
 from threshold_crypto_tpu_torch.device import cuda_tower as ctw
+from threshold_crypto_tpu_torch.device import mont
+from threshold_crypto_tpu_torch.device import packed as pk
 from threshold_crypto_tpu_torch.device import pairing as dpr
 from threshold_crypto_tpu_torch.device import tower as tw
+from threshold_crypto_tpu_torch.device.mont import FQ
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -108,8 +111,11 @@ def test_verify_batch_pallas_equals_verify_batch(lanes, pallas_run):
 def test_launches_per_call(pallas_run):
     """The driver's launches: B4 on each bit of |X| after the first, B5 on
     its 1-bits, B6/B7 on the zero/one bits of five exp-by-x, B8 once for
-    the pair fold and 7 times in the final exponentiation, B9 once, and
-    one B2 (the easy part's inversion)."""
+    the pair fold and 5 times in the final exponentiation, B18's
+    ``frob_mul`` for its two Frobenius products, B9 once, and one B2 (the
+    easy part's inversion; on the CPU the easy part runs through the tower,
+    so ``easy_down`` and ``easy_up``, one launch each on the card, have no
+    call here)."""
     _, calls = pallas_run
     bits = X_BITS[1:]
     ones = sum(bits)
@@ -118,9 +124,11 @@ def test_launches_per_call(pallas_run):
     assert calls["add_fold"] == ones
     assert calls["cyclo_sqr"] == 5 * (len(bits) - ones) == 290
     assert calls["cyclo_sqr_mul"] == 5 * ones == 25
-    assert calls["fq12_mul"] == 8
+    assert calls["fq12_mul"] == 6
+    assert calls["frob_mul"] == 2
     assert calls["fq12_sqr"] == 1
     assert calls["mont_pow"] == 1
+    assert calls["easy_down"] == calls["easy_up"] == 0
     assert calls["fq_engine"] == 0
 
 
@@ -133,6 +141,38 @@ def test_pairing_pallas_equals_host_pairing():
     assert got[0][0][0].shape == (2, 24)
     assert tw.fq12_to_host(got) == [hpr.pairing(p[0], q[0]),
                                     hpr.pairing(None, q[1])]
+
+
+@pytest.mark.parametrize("easy", ["tower", "kernel pieces"])
+def test_packed_final_exponentiation_equals_tower(monkeypatch, easy):
+    """``pairing_pallas`` (the packed Miller loop and
+    ``final_exponentiation_packed``) equals ``pairing`` limb for limb, and
+    ``final_exponentiation_packed`` equals ``final_exponentiation`` on the
+    same Miller values, on lanes with P at infinity, Q at infinity, both
+    (their Miller value is exactly one) and random pairs. "kernel pieces"
+    runs the easy part as the card does, B18's plain pieces
+    ``easy_down_ref``, the inversion and ``easy_up_ref``."""
+    if easy == "kernel pieces":
+        def pieces(f):
+            norm, inter = ctw.easy_down_ref(f)
+            return ctw.easy_up_ref(inter, mont.inv(FQ, norm))
+        monkeypatch.setattr(ctw, "easy_part_ref", pieces)
+    rnd = random.Random(0xF1)
+    gp = [hcv.G1.mul(hcv.G1.generator, rnd.randrange(1, R)) for _ in range(2)]
+    gq = [hcv.G2.mul(hcv.G2.generator, rnd.randrange(1, R)) for _ in range(2)]
+    p = [None, gp[0], None, gp[1]]
+    q = [gq[0], None, None, gq[1]]
+    p_aff = dpr.g1_affine_from_host(p, device="cpu")
+    q_aff = dpr.g2_affine_from_host(q, device="cpu")
+    got = dpr.pairing_pallas(p_aff, q_aff)
+    want = dpr.pairing(p_aff, q_aff)
+    assert all(torch.equal(g, w)
+               for g, w in zip(tw.fq12_flat(got), tw.fq12_flat(want)))
+    f = dpr.miller_loop(p_aff, q_aff)
+    assert tw.fq12_to_host(f)[:3] == [hpr.miller_loop(None, None)] * 3
+    packed = dpr.final_exponentiation_packed(pk.pack12(f))
+    assert torch.equal(packed, pk.pack12(dpr.final_exponentiation(f)))
+    assert tw.fq12_to_host(got) == [hpr.pairing(a, b) for a, b in zip(p, q)]
 
 
 def test_fq12_convert_round_trip():

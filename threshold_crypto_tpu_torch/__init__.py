@@ -28,8 +28,8 @@ G2, batched encryption, the threshold combine and the DKG, on these paths:
 verify, the tower as stacked field products, kernels B1 and B2 in
 ``csrc/mont.cu``), :func:`threshold_crypto_tpu_torch.ops.verify_batch_pallas`
 (the megakernel path: whole Miller iterations and Fq12 steps as one launch
-each, kernels B4-B9 in ``csrc/miller.cu`` and ``csrc/fq12.cu`` on the
-lane-group engine of ``csrc/tower_group.cuh``), and the RLC
+each, kernels B4-B9 and B18 in ``csrc/miller.cu`` and ``csrc/fq12.cu``
+on the lane-group engine of ``csrc/tower_group.cuh``), and the RLC
 batch verification of N shares on one message,
 :func:`threshold_crypto_tpu_torch.ops.rlc_exponents` then
 :func:`threshold_crypto_tpu_torch.ops.verify_sig_shares_rlc_pallas` (the

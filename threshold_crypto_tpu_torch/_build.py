@@ -63,6 +63,9 @@ SIGNATURES = {
         ("tc_fq12_mul", [_VP, _VP, _VP, _INT, _VP]),
         ("tc_fq12_sqr", [_VP, _VP, _INT, _VP]),
         ("tc_fq_engine", [_VP, _VP, _VP, _INT, _INT, _INT, _VP]),
+        ("tc_frob_mul", [_VP, _VP, _VP, _INT, _INT, _VP]),
+        ("tc_easy_down", [_VP, _VP, _VP, _INT, _VP]),
+        ("tc_easy_up", [_VP, _VP, _VP, _INT, _VP]),
     ],
     "msm": [
         ("tc_g1_madd", [_VP, _VP, _VP, _INT, _VP]),

@@ -180,9 +180,11 @@ __device__ __forceinline__ void cond_sub(reg::Fp& r) {
 
 // A form's word: its term count, then its reduction steps
 // (tools/tower_group_schedule.py `reduction`): q·p off, then 0-3
-// conditional subtracts of p.
+// conditional subtracts of p; or (a product's second operand in B18) one
+// constant of the schedules' table, its index in its term's slot bits.
 constexpr int kQStep = 1 << 8;
 constexpr int kCSubShift = 9;
+constexpr int kConstForm = 1 << 11;
 
 // r = Σ c_i·slot_i over the terms of a form (each slot << 8 | c as an
 // int8; `word` holds their count and the form's reduction steps). The sum
@@ -234,10 +236,13 @@ __device__ __forceinline__ void form(reg::Fp& r, const int32_t* terms,
 // Thread g's share of phase `ph` of a schedule on one lane's scratch:
 // ops g, g + G, … of the phase. An op is (dst slot, first term, form A,
 // form B): dst = A·B, or dst = A where B has no terms; a form's word holds
-// its term count and reduction steps, and B's terms follow A's.
+// its term count and reduction steps, and B's terms follow A's. A B whose
+// word has kConstForm is constant `consts` entry (its term >> 8), 12 words
+// each, read from the read-only table every lane shares.
 __device__ __forceinline__ void run_phase(const int32_t* phase_ops,
                                           const int32_t* ops,
-                                          const int32_t* terms, int ph,
+                                          const int32_t* terms,
+                                          const uint32_t* consts, int ph,
                                           int g, int G, uint32_t* lane) {
   const int first = phase_ops[2 * ph];
   const int count = phase_ops[2 * ph + 1];
@@ -249,7 +254,14 @@ __device__ __forceinline__ void run_phase(const int32_t* phase_ops,
     form(a, terms + t0, fa, lane);
     if (fb != 0) {
       reg::Fp b;
-      form(b, terms + t0 + (fa & 0xFF), fb, lane);
+      const int32_t* tb = terms + t0 + (fa & 0xFF);
+      if (fb & kConstForm) {
+        const uint32_t* c = consts + kWords * (tb[0] >> 8);
+#pragma unroll
+        for (int j = 0; j < kWords; ++j) b.w[j] = c[j];
+      } else {
+        form(b, tb, fb, lane);
+      }
       a = reg::fp_mul_call(a, b);
     }
     slot_store(lane, dst, a);
@@ -335,6 +347,48 @@ __device__ __forceinline__ void stage_out(int32_t* __restrict__ dst,
         dst[static_cast<size_t>(i >> lane_shift) * n + lane] =
             static_cast<int32_t>(v[k]);
     }
+  }
+}
+
+// Fq values kept as int32[n, 24] limb rows (a lane's 24 limbs together, the
+// layout of device/mont.py that B2 takes and gives) <-> slot `slot` of the
+// block's lanes: thread tid of nthreads copies words (or limbs) tid,
+// tid + nthreads, … of the block's rows, which lie one after another, so a
+// warp reads (writes) neighbouring words. A lane ≥ n reads zeros and is
+// not written.
+__device__ __forceinline__ void stage_in_rows(const int32_t* __restrict__ src,
+                                              int slot, int n, int lane0,
+                                              int lane_shift, int tid,
+                                              int nthreads, uint32_t* smem,
+                                              int stride) {
+  const int total = kWords << lane_shift;
+#pragma unroll 1
+  for (int i = tid; i < total; i += nthreads) {
+    const int l = i / kWords, w = i % kWords;
+    uint32_t v = 0;
+    if (lane0 + l < n) {
+      const int32_t* row = src + static_cast<size_t>(lane0) * 2 * kWords;
+      v = (static_cast<uint32_t>(row[2 * i]) & 0xFFFFu) |
+          (static_cast<uint32_t>(row[2 * i + 1]) << 16);
+    }
+    smem[l * stride + slot * kWords + w] = v;
+  }
+}
+
+__device__ __forceinline__ void stage_out_rows(int32_t* __restrict__ dst,
+                                               int slot, int n, int lane0,
+                                               int lane_shift, int tid,
+                                               int nthreads,
+                                               const uint32_t* smem,
+                                               int stride) {
+  const int total = (2 * kWords) << lane_shift;
+#pragma unroll 1
+  for (int i = tid; i < total; i += nthreads) {
+    const int l = i / (2 * kWords), limb = i % (2 * kWords);
+    const uint32_t w = smem[l * stride + slot * kWords + (limb >> 1)];
+    if (lane0 + l < n)
+      dst[static_cast<size_t>(lane0) * 2 * kWords + i] =
+          static_cast<int32_t>((limb & 1) ? (w >> 16) : (w & 0xFFFFu));
   }
 }
 
@@ -1453,9 +1507,621 @@ __device__ const int32_t kFFoldTerms[] = {
 __device__ const int32_t kFFoldOutSlots[] = {
     0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11,
 };
+// B18 frob_mul k = 1: 3 phases, 64 Fq products in the product phases (10, 54), 590 terms, 78 slots.
+constexpr int kFrobMul1Phases = 3;
+constexpr int kFrobMul1Slots = 78;
+constexpr int kFrobMul1Inputs = 24;
+constexpr int kFrobMul1Outputs = 12;
+__device__ const int32_t kFrobMul1PhaseOps[] = {
+    0, 10, 10, 54, 64, 12,
+};
+__device__ const int32_t kFrobMul1Ops[] = {
+    24, 0, 1, 2049, 25, 2, 1, 2049,
+    26, 4, 1, 2049, 27, 6, 1, 2049,
+    28, 8, 2, 2049, 29, 11, 2, 2049,
+    30, 14, 2, 2049, 31, 17, 2, 2049,
+    32, 20, 2, 2049, 33, 23, 2, 2049,
+    14, 26, 1, 1, 15, 28, 1, 1,
+    16, 30, 2, 2, 17, 34, 1, 1,
+    18, 36, 1, 1, 19, 38, 2, 2,
+    20, 42, 1, 1, 21, 44, 1, 1,
+    22, 46, 2, 2, 23, 50, 2, 2,
+    34, 54, 2, 2, 35, 58, 260, 260,
+    36, 66, 2, 2, 37, 70, 2, 2,
+    38, 74, 260, 260, 39, 82, 2, 2,
+    40, 86, 2, 2, 41, 90, 260, 260,
+    42, 98, 1, 1, 43, 100, 1, 1,
+    44, 102, 2, 2, 45, 106, 1, 1,
+    46, 108, 1, 1, 47, 110, 2, 2,
+    48, 114, 1, 1, 49, 116, 1, 1,
+    50, 118, 2, 2, 51, 122, 2, 2,
+    52, 126, 2, 2, 53, 130, 260, 260,
+    54, 138, 2, 2, 55, 142, 2, 2,
+    56, 146, 260, 260, 57, 154, 2, 2,
+    58, 158, 2, 2, 59, 162, 260, 260,
+    60, 170, 2, 2, 61, 174, 2, 2,
+    62, 178, 260, 260, 63, 186, 2, 2,
+    64, 190, 2, 2, 65, 194, 260, 260,
+    66, 202, 2, 2, 67, 206, 2, 2,
+    68, 210, 260, 260, 69, 218, 260, 260,
+    70, 226, 260, 260, 71, 234, 264, 264,
+    72, 250, 260, 260, 73, 258, 260, 260,
+    74, 266, 264, 264, 75, 282, 260, 260,
+    76, 290, 260, 260, 77, 298, 264, 264,
+    11, 314, 1316, 0, 9, 350, 1313, 0,
+    7, 383, 1307, 0, 6, 410, 1304, 0,
+    8, 434, 1304, 0, 10, 458, 1304, 0,
+    5, 482, 1303, 0, 3, 505, 1300, 0,
+    1, 525, 1297, 0, 0, 542, 1296, 0,
+    2, 558, 1296, 0, 4, 574, 1296, 0,
+};
+__device__ const int32_t kFrobMul1Terms[] = {
+    4095, 1, 3585, 1, 4097, 257, 4607, 257,
+    4609, 5119, 513, 4609, 4865, 513, 5121, 5377,
+    769, 5121, 5631, 769, 5633, 6143, 1025, 5633,
+    5889, 1025, 1, 3073, 257, 3583, 1, 257,
+    3073, 3583, 513, 6399, 769, 6401, 513, 769,
+    6399, 6401, 1025, 6657, 1281, 6913, 1025, 1281,
+    6657, 6913, 513, 1025, 6399, 6657, 769, 1281,
+    6401, 6913, 513, 769, 1025, 1281, 6399, 6401,
+    6657, 6913, 1, 513, 3073, 6399, 257, 769,
+    3583, 6401, 1, 257, 513, 769, 3073, 3583,
+    6399, 6401, 1, 1025, 3073, 6657, 257, 1281,
+    3583, 6913, 1, 257, 1025, 1281, 3073, 3583,
+    6657, 6913, 1537, 7169, 1793, 7679, 1537, 1793,
+    7169, 7679, 2049, 7681, 2305, 7937, 2049, 2305,
+    7681, 7937, 2561, 8193, 2817, 8703, 2561, 2817,
+    8193, 8703, 2049, 2561, 7681, 8193, 2305, 2817,
+    7937, 8703, 2049, 2305, 2561, 2817, 7681, 7937,
+    8193, 8703, 1537, 2049, 7169, 7681, 1793, 2305,
+    7679, 7937, 1537, 1793, 2049, 2305, 7169, 7679,
+    7681, 7937, 1537, 2561, 7169, 8193, 1793, 2817,
+    7679, 8703, 1537, 1793, 2561, 2817, 7169, 7679,
+    8193, 8703, 1, 1537, 3073, 7169, 257, 1793,
+    3583, 7679, 1, 257, 1537, 1793, 3073, 3583,
+    7169, 7679, 513, 2049, 6399, 7681, 769, 2305,
+    6401, 7937, 513, 769, 2049, 2305, 6399, 6401,
+    7681, 7937, 1025, 2561, 6657, 8193, 1281, 2817,
+    6913, 8703, 1025, 1281, 2561, 2817, 6657, 6913,
+    8193, 8703, 513, 1025, 2049, 2561, 6399, 6657,
+    7681, 8193, 769, 1281, 2305, 2817, 6401, 6913,
+    7937, 8703, 513, 769, 1025, 1281, 2049, 2305,
+    2561, 2817, 6399, 6401, 6657, 6913, 7681, 7937,
+    8193, 8703, 1, 513, 1537, 2049, 3073, 6399,
+    7169, 7681, 257, 769, 1793, 2305, 3583, 6401,
+    7679, 7937, 1, 257, 513, 769, 1537, 1793,
+    2049, 2305, 3073, 3583, 6399, 6401, 7169, 7679,
+    7681, 7937, 1, 1025, 1537, 2561, 3073, 6657,
+    7169, 8193, 257, 1281, 1793, 2817, 3583, 6913,
+    7679, 8703, 1, 257, 1025, 1281, 1537, 1793,
+    2561, 2817, 3073, 3583, 6657, 6913, 7169, 7679,
+    8193, 8703, 3839, 4095, 4097, 4353, 4609, 5119,
+    5375, 5631, 5633, 9985, 10241, 10751, 11007, 11263,
+    11265, 11521, 11777, 12287, 12543, 12799, 12801, 14593,
+    14849, 15359, 15361, 15617, 16127, 16383, 16639, 16641,
+    16897, 17153, 17663, 19455, 19711, 19713, 3839, 4095,
+    4097, 4607, 4863, 4865, 5378, 5887, 9217, 9473,
+    9983, 11007, 11263, 11265, 11775, 12031, 12033, 12546,
+    13055, 13825, 14081, 14591, 15361, 15617, 16127, 16129,
+    16385, 16895, 17406, 17409, 18687, 18943, 18945, 3585,
+    3841, 4351, 4862, 4865, 5630, 5633, 8706, 9215,
+    10753, 11009, 11519, 12030, 12033, 12798, 12801, 13314,
+    13823, 15615, 15871, 15873, 16386, 16895, 17154, 17663,
+    18174, 18177, 3839, 3841, 4354, 5119, 5122, 5887,
+    6142, 8961, 11007, 11009, 11522, 12287, 12290, 13055,
+    13310, 13569, 15361, 15871, 16382, 16641, 17150, 17409,
+    17666, 18431, 3585, 4095, 4353, 4863, 5374, 5633,
+    9471, 9473, 10753, 11263, 11521, 12031, 12542, 12801,
+    14079, 14081, 15615, 15617, 16383, 16385, 16898, 17663,
+    18433, 18943, 3585, 4095, 4607, 4609, 5121, 5631,
+    10239, 10241, 10753, 11263, 11775, 11777, 12289, 12799,
+    14847, 14849, 15615, 15617, 16129, 16639, 17151, 17153,
+    19201, 19711, 3585, 3841, 4351, 4607, 4863, 4865,
+    5121, 5377, 5887, 10239, 10495, 10497, 10753, 11009,
+    11519, 11521, 11777, 12287, 12798, 12801, 14079, 14335,
+    14337, 3585, 3841, 4351, 4353, 4609, 5119, 5630,
+    5633, 9471, 9727, 9729, 11007, 11263, 11265, 11778,
+    12287, 12546, 13055, 13566, 13569, 3839, 4095, 4097,
+    4610, 5119, 5378, 5887, 8958, 8961, 11010, 11519,
+    12030, 12033, 12546, 13055, 15102, 15105, 3585, 4095,
+    4606, 4865, 5374, 5633, 5890, 9215, 11006, 11265,
+    11522, 12287, 12542, 12801, 14594, 15359, 3839, 3841,
+    4607, 4609, 5122, 5887, 9217, 9727, 10753, 11263,
+    11774, 12033, 12542, 12801, 13058, 13823, 3839, 3841,
+    4353, 4863, 5375, 5377, 9985, 10495, 11007, 11009,
+    11775, 11777, 12290, 13055, 13825, 14335,
+};
+__device__ const int32_t kFrobMul1OutSlots[] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11,
+};
+// B18 frob_mul k = 2: 3 phases, 64 Fq products in the product phases (10, 54), 584 terms, 78 slots.
+constexpr int kFrobMul2Phases = 3;
+constexpr int kFrobMul2Slots = 78;
+constexpr int kFrobMul2Inputs = 24;
+constexpr int kFrobMul2Outputs = 12;
+__device__ const int32_t kFrobMul2PhaseOps[] = {
+    0, 10, 10, 54, 64, 12,
+};
+__device__ const int32_t kFrobMul2Ops[] = {
+    24, 0, 1, 2049, 25, 2, 1, 2049,
+    26, 4, 1, 2049, 27, 6, 1, 2049,
+    28, 8, 1, 2049, 29, 10, 1, 2049,
+    30, 12, 1, 2049, 31, 14, 1, 2049,
+    32, 16, 1, 2049, 33, 18, 1, 2049,
+    14, 20, 1, 1, 15, 22, 1, 1,
+    16, 24, 2, 2, 17, 28, 1, 1,
+    18, 30, 1, 1, 19, 32, 2, 2,
+    20, 36, 1, 1, 21, 38, 1, 1,
+    22, 40, 2, 2, 23, 44, 2, 2,
+    34, 48, 2, 2, 35, 52, 260, 260,
+    36, 60, 2, 2, 37, 64, 2, 2,
+    38, 68, 260, 260, 39, 76, 2, 2,
+    40, 80, 2, 2, 41, 84, 260, 260,
+    42, 92, 1, 1, 43, 94, 1, 1,
+    44, 96, 2, 2, 45, 100, 1, 1,
+    46, 102, 1, 1, 47, 104, 2, 2,
+    48, 108, 1, 1, 49, 110, 1, 1,
+    50, 112, 2, 2, 51, 116, 2, 2,
+    52, 120, 2, 2, 53, 124, 260, 260,
+    54, 132, 2, 2, 55, 136, 2, 2,
+    56, 140, 260, 260, 57, 148, 2, 2,
+    58, 152, 2, 2, 59, 156, 260, 260,
+    60, 164, 2, 2, 61, 168, 2, 2,
+    62, 172, 260, 260, 63, 180, 2, 2,
+    64, 184, 2, 2, 65, 188, 260, 260,
+    66, 196, 2, 2, 67, 200, 2, 2,
+    68, 204, 260, 260, 69, 212, 260, 260,
+    70, 220, 260, 260, 71, 228, 264, 264,
+    72, 244, 260, 260, 73, 252, 260, 260,
+    74, 260, 264, 264, 75, 276, 260, 260,
+    76, 284, 260, 260, 77, 292, 264, 264,
+    11, 308, 1316, 0, 9, 344, 1313, 0,
+    7, 377, 1307, 0, 6, 404, 1304, 0,
+    8, 428, 1304, 0, 10, 452, 1304, 0,
+    5, 476, 1303, 0, 3, 499, 1300, 0,
+    1, 519, 1297, 0, 0, 536, 1296, 0,
+    2, 552, 1296, 0, 4, 568, 1296, 0,
+};
+__device__ const int32_t kFrobMul2Terms[] = {
+    3585, 1281, 3841, 1281, 4097, 1, 4353, 1,
+    4609, 1537, 4865, 1537, 5121, 1793, 5377, 1793,
+    5633, 257, 5889, 257, 1, 3073, 257, 3329,
+    1, 257, 3073, 3329, 513, 6145, 769, 6401,
+    513, 769, 6145, 6401, 1025, 6657, 1281, 6913,
+    1025, 1281, 6657, 6913, 513, 1025, 6145, 6657,
+    769, 1281, 6401, 6913, 513, 769, 1025, 1281,
+    6145, 6401, 6657, 6913, 1, 513, 3073, 6145,
+    257, 769, 3329, 6401, 1, 257, 513, 769,
+    3073, 3329, 6145, 6401, 1, 1025, 3073, 6657,
+    257, 1281, 3329, 6913, 1, 257, 1025, 1281,
+    3073, 3329, 6657, 6913, 1537, 7169, 1793, 7425,
+    1537, 1793, 7169, 7425, 2049, 7681, 2305, 7937,
+    2049, 2305, 7681, 7937, 2561, 8193, 2817, 8449,
+    2561, 2817, 8193, 8449, 2049, 2561, 7681, 8193,
+    2305, 2817, 7937, 8449, 2049, 2305, 2561, 2817,
+    7681, 7937, 8193, 8449, 1537, 2049, 7169, 7681,
+    1793, 2305, 7425, 7937, 1537, 1793, 2049, 2305,
+    7169, 7425, 7681, 7937, 1537, 2561, 7169, 8193,
+    1793, 2817, 7425, 8449, 1537, 1793, 2561, 2817,
+    7169, 7425, 8193, 8449, 1, 1537, 3073, 7169,
+    257, 1793, 3329, 7425, 1, 257, 1537, 1793,
+    3073, 3329, 7169, 7425, 513, 2049, 6145, 7681,
+    769, 2305, 6401, 7937, 513, 769, 2049, 2305,
+    6145, 6401, 7681, 7937, 1025, 2561, 6657, 8193,
+    1281, 2817, 6913, 8449, 1025, 1281, 2561, 2817,
+    6657, 6913, 8193, 8449, 513, 1025, 2049, 2561,
+    6145, 6657, 7681, 8193, 769, 1281, 2305, 2817,
+    6401, 6913, 7937, 8449, 513, 769, 1025, 1281,
+    2049, 2305, 2561, 2817, 6145, 6401, 6657, 6913,
+    7681, 7937, 8193, 8449, 1, 513, 1537, 2049,
+    3073, 6145, 7169, 7681, 257, 769, 1793, 2305,
+    3329, 6401, 7425, 7937, 1, 257, 513, 769,
+    1537, 1793, 2049, 2305, 3073, 3329, 6145, 6401,
+    7169, 7425, 7681, 7937, 1, 1025, 1537, 2561,
+    3073, 6657, 7169, 8193, 257, 1281, 1793, 2817,
+    3329, 6913, 7425, 8449, 1, 257, 1025, 1281,
+    1537, 1793, 2561, 2817, 3073, 3329, 6657, 6913,
+    7169, 7425, 8193, 8449, 3839, 4095, 4097, 4353,
+    4609, 5119, 5375, 5631, 5633, 9985, 10241, 10751,
+    11007, 11263, 11265, 11521, 11777, 12287, 12543, 12799,
+    12801, 14593, 14849, 15359, 15361, 15617, 16127, 16383,
+    16639, 16641, 16897, 17153, 17663, 19455, 19711, 19713,
+    3839, 4095, 4097, 4607, 4863, 4865, 5378, 5887,
+    9217, 9473, 9983, 11007, 11263, 11265, 11775, 12031,
+    12033, 12546, 13055, 13825, 14081, 14591, 15361, 15617,
+    16127, 16129, 16385, 16895, 17406, 17409, 18687, 18943,
+    18945, 3585, 3841, 4351, 4862, 4865, 5630, 5633,
+    8706, 9215, 10753, 11009, 11519, 12030, 12033, 12798,
+    12801, 13314, 13823, 15615, 15871, 15873, 16386, 16895,
+    17154, 17663, 18174, 18177, 3839, 3841, 4354, 5119,
+    5122, 5887, 6142, 8961, 11007, 11009, 11522, 12287,
+    12290, 13055, 13310, 13569, 15361, 15871, 16382, 16641,
+    17150, 17409, 17666, 18431, 3585, 4095, 4353, 4863,
+    5374, 5633, 9471, 9473, 10753, 11263, 11521, 12031,
+    12542, 12801, 14079, 14081, 15615, 15617, 16383, 16385,
+    16898, 17663, 18433, 18943, 3585, 4095, 4607, 4609,
+    5121, 5631, 10239, 10241, 10753, 11263, 11775, 11777,
+    12289, 12799, 14847, 14849, 15615, 15617, 16129, 16639,
+    17151, 17153, 19201, 19711, 3585, 3841, 4351, 4607,
+    4863, 4865, 5121, 5377, 5887, 10239, 10495, 10497,
+    10753, 11009, 11519, 11521, 11777, 12287, 12798, 12801,
+    14079, 14335, 14337, 3585, 3841, 4351, 4353, 4609,
+    5119, 5630, 5633, 9471, 9727, 9729, 11007, 11263,
+    11265, 11778, 12287, 12546, 13055, 13566, 13569, 3839,
+    4095, 4097, 4610, 5119, 5378, 5887, 8958, 8961,
+    11010, 11519, 12030, 12033, 12546, 13055, 15102, 15105,
+    3585, 4095, 4606, 4865, 5374, 5633, 5890, 9215,
+    11006, 11265, 11522, 12287, 12542, 12801, 14594, 15359,
+    3839, 3841, 4607, 4609, 5122, 5887, 9217, 9727,
+    10753, 11263, 11774, 12033, 12542, 12801, 13058, 13823,
+    3839, 3841, 4353, 4863, 5375, 5377, 9985, 10495,
+    11007, 11009, 11775, 11777, 12290, 13055, 13825, 14335,
+};
+__device__ const int32_t kFrobMul2OutSlots[] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11,
+};
+// B18 easy_down: 8 phases, 62 Fq products in the product phases (36, 15, 9, 2), 563 terms, 54 slots.
+constexpr int kEasyDownPhases = 8;
+constexpr int kEasyDownSlots = 54;
+constexpr int kEasyDownInputs = 12;
+constexpr int kEasyDownOutputs = 21;
+__device__ const int32_t kEasyDownPhaseOps[] = {
+    0, 36, 36, 18, 54, 15, 69, 6,
+    75, 9, 84, 2, 86, 2, 88, 1,
+};
+__device__ const int32_t kEasyDownOps[] = {
+    12, 0, 2, 2, 13, 4, 1, 1,
+    14, 6, 2, 2, 15, 10, 1, 1,
+    16, 12, 2, 2, 17, 16, 1, 1,
+    18, 18, 260, 260, 19, 26, 2, 2,
+    20, 30, 260, 260, 21, 38, 2, 2,
+    22, 42, 260, 260, 23, 50, 2, 2,
+    24, 54, 2, 2, 25, 58, 1, 1,
+    26, 60, 2, 2, 27, 64, 1, 1,
+    28, 66, 2, 2, 29, 70, 1, 1,
+    30, 72, 260, 260, 31, 80, 2, 2,
+    32, 84, 260, 260, 33, 92, 2, 2,
+    34, 96, 260, 260, 35, 104, 2, 2,
+    36, 108, 260, 260, 37, 116, 2, 2,
+    38, 120, 260, 260, 39, 128, 2, 2,
+    40, 132, 260, 260, 41, 140, 2, 2,
+    42, 144, 264, 264, 43, 160, 260, 260,
+    44, 168, 264, 264, 45, 184, 260, 260,
+    46, 192, 264, 264, 47, 208, 260, 260,
+    48, 216, 1301, 0, 49, 237, 1301, 0,
+    0, 258, 1295, 0, 1, 273, 1295, 0,
+    6, 288, 1295, 0, 7, 303, 1295, 0,
+    50, 318, 1295, 0, 51, 333, 1295, 0,
+    2, 348, 1292, 0, 3, 360, 1292, 0,
+    8, 372, 1292, 0, 9, 384, 1292, 0,
+    52, 396, 1292, 0, 53, 408, 1292, 0,
+    4, 420, 1289, 0, 5, 429, 1289, 0,
+    10, 438, 1289, 0, 11, 447, 1289, 0,
+    12, 456, 2, 2, 13, 460, 1, 1,
+    14, 462, 2, 2, 15, 466, 1, 1,
+    16, 468, 2, 2, 17, 472, 1, 1,
+    18, 474, 1, 1, 19, 476, 1, 1,
+    20, 478, 2, 2, 21, 482, 1, 1,
+    22, 484, 1, 1, 23, 486, 2, 2,
+    24, 490, 1, 1, 25, 492, 1, 1,
+    26, 494, 2, 2, 30, 498, 1285, 0,
+    29, 503, 1284, 0, 32, 507, 1284, 0,
+    27, 511, 1283, 0, 28, 514, 1283, 0,
+    31, 517, 1539, 0, 12, 520, 1, 1,
+    13, 522, 1, 1, 14, 524, 2, 2,
+    15, 528, 1, 1, 16, 530, 1, 1,
+    17, 532, 2, 2, 18, 536, 1, 1,
+    19, 538, 1, 1, 20, 540, 2, 2,
+    1, 544, 1287, 0, 0, 551, 1286, 0,
+    2, 557, 1, 1, 3, 559, 1, 1,
+    4, 561, 1026, 0,
+};
+__device__ const int32_t kEasyDownTerms[] = {
+    1, 257, 1, 511, 1, 257, 513, 769,
+    513, 1023, 513, 769, 1025, 1281, 1025, 1535,
+    1025, 1281, 513, 769, 1025, 1281, 513, 1023,
+    1025, 1535, 513, 1025, 769, 1281, 1, 257,
+    513, 769, 1, 511, 513, 1023, 1, 513,
+    257, 769, 1, 257, 1025, 1281, 1, 511,
+    1025, 1535, 1, 1025, 257, 1281, 1537, 1793,
+    1537, 2047, 1537, 1793, 2049, 2305, 2049, 2559,
+    2049, 2305, 2561, 2817, 2561, 3071, 2561, 2817,
+    2049, 2305, 2561, 2817, 2049, 2559, 2561, 3071,
+    2049, 2561, 2305, 2817, 1537, 1793, 2049, 2305,
+    1537, 2047, 2049, 2559, 1537, 2049, 1793, 2305,
+    1537, 1793, 2561, 2817, 1537, 2047, 2561, 3071,
+    1537, 2561, 1793, 2817, 1, 257, 1537, 1793,
+    1, 511, 1537, 2047, 1, 1537, 257, 1793,
+    513, 769, 2049, 2305, 513, 1023, 2049, 2559,
+    513, 2049, 769, 2305, 1025, 1281, 2561, 2817,
+    1025, 1535, 2561, 3071, 1025, 2561, 1281, 2817,
+    513, 769, 1025, 1281, 2049, 2305, 2561, 2817,
+    513, 1023, 1025, 1535, 2049, 2559, 2561, 3071,
+    513, 1025, 2049, 2561, 769, 1281, 2305, 2817,
+    1, 257, 513, 769, 1537, 1793, 2049, 2305,
+    1, 511, 513, 1023, 1537, 2047, 2049, 2559,
+    1, 513, 1537, 2049, 257, 769, 1793, 2305,
+    1, 257, 1025, 1281, 1537, 1793, 2561, 2817,
+    1, 511, 1025, 1535, 1537, 2047, 2561, 3071,
+    1, 1025, 1537, 2561, 257, 1281, 1793, 2817,
+    3073, 3839, 3842, 4351, 4354, 4609, 5118, 6145,
+    6911, 6914, 7423, 7426, 7681, 8190, 9471, 9729,
+    10238, 10241, 10750, 11007, 11010, 3330, 3839, 4094,
+    4351, 4606, 4609, 4866, 6402, 6911, 7166, 7423,
+    7678, 7681, 7938, 9726, 9729, 9986, 10241, 10498,
+    11007, 11262, 3073, 3839, 3842, 4351, 4354, 4609,
+    5118, 6145, 6654, 6911, 6914, 7169, 7678, 8959,
+    8962, 3330, 3839, 4094, 4351, 4606, 4609, 4866,
+    6145, 6402, 6911, 7166, 7169, 7426, 8959, 9214,
+    3073, 3839, 3842, 4351, 4354, 4609, 5118, 6399,
+    6402, 6657, 7166, 7423, 7426, 8705, 9214, 3330,
+    3839, 4094, 4351, 4606, 4609, 4866, 6399, 6654,
+    6657, 6914, 7423, 7678, 8705, 8962, 3327, 3839,
+    4097, 4606, 5121, 6399, 6911, 7169, 7678, 8193,
+    9217, 9729, 10495, 10498, 11519, 3582, 4094, 4097,
+    4354, 5378, 6654, 7166, 7169, 7426, 8450, 9474,
+    9986, 10495, 10750, 11774, 3327, 3839, 4097, 4606,
+    5121, 6399, 6657, 7166, 7169, 7678, 7935, 7938,
+    3582, 4094, 4097, 4354, 5378, 6654, 6657, 6914,
+    7169, 7426, 7935, 8190, 3327, 3839, 4097, 4606,
+    5121, 6145, 6911, 6914, 7423, 7426, 7681, 8190,
+    3582, 4094, 4097, 4354, 5378, 6402, 6911, 7166,
+    7423, 7678, 7681, 7938, 3327, 3585, 4351, 5633,
+    6399, 6657, 7423, 8705, 9217, 9983, 10241, 12031,
+    3582, 3842, 4606, 5890, 6654, 6914, 7678, 8962,
+    9474, 10238, 10498, 12286, 3327, 3585, 4351, 5633,
+    6145, 6657, 7423, 7426, 8447, 3582, 3842, 4606,
+    5890, 6402, 6914, 7423, 7678, 8702, 3327, 3585,
+    4351, 5633, 6399, 6911, 7169, 7678, 8193, 3582,
+    3842, 4606, 5890, 6654, 7166, 7169, 7426, 8450,
+    1, 257, 1, 511, 1, 257, 1025, 1281,
+    1025, 1535, 1025, 1281, 513, 769, 513, 1023,
+    513, 769, 513, 1025, 769, 1281, 513, 769,
+    1025, 1281, 1, 513, 257, 769, 1, 257,
+    513, 769, 1, 1025, 257, 1281, 1, 257,
+    1025, 1281, 3585, 3842, 5377, 5633, 6143, 3585,
+    4094, 5631, 5633, 4354, 6145, 6401, 6911, 3073,
+    4862, 5121, 3330, 4866, 5375, 4097, 6399, 6401,
+    1025, 7425, 1281, 7681, 1025, 1281, 7425, 7681,
+    513, 7937, 769, 8193, 513, 769, 7937, 8193,
+    1, 6913, 257, 7169, 1, 257, 6913, 7169,
+    3582, 3585, 4350, 4353, 4863, 5119, 5121, 3074,
+    3839, 3842, 4607, 4609, 5119, 1, 1, 257,
+    257, 513, 769,
+};
+__device__ const int32_t kEasyDownOutSlots[] = {
+    4, 6, 7, 8, 9, 10, 11, 48, 49, 50, 51, 52,
+    53, 27, 28, 29, 30, 31, 32, 0, 1,
+};
+// B18 easy_up: 8 phases, 111 Fq products in the product phases (2, 9, 36, 10, 54), 883 terms, 76 slots.
+constexpr int kEasyUpPhases = 8;
+constexpr int kEasyUpSlots = 76;
+constexpr int kEasyUpInputs = 21;
+constexpr int kEasyUpOutputs = 12;
+__device__ const int32_t kEasyUpPhaseOps[] = {
+    0, 2, 2, 9, 11, 6, 17, 36,
+    53, 12, 65, 10, 75, 54, 129, 12,
+};
+__device__ const int32_t kEasyUpOps[] = {
+    21, 0, 1, 1, 22, 2, 1, 1,
+    18, 4, 1, 1, 19, 6, 1, 1,
+    20, 8, 2, 2, 23, 12, 1, 1,
+    24, 14, 1, 1, 25, 16, 2, 2,
+    26, 20, 1, 1, 27, 22, 1, 1,
+    28, 24, 2, 2, 13, 28, 1539, 0,
+    15, 31, 1539, 0, 17, 34, 1539, 0,
+    12, 37, 1026, 0, 14, 39, 1026, 0,
+    16, 41, 1026, 0, 18, 43, 1, 1,
+    19, 45, 1, 1, 20, 47, 2, 2,
+    21, 51, 1, 1, 22, 53, 1, 1,
+    23, 55, 2, 2, 24, 59, 1, 1,
+    25, 61, 1, 1, 26, 63, 2, 2,
+    27, 67, 2, 2, 28, 71, 2, 2,
+    29, 75, 260, 260, 30, 83, 2, 2,
+    31, 87, 2, 2, 32, 91, 260, 260,
+    33, 99, 2, 2, 34, 103, 2, 2,
+    35, 107, 260, 260, 36, 115, 1, 1,
+    37, 117, 1, 1, 38, 119, 2, 2,
+    39, 123, 1, 1, 40, 125, 1, 1,
+    41, 127, 2, 2, 42, 131, 1, 1,
+    43, 133, 1, 1, 44, 135, 2, 2,
+    45, 139, 2, 2, 46, 143, 2, 2,
+    47, 147, 260, 260, 48, 155, 2, 2,
+    49, 159, 2, 2, 50, 163, 260, 260,
+    51, 171, 2, 2, 52, 175, 2, 2,
+    53, 179, 260, 260, 5, 187, 1292, 0,
+    11, 199, 1292, 0, 3, 211, 1291, 0,
+    9, 222, 1291, 0, 1, 233, 1289, 0,
+    7, 242, 1289, 0, 0, 251, 1288, 0,
+    2, 259, 1288, 0, 4, 267, 1288, 0,
+    6, 275, 1288, 0, 8, 283, 1288, 0,
+    10, 291, 1288, 0, 12, 299, 1, 2049,
+    13, 301, 1, 2049, 14, 303, 1, 2049,
+    15, 305, 1, 2049, 16, 307, 1, 2049,
+    17, 309, 1, 2049, 18, 311, 1, 2049,
+    19, 313, 1, 2049, 20, 315, 1, 2049,
+    21, 317, 1, 2049, 22, 319, 1, 1,
+    23, 321, 1, 1, 24, 323, 2, 2,
+    25, 327, 1, 1, 26, 329, 1, 1,
+    27, 331, 2, 2, 28, 335, 1, 1,
+    29, 337, 1, 1, 30, 339, 2, 2,
+    31, 343, 2, 2, 32, 347, 2, 2,
+    33, 351, 260, 260, 34, 359, 2, 2,
+    35, 363, 2, 2, 36, 367, 260, 260,
+    37, 375, 2, 2, 38, 379, 2, 2,
+    39, 383, 260, 260, 40, 391, 1, 1,
+    41, 393, 1, 1, 42, 395, 2, 2,
+    43, 399, 1, 1, 44, 401, 1, 1,
+    45, 403, 2, 2, 46, 407, 1, 1,
+    47, 409, 1, 1, 48, 411, 2, 2,
+    49, 415, 2, 2, 50, 419, 2, 2,
+    51, 423, 260, 260, 52, 431, 2, 2,
+    53, 435, 2, 2, 54, 439, 260, 260,
+    55, 447, 2, 2, 56, 451, 2, 2,
+    57, 455, 260, 260, 58, 463, 2, 2,
+    59, 467, 2, 2, 60, 471, 260, 260,
+    61, 479, 2, 2, 62, 483, 2, 2,
+    63, 487, 260, 260, 64, 495, 2, 2,
+    65, 499, 2, 2, 66, 503, 260, 260,
+    67, 511, 260, 260, 68, 519, 260, 260,
+    69, 527, 264, 264, 70, 543, 260, 260,
+    71, 551, 260, 260, 72, 559, 264, 264,
+    73, 575, 260, 260, 74, 583, 260, 260,
+    75, 591, 264, 264, 11, 607, 1316, 0,
+    9, 643, 1313, 0, 7, 676, 1307, 0,
+    6, 703, 1304, 0, 8, 727, 1304, 0,
+    10, 751, 1304, 0, 5, 775, 1303, 0,
+    3, 798, 1300, 0, 1, 818, 1297, 0,
+    0, 835, 1296, 0, 2, 851, 1296, 0,
+    4, 867, 1296, 0,
+};
+__device__ const int32_t kEasyUpTerms[] = {
+    4609, 5121, 4865, 5121, 3073, 5377, 3329, 5887,
+    3073, 3329, 5377, 5887, 3585, 5377, 3841, 5887,
+    3585, 3841, 5377, 5887, 4097, 5377, 4353, 5887,
+    4097, 4353, 5377, 5887, 4863, 5119, 5121, 6143,
+    6399, 6401, 6911, 7167, 7169, 4609, 5119, 5889,
+    6399, 6657, 7167, 1, 3073, 257, 3329, 1,
+    257, 3073, 3329, 513, 3585, 769, 3841, 513,
+    769, 3585, 3841, 1025, 4097, 1281, 4353, 1025,
+    1281, 4097, 4353, 513, 1025, 3585, 4097, 769,
+    1281, 3841, 4353, 513, 769, 1025, 1281, 3585,
+    3841, 4097, 4353, 1, 513, 3073, 3585, 257,
+    769, 3329, 3841, 1, 257, 513, 769, 3073,
+    3329, 3585, 3841, 1, 1025, 3073, 4097, 257,
+    1281, 3329, 4353, 1, 257, 1025, 1281, 3073,
+    3329, 4097, 4353, 1537, 3073, 1793, 3329, 1537,
+    1793, 3073, 3329, 2049, 3585, 2305, 3841, 2049,
+    2305, 3585, 3841, 2561, 4097, 2817, 4353, 2561,
+    2817, 4097, 4353, 2049, 2561, 3585, 4097, 2305,
+    2817, 3841, 4353, 2049, 2305, 2561, 2817, 3585,
+    3841, 4097, 4353, 1537, 2049, 3073, 3585, 1793,
+    2305, 3329, 3841, 1537, 1793, 2049, 2305, 3073,
+    3329, 3585, 3841, 1537, 2561, 3073, 4097, 1793,
+    2817, 3329, 4353, 1537, 1793, 2561, 2817, 3073,
+    3329, 4097, 4353, 4609, 4865, 5375, 5631, 5887,
+    5889, 6145, 6401, 6911, 8703, 8959, 8961, 9217,
+    9473, 9983, 10239, 10495, 10497, 10753, 11009, 11519,
+    13311, 13567, 13569, 4609, 4865, 5375, 5377, 5633,
+    6143, 6654, 6657, 7935, 8191, 8193, 9217, 9473,
+    9983, 9985, 10241, 10751, 11262, 11265, 12543, 12799,
+    12801, 4863, 5119, 5121, 5634, 6143, 6402, 6911,
+    7422, 7425, 9471, 9727, 9729, 10242, 10751, 11010,
+    11519, 12030, 12033, 4609, 5119, 5630, 5889, 6398,
+    6657, 6914, 7679, 4863, 4865, 5631, 5633, 6146,
+    6911, 7681, 8191, 4863, 4865, 5377, 5887, 6399,
+    6401, 8449, 8959, 9217, 9727, 10238, 10497, 11006,
+    11265, 11522, 12287, 9471, 9473, 10239, 10241, 10754,
+    11519, 12289, 12799, 9471, 9473, 9985, 10495, 11007,
+    11009, 13057, 13567, 513, 1281, 769, 1281, 1025,
+    1, 1281, 1, 1537, 1537, 1793, 1537, 2049,
+    1793, 2305, 1793, 2561, 257, 2817, 257, 1,
+    1, 257, 257, 1, 257, 1, 257, 513,
+    3073, 769, 3329, 513, 769, 3073, 3329, 1025,
+    3585, 1281, 3841, 1025, 1281, 3585, 3841, 513,
+    1025, 3073, 3585, 769, 1281, 3329, 3841, 513,
+    769, 1025, 1281, 3073, 3329, 3585, 3841, 1,
+    513, 1, 3073, 257, 769, 257, 3329, 1,
+    257, 513, 769, 1, 257, 3073, 3329, 1,
+    1025, 1, 3585, 257, 1281, 257, 3841, 1,
+    257, 1025, 1281, 1, 257, 3585, 3841, 1537,
+    4097, 1793, 4353, 1537, 1793, 4097, 4353, 2049,
+    4609, 2305, 4865, 2049, 2305, 4609, 4865, 2561,
+    5121, 2817, 5377, 2561, 2817, 5121, 5377, 2049,
+    2561, 4609, 5121, 2305, 2817, 4865, 5377, 2049,
+    2305, 2561, 2817, 4609, 4865, 5121, 5377, 1537,
+    2049, 4097, 4609, 1793, 2305, 4353, 4865, 1537,
+    1793, 2049, 2305, 4097, 4353, 4609, 4865, 1537,
+    2561, 4097, 5121, 1793, 2817, 4353, 5377, 1537,
+    1793, 2561, 2817, 4097, 4353, 5121, 5377, 1,
+    1537, 1, 4097, 257, 1793, 257, 4353, 1,
+    257, 1537, 1793, 1, 257, 4097, 4353, 513,
+    2049, 3073, 4609, 769, 2305, 3329, 4865, 513,
+    769, 2049, 2305, 3073, 3329, 4609, 4865, 1025,
+    2561, 3585, 5121, 1281, 2817, 3841, 5377, 1025,
+    1281, 2561, 2817, 3585, 3841, 5121, 5377, 513,
+    1025, 2049, 2561, 3073, 3585, 4609, 5121, 769,
+    1281, 2305, 2817, 3329, 3841, 4865, 5377, 513,
+    769, 1025, 1281, 2049, 2305, 2561, 2817, 3073,
+    3329, 3585, 3841, 4609, 4865, 5121, 5377, 1,
+    513, 1537, 2049, 1, 3073, 4097, 4609, 257,
+    769, 1793, 2305, 257, 3329, 4353, 4865, 1,
+    257, 513, 769, 1537, 1793, 2049, 2305, 1,
+    257, 3073, 3329, 4097, 4353, 4609, 4865, 1,
+    1025, 1537, 2561, 1, 3585, 4097, 5121, 257,
+    1281, 1793, 2817, 257, 3841, 4353, 5377, 1,
+    257, 1025, 1281, 1537, 1793, 2561, 2817, 1,
+    257, 3585, 3841, 4097, 4353, 5121, 5377, 5887,
+    6143, 6145, 6401, 6657, 7167, 7423, 7679, 7681,
+    9473, 9729, 10239, 10495, 10751, 10753, 11009, 11265,
+    11775, 12031, 12287, 12289, 14081, 14337, 14847, 14849,
+    15105, 15615, 15871, 16127, 16129, 16385, 16641, 17151,
+    18943, 19199, 19201, 5887, 6143, 6145, 6655, 6911,
+    6913, 7426, 7935, 8705, 8961, 9471, 10495, 10751,
+    10753, 11263, 11519, 11521, 12034, 12543, 13313, 13569,
+    14079, 14849, 15105, 15615, 15617, 15873, 16383, 16894,
+    16897, 18175, 18431, 18433, 5633, 5889, 6399, 6910,
+    6913, 7678, 7681, 8194, 8703, 10241, 10497, 11007,
+    11518, 11521, 12286, 12289, 12802, 13311, 15103, 15359,
+    15361, 15874, 16383, 16642, 17151, 17662, 17665, 5887,
+    5889, 6402, 7167, 7170, 7935, 8190, 8449, 10495,
+    10497, 11010, 11775, 11778, 12543, 12798, 13057, 14849,
+    15359, 15870, 16129, 16638, 16897, 17154, 17919, 5633,
+    6143, 6401, 6911, 7422, 7681, 8959, 8961, 10241,
+    10751, 11009, 11519, 12030, 12289, 13567, 13569, 15103,
+    15105, 15871, 15873, 16386, 17151, 17921, 18431, 5633,
+    6143, 6655, 6657, 7169, 7679, 9727, 9729, 10241,
+    10751, 11263, 11265, 11777, 12287, 14335, 14337, 15103,
+    15105, 15617, 16127, 16639, 16641, 18689, 19199, 5633,
+    5889, 6399, 6655, 6911, 6913, 7169, 7425, 7935,
+    9727, 9983, 9985, 10241, 10497, 11007, 11009, 11265,
+    11775, 12286, 12289, 13567, 13823, 13825, 5633, 5889,
+    6399, 6401, 6657, 7167, 7678, 7681, 8959, 9215,
+    9217, 10495, 10751, 10753, 11266, 11775, 12034, 12543,
+    13054, 13057, 5887, 6143, 6145, 6658, 7167, 7426,
+    7935, 8446, 8449, 10498, 11007, 11518, 11521, 12034,
+    12543, 14590, 14593, 5633, 6143, 6654, 6913, 7422,
+    7681, 7938, 8703, 10494, 10753, 11010, 11775, 12030,
+    12289, 14082, 14847, 5887, 5889, 6655, 6657, 7170,
+    7935, 8705, 9215, 10241, 10751, 11262, 11521, 12030,
+    12289, 12546, 13311, 5887, 5889, 6401, 6911, 7423,
+    7425, 9473, 9983, 10495, 10497, 11263, 11265, 11778,
+    12543, 13313, 13823,
+};
+__device__ const int32_t kEasyUpOutSlots[] = {
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11,
+};
+// B18's constant operands: 8 Fq values, Montgomery form, 12 words each.
+constexpr int kTowerConstCount = 8;
+__device__ const uint32_t kTowerConsts[] = {
+    0x8671f071u, 0xcd03c9e4u, 0x1fcda5d2u, 0x5dab2246u,
+    0xd3851b95u, 0x587042afu, 0x01bacb9eu, 0x8eb60ebeu,
+    0x83d050d2u, 0x03f97d6eu, 0x54638741u, 0x18f02065u,
+    0x867545c3u, 0x890dc9e4u, 0x3285a5d5u, 0x2af32253u,
+    0x309b7e2cu, 0x50880866u, 0x7e881024u, 0xa20d1b8cu,
+    0xe2db9068u, 0x14e4f04fu, 0x1564853au, 0x14e56d3fu,
+    0xb319d465u, 0x07089552u, 0xb50a8313u, 0xc6695f92u,
+    0xd117228fu, 0x97e83cccu, 0xb2dc29eeu, 0xa35baecau,
+    0x5daace4du, 0x1ce393eau, 0xb0fb66ebu, 0x08f2220fu,
+    0x5aa30fdau, 0x7bcfa7a2u, 0x2a927e7cu, 0xdc17dec1u,
+    0x6b4ebef1u, 0x2f088dd8u, 0xda74d4a7u, 0xd1ca2087u,
+    0x96cebc1du, 0x2da25966u, 0xbbfd87d2u, 0x0e2b7eedu,
+    0x0dbce43fu, 0x82d83cf5u, 0xdf9d018fu, 0xa2813e53u,
+    0x3c65e181u, 0xc6f0caa5u, 0x8d50fe95u, 0x7525cf52u,
+    0xf4798a6bu, 0x4a85ed50u, 0x6cf8eebdu, 0x171da0fdu,
+    0x798a64e8u, 0x30f1361bu, 0x7ece5a2au, 0xf3b8ddabu,
+    0xc61577f7u, 0x16a8ca3au, 0x74fd029bu, 0xc26a2ff8u,
+    0x60701c6eu, 0x3636b766u, 0x241b6160u, 0x051ba4abu,
+    0x798dba3au, 0xecfb361bu, 0x91865a2cu, 0xc100ddb8u,
+    0x232bda8eu, 0x0ec08ff1u, 0xf1ca4721u, 0xd5c13cc6u,
+    0xbf7b5c04u, 0x47222a47u, 0xe51c5f59u, 0x0110f184u,
+    0xfffcaaaeu, 0x43f5ffffu, 0xed47fffdu, 0x32b7fff2u,
+    0xa2e99d69u, 0x07e83a49u, 0x8332bb7au, 0xeca8f331u,
+    0xa0f4c069u, 0xef148d1eu, 0x3eff0206u, 0x040ab326u,
+};
 // END SCHEDULE TABLES
 
-// Words of a lane's scratch in B4-B9 and B17.
+// Words of a lane's scratch in B4-B9, B17 and B18.
 constexpr int kB4LaneWords = lane_words(kB4Slots);
 constexpr int kB5LaneWords = lane_words(kB5Slots);
 constexpr int kB6LaneWords = lane_words(kB6Slots);
@@ -1466,6 +2132,11 @@ constexpr int kDblStepLaneWords = lane_words(kDblStepSlots);
 constexpr int kFSqrFoldLaneWords = lane_words(kFSqrFoldSlots);
 constexpr int kAddStepLaneWords = lane_words(kAddStepSlots);
 constexpr int kFFoldLaneWords = lane_words(kFFoldSlots);
+constexpr int kFrobMulLaneWords =
+    lane_words(kFrobMul1Slots > kFrobMul2Slots ? kFrobMul1Slots
+                                               : kFrobMul2Slots);
+constexpr int kEasyDownLaneWords = lane_words(kEasyDownSlots);
+constexpr int kEasyUpLaneWords = lane_words(kEasyUpSlots);
 
 // ---------------------------------------------------------------------------
 // Launch shape (nvcc only)
@@ -1497,7 +2168,7 @@ __device__ __forceinline__ void run_schedule(const int32_t* phase_ops,
   const int g = threadIdx.x % kGroup;
 #pragma unroll 1
   for (int ph = 0; ph < phases; ++ph) {
-    run_phase(phase_ops, ops, terms, ph, g, kGroup, lane);
+    run_phase(phase_ops, ops, terms, kTowerConsts, ph, g, kGroup, lane);
     __syncwarp(mask);
   }
 }

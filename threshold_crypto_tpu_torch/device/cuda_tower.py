@@ -17,6 +17,14 @@ Each kernel is the counterpart of one Pallas megakernel of
   B4's or B5's schedule cut at the line. A step then its fold is B4 or B5
   bit for bit. No JAX path calls them, so they are on no entry point's
   path; ``chip_smoke.py`` drives a whole Miller loop through them;
+* B18, the final exponentiation's tower steps, also on the lane-group
+  engine: ``frob_mul`` (a·σ_k(b), k = 1, 2: the hard part's two Frobenius
+  products), and the easy part f^((p^6 − 1)(p² + 1)) as ``easy_down``
+  (f down the tower to one Fq value n a lane, and what the ascent needs)
+  and ``easy_up`` (from n⁻¹, one B2 inversion between them, back up to
+  conj(f)·f⁻¹ and its product with its p²-Frobenius). The JAX package runs
+  these steps through XLA's tower (``threshold_crypto_tpu/device/
+  pairing.py`` ``_easy_part``, ``_packed_frob``): no Pallas kernel;
 * ``fq_engine`` is the test entry of B3, the field engine
   (``_k_mul16``/``_k_mul13``, ``k_add``, ``k_sub``, ``k_neg``,
   ``k_small``), on the register engine ``csrc/ladder_engine.cuh`` that
@@ -24,7 +32,9 @@ Each kernel is the counterpart of one Pallas megakernel of
 
 They take and return the packed layout of :mod:`.packed`, contiguous
 ``int32[k·24, N]`` CUDA tensors (f: k = 12, T: 6, Q: 4, P: 2, a line
-(c0, c1, c4): 6, in ``_k_dbl_step``'s plane order), allocate
+(c0, c1, c4): 6, in ``_k_dbl_step``'s plane order; ``easy_down``'s
+values s, m, c0-c2, tt: 20), save that the easy part's one Fq value a lane
+is ``int32[N, 24]``, the layout of :mod:`.mont` that B2 takes, and allocate
 their outputs with ``torch.empty``, launch on the current stream and do not
 synchronise. Each wrapper counts its own launches (``DBL_FOLD`` …).
 
@@ -45,8 +55,9 @@ from . import tower as tw
 from .cuda_mont import Kernel, KernelCount, launch
 from .mont import FQ
 
-# Packed rows of an Fq12 f, a point T, an affine Q, a G1 point P and a line.
-F, T_, Q_, P_, LINE = (k * FQ.L for k in (12, 6, 4, 2, 6))
+# Packed rows of an Fq12 f, a point T, an affine Q, a G1 point P, a line and
+# the easy part's values between its two kernels.
+F, T_, Q_, P_, LINE, EASY = (k * FQ.L for k in (12, 6, 4, 2, 6, 20))
 
 ENGINE = KernelCount()
 DBL_FOLD = KernelCount()
@@ -59,6 +70,9 @@ DBL_STEP = KernelCount()
 ADD_STEP = KernelCount()
 F_SQR_FOLD = KernelCount()
 F_FOLD = KernelCount()
+FROB_MUL = KernelCount()
+EASY_DOWN = KernelCount()
+EASY_UP = KernelCount()
 
 
 def _check(*operands):
@@ -176,6 +190,42 @@ def f_fold(f, line):
     return fo
 
 
+def frob_mul(a, b, k: int):
+    """Kernel B18 ``frob_mul``: a·σ_k(b) for packed a, b [288, N], σ_k the
+    p^k-Frobenius, k = 1 or 2."""
+    n = _check(("a", a, F), ("b", b, F))
+    if k not in (1, 2):
+        raise ValueError(f"frob_mul takes k = 1 or 2, got {k}")
+    fo = torch.empty_like(a)
+    _launch("fq12", "tc_frob_mul", FROB_MUL, (a, b), (fo,), n, k)
+    return fo
+
+
+def easy_down(f):
+    """Kernel B18 ``easy_down``: packed f [288, N] down the tower to
+    (n int32[N, 24], the values s, m, c0-c2, tt [480, N] that ``easy_up``
+    takes); f⁻¹ needs n⁻¹ alone."""
+    n = _check(("f", f, F))
+    norm = torch.empty((n, FQ.L), dtype=f.dtype, device=f.device)
+    inter = torch.empty((EASY, n), dtype=f.dtype, device=f.device)
+    _launch("fq12", "tc_easy_down", EASY_DOWN, (f,), (norm, inter), n)
+    return norm, inter
+
+
+def easy_up(inter, ninv):
+    """Kernel B18 ``easy_up``: ``easy_down``'s values [480, N] and n⁻¹
+    int32[N, 24] -> the easy part's packed Fq12 [288, N]."""
+    n = _check(("inter", inter, EASY))
+    if (ninv.device != inter.device or ninv.dtype != torch.int32
+            or tuple(ninv.shape) != (n, FQ.L) or not ninv.is_contiguous()):
+        raise ValueError(f"ninv must be a contiguous int32 [{n}, {FQ.L}] "
+                         f"tensor on {inter.device}, got {ninv.dtype} "
+                         f"{tuple(ninv.shape)} on {ninv.device}")
+    fo = torch.empty((F, n), dtype=inter.dtype, device=inter.device)
+    _launch("fq12", "tc_easy_up", EASY_UP, (inter, ninv), (fo,), n)
+    return fo
+
+
 def fq_engine(a, b, k: int):
     """The engine's test entry: stacked Fq values a, b [m·24, N] ->
     int32[5, m·24, N] holding a·b, a + b, a − b, −a and k·a (k ≥ 1)."""
@@ -250,6 +300,36 @@ def f_fold_ref(f, line):
                                         *pk.unpack_fq2s(line, 3)))
 
 
+def frob_mul_ref(a, b, k: int):
+    return pk.pack12(tw.fq12_mul(pk.unpack12(a),
+                                 tw.fq12_frob(pk.unpack12(b), k)))
+
+
+def easy_down_ref(f):
+    a0, a1 = pk.unpack12(f)
+    a01 = tw.fq6_add(a0, a1)
+    sq0, sq1, sq01 = (tw.fq6_sqr(x) for x in (a0, a1, a01))
+    v_sq1 = tw.fq6_mul_by_v(sq1)
+    t = tw.fq6_sub(sq0, v_sq1)                         # f·conj(f)
+    s = tw.fq6_add(sq0, v_sq1)                         # conj(f)² = s + m·w
+    m = tw.fq6_sub(tw.fq6_add(sq0, sq1), sq01)
+    c, tt = tw.fq6_inv_parts(t)
+    return tw.fq2_norm(tt), pk.pack_fq2s([*s, *m, *c, tt])
+
+
+def easy_up_ref(inter, ninv):
+    x = pk.unpack_fq2s(inter, 10)
+    s, m, c, tt = x[0:3], x[3:6], x[6:9], x[9]
+    tinv = tw.fq2_conj(tw.fq2_scale_fq(tt, ninv))
+    tmp = tuple(tw.fq2_mul_many([(ci, tinv) for ci in c]))
+    x = (tw.fq6_mul(s, tmp), tw.fq6_mul(m, tmp))      # conj(f)·f⁻¹
+    return pk.pack12(tw.fq12_mul(tw.fq12_frob(x, 2), x))
+
+
+def easy_part_ref(f):
+    return pk.pack12(tw.fq12_easy_part(pk.unpack12(f)))
+
+
 def fq_engine_ref(a, b, k: int):
     m = a.shape[0] // FQ.L
     x = torch.stack(pk.unpack(a, m))                           # [m, N, 24]
@@ -303,8 +383,24 @@ def p_f_fold(f, line):
     return (f_fold if mont.on_card(f) else f_fold_ref)(f, line)
 
 
+def p_frob_mul(a, b, k: int):
+    return (frob_mul if mont.on_card(a) else frob_mul_ref)(a, b, k)
+
+
+def p_easy_part(f):
+    """The final exponentiation's easy part on packed f [288, N]: on the
+    card ``easy_down``, one B2 inversion of its n (zero to zero) and
+    ``easy_up``; on the CPU the tower (``easy_part_ref``)."""
+    if not mont.on_card(f):
+        return easy_part_ref(f)
+    norm, inter = easy_down(f)
+    return easy_up(inter, mont.inv(FQ, norm))
+
+
 _SRC = "threshold_crypto_tpu_torch/csrc/"
 _TPU = "threshold_crypto_tpu/device/pallas_tower.py:"
+# B18 replaces no Pallas kernel: the JAX package's XLA tower steps.
+_XLA = "threshold_crypto_tpu/device/pairing.py:"
 KERNELS = (
     Kernel("fq_engine", fq_engine, fq_engine_ref, ENGINE, _SRC + "fq12.cu",
            _TPU + "140"),
@@ -328,4 +424,10 @@ KERNELS = (
            _SRC + "miller.cu", _TPU + "940"),
     Kernel("f_fold", f_fold, f_fold_ref, F_FOLD, _SRC + "miller.cu",
            _TPU + "948"),
+    Kernel("frob_mul", frob_mul, frob_mul_ref, FROB_MUL, _SRC + "fq12.cu",
+           _XLA + "269"),
+    Kernel("easy_down", easy_down, easy_down_ref, EASY_DOWN,
+           _SRC + "fq12.cu", _XLA + "257"),
+    Kernel("easy_up", easy_up, easy_up_ref, EASY_UP, _SRC + "fq12.cu",
+           _XLA + "257"),
 )

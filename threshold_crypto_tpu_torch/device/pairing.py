@@ -94,14 +94,9 @@ def _exp_by_x(f):
     return tw.fq12_conj(result)
 
 
-def _easy_part(f):
-    f = tw.fq12_mul(tw.fq12_conj(f), tw.fq12_inv(f))
-    return tw.fq12_mul(tw.fq12_frob(f, 2), f)
-
-
 def final_exponentiation(f):
     """Easy part, then the lattice hard part (X−1)²(X+p)(X²+p²−1) + 3."""
-    f = _easy_part(f)
+    f = tw.fq12_easy_part(f)
     t = tw.fq12_mul(_exp_by_x(f), tw.fq12_conj(f))       # f^(X-1)
     t = tw.fq12_mul(_exp_by_x(t), tw.fq12_conj(t))       # f^((X-1)^2)
     t = tw.fq12_mul(_exp_by_x(t), tw.fq12_frob(t, 1))    # ^(X+p)
@@ -170,11 +165,6 @@ def miller_loop_packed(p_packed, q_packed):
     return f
 
 
-def _packed_frob(f, power: int):
-    """Frobenius through the tower (twice per final exponentiation)."""
-    return pk.pack12(tw.fq12_frob(pk.unpack12(f), power))
-
-
 def _expx_packed(f):
     """f^X (X < 0) in the cyclotomic subgroup: B6 on the 58 zero bits of
     |X| after the first, B7 (square, then ·f) on its five 1-bits, then the
@@ -188,19 +178,19 @@ def _expx_packed(f):
 @trace.traced("pairing.final_exp")
 def final_exponentiation_packed(f):
     """The final exponentiation on the packed layout; the same GT limbs as
-    ``final_exponentiation``. The easy part (one Fermat inversion, one B2
-    launch) and the Frobenius run on the tower; the hard part is the lattice
+    ``final_exponentiation``. The easy part is B18's ``easy_down``, one
+    Fermat inversion (B2) and ``easy_up``; the hard part is the lattice
     chain t1 = x^X·conj(x), t2 = t1^X·conj(t1), t3 = t2^X·frob1(t2),
-    t5 = t3^X^X·frob2(t3)·conj(t3), result t5·x²·x, in B6-B9 launches."""
+    t5 = t3^X^X·frob2(t3)·conj(t3), result t5·x²·x, in B6-B9 launches and
+    B18's ``frob_mul`` for the two Frobenius products."""
     with trace.span("final_exp.easy"):
-        f = pk.pack12(_easy_part(pk.unpack12(f)))
+        f = ctw.p_easy_part(f)
     with trace.span("final_exp.hard"):
         t = ctw.p_fq12_mul(_expx_packed(f), pk.packed_conj12(f))
         t = ctw.p_fq12_mul(_expx_packed(t), pk.packed_conj12(t))
-        t = ctw.p_fq12_mul(_expx_packed(t), _packed_frob(t, 1))
+        t = ctw.p_frob_mul(_expx_packed(t), t, 1)
         tx2 = _expx_packed(_expx_packed(t))
-        t = ctw.p_fq12_mul(ctw.p_fq12_mul(tx2, _packed_frob(t, 2)),
-                           pk.packed_conj12(t))
+        t = ctw.p_fq12_mul(ctw.p_frob_mul(tx2, t, 2), pk.packed_conj12(t))
         f3 = ctw.p_fq12_mul(ctw.p_fq12_sqr(f), f)
         return ctw.p_fq12_mul(t, f3)
 

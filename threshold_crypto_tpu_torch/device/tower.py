@@ -126,11 +126,15 @@ def fq2_mul_small_many(xs, k: int):
     return [(t[2 * i], t[2 * i + 1]) for i in range(len(xs))]
 
 
+def fq2_norm(a):
+    """a0² + a1² = a·conj(a), in Fq."""
+    sq = _mul_many([(a[0], a[0]), (a[1], a[1])])
+    return mont.add(FQ, sq[0], sq[1])
+
+
 def fq2_inv(a):
     a0, a1 = a
-    sq = _mul_many([(a0, a0), (a1, a1)])
-    norm = mont.add(FQ, sq[0], sq[1])
-    ninv = mont.inv(FQ, norm)
+    ninv = mont.inv(FQ, fq2_norm(a))
     t = mont.mul(FQ, _stack([a0, a1]), ninv)
     return (t[0], mont.neg(FQ, t[1]))
 
@@ -282,7 +286,9 @@ def _sparse01_fin(t):
     return (c0, c1, c2)
 
 
-def fq6_inv(a):
+def fq6_inv_parts(a):
+    """``fq6_inv`` before its Fq2 inverse: the cofactors (c0, c1, c2) and
+    tt = a·(c0, c1, c2), the norm of a to Fq2; a⁻¹ = (c0, c1, c2)·tt⁻¹."""
     a0, a1, a2 = a
     t = fq2_mul_many(
         [(a0, a0), (a2, a2), (a1, a1), (a1, a2), (a0, a1), (a0, a2)]
@@ -293,6 +299,11 @@ def fq6_inv(a):
     c2 = fq2_sub(sq1, m02)
     u = fq2_mul_many([(a2, c1), (a1, c2), (a0, c0)])
     tt = fq2_add(mul_by_xi(fq2_add(u[0], u[1])), u[2])
+    return (c0, c1, c2), tt
+
+
+def fq6_inv(a):
+    (c0, c1, c2), tt = fq6_inv_parts(a)
     tinv = fq2_inv(tt)
     r = fq2_mul_many([(c0, tinv), (c1, tinv), (c2, tinv)])
     return (r[0], r[1], r[2])
@@ -404,6 +415,13 @@ def fq12_inv(a):
     t = fq2_mul_many(parts)
     c0, c1 = _fq6_mul_fin_many([t[0:6], t[6:12]])
     return (c0, fq6_neg(c1))
+
+
+def fq12_easy_part(f):
+    """f^((p^6 − 1)(p² + 1)), the final exponentiation's easy part:
+    x = conj(f)·f⁻¹, then frob₂(x)·x."""
+    f = fq12_mul(fq12_conj(f), fq12_inv(f))
+    return fq12_mul(fq12_frob(f, 2), f)
 
 
 def fq12_select(cond, a, b):

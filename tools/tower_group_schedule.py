@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """The static schedules of B4 (``dbl_fold``), B5 (``add_fold``), B6
 (``cyclo_sqr``), B7 (``cyclo_sqr_mul``), B8 (``fq12_mul``), B9
-(``fq12_sqr``) and B17's four pieces (``dbl_step``, ``f_sqr_fold``,
-``add_step``, ``f_fold``) on the lane-group tower engine, and the tables
-of ``csrc/tower_group.cuh``.
+(``fq12_sqr``), B17's four pieces (``dbl_step``, ``f_sqr_fold``,
+``add_step``, ``f_fold``) and B18's (``frob_mul`` at p and p², the final
+exponentiation's easy part as ``easy_down`` and ``easy_up``) on the
+lane-group tower engine, and the tables of ``csrc/tower_group.cuh``.
 
     python3 tools/tower_group_schedule.py           # print the table block
     python3 tools/tower_group_schedule.py --write   # write it into the header
@@ -49,6 +50,23 @@ product, the linear phases' are sorted by their cost, largest first. Each
 form carries its reduction steps (`reduction`): the engine sums a form
 unreduced and reduces it only as far as its use needs.
 
+B18 multiplies by the Frobenius constants of the tower
+(``host/tower.py`` ``FROB12_C1``, ``FROB6_C1``, ``FROB6_C2``): a product's
+second operand may be one constant (`Const`), read from the header's
+``kTowerConsts`` (the constants in Montgomery form, R = 2^384) in place of
+a form over slots. ``frob_mul`` is a·σ_k(b): one product phase of the
+constants (10 Fq products: each constant is real, imaginary or c·(1 ± u),
+two products an Fq2), then B8's 54.
+``easy_down`` takes f = (a0, a1) down the tower to the one Fq value n a
+lane whose inverse the easy part needs (62 products in four phases: a0²,
+a1², (a0 + a1)²; ``fq6_inv``'s c0, c1, c2; tt; tt's norm) and keeps what
+the ascent needs: s = a0² + v·a1², m = −2·a0·a1 (conj(f)² = s + m·w),
+c0, c1, c2 and tt. ``easy_up`` goes back up with n⁻¹ (111 products in
+five phases: tt⁻¹; the Fq6 inverse tmp; x = conj(f)·f⁻¹ = conj(f)²·tmp;
+σ_2(x); x·σ_2(x)). Their inputs: ``frob_mul`` a 0-11, b 12-23;
+``easy_down`` f 0-11; ``easy_up`` s 0-5, m 6-11, c0-c2 12-17, tt 18-19,
+n⁻¹ 20 (``easy_down``'s outputs after n, in order).
+
 The table block is C++ between the marker lines of the header.
 """
 
@@ -59,6 +77,11 @@ import os
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+from threshold_crypto_tpu_torch.host import tower as htw  # noqa: E402
+from threshold_crypto_tpu_torch.host.params import P  # noqa: E402
+
 HEADER = os.path.join(ROOT, "threshold_crypto_tpu_torch", "csrc",
                       "tower_group.cuh")
 BEGIN = "// BEGIN SCHEDULE TABLES (tools/tower_group_schedule.py --write)"
@@ -91,6 +114,16 @@ class Lin:
 
     def __rmul__(self, k: int):
         return Lin({n: k * v for n, v in self.c.items()})
+
+
+class Const:
+    """A constant Fq value as a product's second operand: entry `index` of
+    the header's ``kTowerConsts``."""
+
+    __slots__ = ("index",)
+
+    def __init__(self, value):
+        self.index = CONSTS.index(value % P)
 
 
 # Fq2 = (re, im), Fq6 = 3 Fq2, Fq12 = 2 Fq6, as tuples of Lin.
@@ -143,6 +176,31 @@ def sqr2(a):
 def scale2(a, k):
     """a·k for an Fq k."""
     return [(a[0], k), (a[1], k)], lambda t: (t[0], t[1])
+
+
+def mul2_const(a, c):
+    """a·c for a constant c = (c0, c1) of σ_k: every one is c0 times 1, u,
+    1 + u or 1 − u, so 2 Fq products against c0 or c1: (a0·c0, a1·c0),
+    (−a1·c1, a0·c1), (c0·(a0 − a1), c0·(a0 + a1)) or
+    (c0·(a0 + a1), c0·(a1 − a0))."""
+    c0, c1 = c
+    if c1 == 0:
+        return [(a[0], Const(c0)), (a[1], Const(c0))], lambda t: (t[0], t[1])
+    if c0 == 0:
+        return ([(a[1], Const(c1)), (a[0], Const(c1))],
+                lambda t: (-t[0], t[1]))
+    if c1 in (c0, P - c0):
+        s = 1 if c1 == c0 else -1
+        return ([(a[0] - s * a[1], Const(c0)), (a[0] + s * a[1], Const(c0))],
+                lambda t: (t[0], s * t[1]))
+    raise ValueError(f"no 2-product form for the constant {c}")
+
+
+def fq6_sqr_reqs(a):
+    """An Fq6 square as `_fq6_mul_parts(a, a)` with every Fq2 product a
+    square (12 Fq); `fq6_mul_fin` finishes it."""
+    return [sqr2(a[0]), sqr2(a[1]), sqr2(a[2]), sqr2(add2(a[1], a[2])),
+            sqr2(add2(a[0], a[1])), sqr2(add2(a[0], a[2]))]
 
 
 def fq6_mul_reqs(a, b):
@@ -230,8 +288,8 @@ class Schedule:
         last = {}
         for p, (_, ops) in enumerate(self.phases):
             for _, a, b in ops:
-                for form in (a, b) if b is not None else (a,):
-                    for node in form.c:
+                for form in (a, b):
+                    for node in getattr(form, "c", ()):
                         last[node] = p
         for node in self.outputs:
             last[node] = len(self.phases)
@@ -256,11 +314,15 @@ class Schedule:
         """(terms, ops, phases, out_slots, n_slots): terms as slot << 8 |
         (coef & 0xff); ops as (dst, first term, form A, form B), a form
         word its terms | reduction << 8 (`reduction`), B 0 in a linear op;
-        phases as (first op, ops)."""
+        a constant B one term, its index << 8 | 1, and the word
+        1 | CONST << 8; phases as (first op, ops)."""
         slot, n_slots = self.allocate()
         terms, ops, phases = [], [], []
 
         def emit(form, steps):
+            if isinstance(form, Const):
+                terms.append(form.index << 8 | 1)
+                return 1 | CONST << 8
             items = sorted(form.c.items(), key=lambda kv: (slot[kv[0]],
                                                           kv[1]))
             for node, coef in items:
@@ -302,6 +364,9 @@ def weight(form):
 # QSTEP subtracts q·p for an estimate q of the value over p (leaving it
 # below 3p), CSUB·n n conditional subtracts of p (n ≤ 3).
 QSTEP, CSUB = 1, 2
+# The bit of a form's word above its reduction steps that makes it one
+# constant of ``kTowerConsts`` (B18's Frobenius constants).
+CONST = 8
 
 
 def reduction(a, b):
@@ -318,7 +383,7 @@ def reduction(a, b):
     conditional subtracts, above that QSTEP then two."""
     wa = weight(a)
     if b is not None:
-        wb = weight(b)
+        wb = 1 if isinstance(b, Const) else weight(b)
         if wa * wb <= 9:
             return 0, 0
         return (QSTEP if wa > 3 else 0), (QSTEP if wb > 3 else 0)
@@ -651,12 +716,113 @@ def b9_schedule():
     return s
 
 
+# ---------------------------------------------------------------------------
+# B18: the final exponentiation's Frobenius products and easy part
+# ---------------------------------------------------------------------------
+
+def frob_consts(k):
+    """The Fq2 constants of σ_k on Fq12 (`tower.fq12_frob`), in the order
+    of the components they multiply: c0's v and v² parts, then c1's 1, v
+    and v² parts."""
+    c12 = htw.FROB12_C1[k]
+    return [htw.FROB6_C1[k], htw.FROB6_C2[k], c12,
+            htw.fq2_mul(htw.FROB6_C1[k], c12), htw.fq2_mul(htw.FROB6_C2[k], c12)]
+
+
+# Every constant a product of B18 takes, in a fixed order: the Fq operand
+# of each Frobenius constant at p and p² (`mul2_const`).
+CONSTS = list(dict.fromkeys(c[0] or c[1] for k in (1, 2)
+                            for c in frob_consts(k)))
+
+
+def frob(s, b, k):
+    """σ_k(b) (`tower.fq12_frob`): the components conjugated for odd k, five
+    of them multiplied by constants in one product phase of 10 Fq products
+    (`mul2_const`), each fin one product's node, so the next phase's
+    operand forms are as short as B8's."""
+    flat = [x for fq6 in b for x in fq6]
+    if k % 2:
+        flat = [(x[0], -x[1]) for x in flat]
+    t = s.products([mul2_const(x, c)
+                    for x, c in zip(flat[1:], frob_consts(k))])
+    return fq12_from([c for x in [flat[0]] + t for c in x])
+
+
+def frob_mul_schedule(k):
+    """B18 ``frob_mul`` at p^k: a·σ_k(b), one phase of constant products,
+    then B8's 54 with σ_k(b) as the second operand. Inputs a (12), b (12);
+    output a·σ_k(b) (12)."""
+    s = Schedule(f"B18 frob_mul k = {k}", 24)
+    x = s.inputs()
+    t = s.products(fq12_mul_reqs(fq12_from(x[:12]),
+                                 frob(s, fq12_from(x[12:]), k)))
+    s.output(s.linear(fq12_flat(fq12_mul_fin(t))))
+    return s
+
+
+def easy_down_schedule():
+    """B18 ``easy_down``: f = (a0, a1) down the tower to the norm n of
+    `tower.fq12_inv`'s Fq2 inverse. Phase 1: a0², a1², (a0 + a1)² (36 Fq
+    products); t = a0² − v·a1² (the norm to Fq6), s = a0² + v·a1² and
+    m = a0² + a1² − (a0 + a1)² = −2·a0·a1 (conj(f)² = s + m·w). Phase 2:
+    `fq6_inv`'s six Fq2 products of t (15); c0 = t0² − ξ·t1t2,
+    c1 = ξ·t2² − t0t1, c2 = t1² − t0t2. Phase 3: t2·c1, t1·c2, t0·c0 (9);
+    tt = ξ(t2c1 + t1c2) + t0c0. Phase 4: tt0², tt1² (2); n = tt0² + tt1².
+    Input f (12); outputs n, then s (6), m (6), c0-c2 (6), tt (2)."""
+    s = Schedule("B18 easy_down", 12)
+    a0, a1 = fq12_from(s.inputs())
+    sq = s.products(fq6_sqr_reqs(a0) + fq6_sqr_reqs(a1)
+                    + fq6_sqr_reqs(add6(a0, a1)))
+    A, B, C = (fq6_mul_fin(sq[6 * i:6 * i + 6]) for i in range(3))
+    vB = mul_by_v(B)
+    m = s.linear2(list(sub6(A, vB)) + list(add6(A, vB))
+                  + list(sub6(add6(A, B), C)))
+    t, sv, mv = m[:3], m[3:6], m[6:]
+    sq0, sq2, sq1, m12, m01, m02 = s.products(
+        [sqr2(t[0]), sqr2(t[2]), sqr2(t[1]), mul2(t[1], t[2]),
+         mul2(t[0], t[1]), mul2(t[0], t[2])])
+    c = s.linear2([sub2(sq0, xi(m12)), sub2(xi(sq2), m01), sub2(sq1, m02)])
+    u = s.products([mul2(t[2], c[1]), mul2(t[1], c[2]), mul2(t[0], c[0])])
+    (tt,) = s.linear2([add2(xi(add2(u[0], u[1])), u[2])])
+    (norm,) = s.products([([(tt[0], tt[0]), (tt[1], tt[1])],
+                           lambda t: t[0] + t[1])])
+    n = s.linear([norm])
+    s.output(n + [x for v in sv + mv + c + [tt] for x in v])
+    return s
+
+
+def easy_up_schedule():
+    """B18 ``easy_up``: the easy part's ascent from ``easy_down``'s values
+    and n⁻¹. Phase 1: tt⁻¹ = (tt0·n⁻¹, −tt1·n⁻¹) (2 Fq products). Phase 2:
+    the Fq6 inverse tmp = (c0, c1, c2)·tt⁻¹ (9). Phase 3:
+    x = conj(f)·f⁻¹ = conj(f)²·tmp = s·tmp + (m·tmp)·w (36), as
+    `tower.fq12_inv` gives f⁻¹ = conj(f)·tmp. Phase 4: σ_2(x)'s constant
+    products (10). Phase 5: x·σ_2(x) (54). Inputs s (6), m (6), c0-c2 (6),
+    tt (2), n⁻¹ (1); output the easy part (12)."""
+    s = Schedule("B18 easy_up", 21)
+    x = s.inputs()
+    fq2s = [(x[2 * i], x[2 * i + 1]) for i in range(10)]
+    sv, mv, c, tt, ninv = fq2s[:3], fq2s[3:6], fq2s[6:9], fq2s[9], x[20]
+    (tinv,) = s.products([([(tt[0], ninv), (tt[1], ninv)],
+                           lambda t: (t[0], -t[1]))])
+    tmp = s.linear2(s.products([mul2(ci, tinv) for ci in c]))
+    r = s.products(fq6_mul_reqs(sv, tmp) + fq6_mul_reqs(mv, tmp))
+    e = fq12_from(s.linear(fq12_flat((fq6_mul_fin(r[:6]),
+                                      fq6_mul_fin(r[6:])))))
+    t = s.products(fq12_mul_reqs(e, frob(s, e, 2)))
+    s.output(s.linear(fq12_flat(fq12_mul_fin(t))))
+    return s
+
+
 SCHEDULES = {"kB4": b4_schedule, "kB6": b6_schedule, "kB7": b7_schedule,
              "kB8": b8_schedule, "kB5": b5_schedule, "kB9": b9_schedule,
              "kDblStep": b17_dbl_step_schedule,
              "kFSqrFold": b17_f_sqr_fold_schedule,
              "kAddStep": b17_add_step_schedule,
-             "kFFold": b17_f_fold_schedule}
+             "kFFold": b17_f_fold_schedule,
+             "kFrobMul1": lambda: frob_mul_schedule(1),
+             "kFrobMul2": lambda: frob_mul_schedule(2),
+             "kEasyDown": easy_down_schedule, "kEasyUp": easy_up_schedule}
 
 
 def _array(name, values, per_line):
@@ -688,6 +854,14 @@ def block():
         out.append(_array(f"{prefix}Ops", [v for o in ops for v in o], 8))
         out.append(_array(f"{prefix}Terms", terms, 8))
         out.append(_array(f"{prefix}OutSlots", out_slots, 12))
+    words = [f"0x{(v << 384) % P >> (32 * j) & 0xFFFFFFFF:08x}u"
+             for v in CONSTS for j in range(12)]
+    out.append(f"// B18's constant operands: {len(CONSTS)} Fq values, Montgomery "
+               f"form, 12 words each.")
+    out.append(f"constexpr int kTowerConstCount = {len(CONSTS)};")
+    out.append("__device__ const uint32_t kTowerConsts[] = {\n"
+               + "\n".join("    " + ", ".join(words[i:i + 4]) + ","
+                           for i in range(0, len(words), 4)) + "\n};")
     out.append(END)
     return "\n".join(out) + "\n"
 

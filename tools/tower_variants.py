@@ -6,7 +6,7 @@ engine (``csrc/tower_group.cuh``), and B3's test entry (``fq_engine``) on
 the register engine (``csrc/ladder_engine.cuh``), against their old bodies
 and other group sizes, on one card.
 
-    python3 tools/tower_variants.py [--split] [--parent ROOT]
+    python3 tools/tower_variants.py [--split | --final-exp] [--parent ROOT]
 
 The variants, each built with the package's nvcc flags into
 ``threshold_crypto_tpu_torch/_build/variants/``:
@@ -41,6 +41,15 @@ and copies of them with one part of the work taken out (``SPLIT``: the
 product, the product operands' sums, the linear ops, the reduction steps,
 everything but the staging), whose results are wrong, and times them the
 same way: where the kernels' time goes.
+
+With ``--final-exp`` it builds no variant and times B18 instead, at the
+pairing check's widths (``chip_smoke.B18_WIDTHS``: 1, 256, 8192 and
+65,536 lanes), launched one by one and replayed from a CUDA graph, in
+turns: the easy part as ``easy_down``, B2 and ``easy_up``
+(``cuda_tower.p_easy_part``) against the tower path it replaced
+(``easy_part_ref`` with its products on B1 and its inversion on B2), and
+``frob_mul`` at k = 1 and 2 against B8 ``fq12_mul`` and against the tower
+Frobenius and B8 it replaced; each pair checked bit-exact first.
 
 With ``--parent ROOT`` (another checkout: its ``chip_smoke.py`` and
 ``threshold_crypto_tpu_torch/``) it also times both checkouts' calls in
@@ -364,8 +373,8 @@ SPLIT = {
         ("    form(a, terms + t0, fa, lane);",
          "    if (fb != 0) slot_load(a, lane, terms[t0] >> 8);\n"
          "    else form(a, terms + t0, fa, lane);"),
-        ("      form(b, terms + t0 + (fa & 0xFF), fb, lane);",
-         "      slot_load(b, lane, terms[t0 + (fa & 0xFF)] >> 8);")],
+        ("        form(b, tb, fb, lane);",
+         "        slot_load(b, lane, tb[0] >> 8);")],
     "no linear ops": [
         ("    const int dst = op[0], t0 = op[1], fa = op[2], fb = op[3];",
          "    const int dst = op[0], t0 = op[1], fa = op[2], fb = op[3];\n"
@@ -607,6 +616,76 @@ def graph_time_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+# --final-exp: timed launches a graph holds at each width (a launch of the
+# tower path at 65,536 lanes takes about 120 ms).
+FINAL_EXP_REPS = {"kernel": {1: 50, 256: 50, cs.LANES: 20, 65536: 10},
+                  "tower": {1: 5, 256: 5, cs.LANES: 3, 65536: 2}}
+
+
+def final_exp_turns(cardd):
+    """B18 against what it replaced and against B8, in turns at each of
+    chip_smoke.B18_WIDTHS: {key: {name: {"ms": [...], "graph_ms": [...]}}}
+    and the bounds."""
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_tower as ctw
+    from threshold_crypto_tpu_torch.device import mont
+    from threshold_crypto_tpu_torch.device import packed as pk
+    from threshold_crypto_tpu_torch.device import tower as tw
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cs.SEED)
+    out = {}
+    for n in cs.B18_WIDTHS:
+        a, b = cs.b18_inputs(n, gen, dev)
+        cases = {"easy part": {
+            "kernel": lambda: ctw.p_easy_part(a),
+            "tower": lambda: ctw.easy_part_ref(a)}}
+        for k in (1, 2):
+            cases[f"frob_mul k={k}"] = {
+                "kernel": lambda k=k: ctw.frob_mul(a, b, k),
+                "fq12_mul": lambda: ctw.fq12_mul(a, b),
+                "tower": lambda k=k: ctw.fq12_mul(a, pk.pack12(
+                    tw.fq12_frob(pk.unpack12(b), k)))}
+        bound = {"easy part": sum(
+            cs.bound_ms((comps + outs) * 24 * 4 * n,
+                        n * prods * cs.FQ_PRODUCT_IMADS, cardd)[0]
+            for name, (comps, outs, prods) in cs.B18_CHECKS.items()
+            if name != "frob_mul")
+            + cs.pow_bound(mont.FQ, n, mont.FQ.p - 2, cardd)[0]}
+        comps, outs, prods = cs.B18_CHECKS["frob_mul"]
+        for k in (1, 2):
+            bound[f"frob_mul k={k}"] = cs.bound_ms(
+                (comps + outs) * 24 * 4 * n, n * prods * cs.FQ_PRODUCT_IMADS,
+                cardd)[0]
+        for case, fns in cases.items():
+            key = f"{case} n={n}"
+            want = fns["kernel"]()
+            for name, fn in fns.items():
+                if name != "fq12_mul" and not torch.equal(fn(), want):
+                    raise RuntimeError(f"{key}: {name} differs from the "
+                                       f"kernel")
+            names = list(fns)
+            times = {name: {"ms": [], "graph_ms": []} for name in names}
+            for name in names[::-1] + names:
+                reps = FINAL_EXP_REPS["tower" if name == "tower"
+                                      else "kernel"][n]
+                times[name]["ms"].append(cs.cuda_time_ms(fns[name], reps))
+                times[name]["graph_ms"].append(graph_time_ms(fns[name],
+                                                             reps))
+            out[key] = times
+            times["bound_ms"] = bound[case]
+            print(f"{key} (bit-exact; bound {bound[case]:.4f} ms), "
+                  f"launched one by one | replayed from a CUDA graph: "
+                  + ", ".join(f"{nm} {statistics.mean(t['ms']):.4f} | "
+                              f"{statistics.mean(t['graph_ms']):.4f} ms"
+                              for nm, t in times.items()
+                              if nm != "bound_ms"), flush=True)
+        del a, b, cases, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def turns(parent):
     """Both checkouts' calls in turns (parent, this, this, parent, twice):
     {"parent": {...}, "this": {...}}, each key a list over the turns."""
@@ -650,6 +729,9 @@ def main():
     ap.add_argument("--split", action="store_true", help="time the "
                     "package's kernels with one part of their work taken "
                     "out (SPLIT) instead of the variants")
+    ap.add_argument("--final-exp", action="store_true", help="time B18 "
+                    "against the tower path it replaced and against B8 "
+                    "instead of the variants")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("tower_variants: no CUDA device", file=sys.stderr)
@@ -665,6 +747,16 @@ def main():
     bdir = os.path.join(_build.BUILD_DIR, "variants")
     shutil.rmtree(bdir, ignore_errors=True)
     os.makedirs(bdir)
+    if args.final_exp:
+        _build.build(["fq12", "mont"])
+        res = {"card": card, "final_exp": final_exp_turns(cardd)}
+        if args.parent:
+            res["turns"] = turns(args.parent)
+        line = json.dumps(res)
+        with open(os.path.join(bdir, "tower_variants.json"), "w") as f:
+            f.write(line + "\n")
+        print(line, flush=True)
+        return 0
     t0 = time.time()
     procs = build_variants(bdir, args.split)
     _build.build(["miller", "fq12"])
