@@ -43,8 +43,8 @@ t = 85 (see ``dkg_line``).
 The per-pair counts depend on the code path only, not on the lane count.
 The RLC path's run at RLC_N shares differs from one at 262,144 in what
 depends on N and the accumulators A = min(``cuda_curve.ACCUMULATORS``, N):
-the fold's ⌈log₂ A⌉ levels per group (each one complete add, 5 B1
-launches and a fixed number of torch ops), and B12's launches (2 once the
+the fold's ⌈log₂ A⌉ levels per group (each one B19 launch, whose torch
+ops ``level_ops`` counts), and B12's launches (2 once the
 transcript has 64 chunks or more, which RLC_N = 256 reaches). The line
 gives the fold levels and checks the launches against
 ``chip_smoke.rlc_launches``, the count the card run checks at 262,144.
@@ -151,6 +151,17 @@ def count(fn, args, stages=()):
     return counter.ops, launches, per_stage
 
 
+def level_ops_of(g2):
+    """The torch ops of one fold level as ``DeviceCurve.fold_axis`` runs it
+    (``cuda_curve.p_fold_level``, one B19 launch) over two entries."""
+    curve = dcv.G2 if g2 else dcv.G1
+    packed = cuda_curve.pack_point(curve.from_host_affine(
+        [curve.gen_affine_host] * 2, device="cpu"))
+    ok = torch.ones(())
+    return count(lambda p: (cuda_curve.p_fold_level(g2, p, 1), ok)[1],
+                 (packed,))[0]
+
+
 def rlc_call(pk_aff, h_jac, sig_aff):
     """One RLC verification as bench.py times it: exponents, then check."""
     r = ops.rlc_exponents(RLC_N, b"\x01" * 32, pk_aff=pk_aff,
@@ -188,11 +199,8 @@ def main():
         raise SystemExit(f"RLC launches {launches}, expected {expect}")
     levels = (min(cuda_curve.ACCUMULATORS, RLC_N) - 1).bit_length()
     full = (min(cuda_curve.ACCUMULATORS, 262144) - 1).bit_length()
-    # one fold level: one complete add per group
-    level_ops = sum(
-        count(lambda p: (c.add(p, p), torch.ones(()))[1],
-              (c.from_host_affine([c.gen_affine_host] * 2, device="cpu"),))[0]
-        for c in (dcv.G1, dcv.G2))
+    # one fold level per group
+    level_ops = sum(level_ops_of(g2) for g2 in (False, True))
     print(json.dumps({"path": "rlc_exponents+verify_sig_shares_rlc_pallas",
                       "shares": RLC_N, "check_batch": RLC_CHECK,
                       "fold_levels_per_group": levels, "torch_ops": n_ops,
@@ -326,9 +334,7 @@ def combine_line():
         frops._LAGRANGE_MATRIX_MAX = saved_max
         if "fold_sum" in vars(dcv.G2):
             del dcv.G2.fold_sum
-    level_ops = count(lambda p: (dcv.G2.add(p, p), torch.ones(()))[1],
-                      (dcv.G2.from_host_affine([dcv.G2.gen_affine_host] * 2,
-                                               device="cpu"),))[0]
+    level_ops = level_ops_of(True)
     full = {"pallas": min(cuda_curve.ACCUMULATORS, COMBINE_FULL),
             "scalarwise": COMBINE_FULL,
             "bitscan": min(cuda_curve.SHARED_BLOCK, COMBINE_FULL)}
@@ -352,7 +358,7 @@ def dkg_line():
     extrapolated to t = 85: the count less its fold levels is fitted
     linearly in t between the two points (the powers are t sequential
     products), and the folds' ⌈log₂(t+1)⌉ + ⌈log₂ npos⌉ levels at t = 85
-    are added at the counted ops of one G1 complete add."""
+    are added at the counted ops of one G1 fold level."""
     from threshold_crypto_tpu_torch.ops import threshold as tops
 
     def levels(m):
@@ -361,9 +367,7 @@ def dkg_line():
     def fold_levels(t):
         return levels(t + 1) + levels((t + 1) * (t + 2) // 2)
 
-    level_ops = count(lambda p: (dcv.G1.add(p, p), torch.ones(()))[1],
-                      (dcv.G1.from_host_affine([dcv.G1.gen_affine_host] * 2,
-                                               device="cpu"),))[0]
+    level_ops = level_ops_of(False)
     saved_inv, saved_sync = tops.batch_inv_field, torch.cuda.synchronize
     tops.batch_inv_field = lambda f, a: f.inv(a)   # the card's one B2
     torch.cuda.synchronize = lambda *a, **k: None  # no card to wait for

@@ -13,8 +13,7 @@ Phases, each announced on a flushed line before it starts:
    spills that ptxas reports;
 3. kernels: each kernel on the card against its plain PyTorch version on the
    same inputs, bit-exact, at the shapes of the main paths (B1 in Fq and Fr
-   at slice 1's widest launch, and after slice 3 at the RLC fold's first
-   level; B2 for p − 2 at 1, 512, 8192 and 32,768 lanes, for (p − 1)/2 at
+   at slice 1's widest launch; B2 for p − 2 at 1, 512, 8192 and 32,768 lanes, for (p − 1)/2 at
    the hash path's 65,536 and in Fr for r − 2 at 1 and 4096, beside the
    bound of its own chain's squares and products (and, as history, of the
    square-and-multiply count the kernel before it ran); their
@@ -44,7 +43,14 @@ Phases, each announced on a flushed line before it starts:
    the combine's also beside a latency yardstick (its products times one
    thread's product in series, from B16 dblw on one block in this run);
    B10's, B11's, B13's and B15's registers, stack frame and spills, and
-   B14's;
+   B14's; B19, one level of the pairwise fold, through ``fold_axis`` at
+   the folds of the paths (the DKG's [256, 86, 86] over axis 2 and
+   [256, 3741] over axis 1, the RLC's 16,384 partial sums in G1 and G2,
+   a G2 combine's 86 shares) on special pairs (T == Q, T == −Q, infinity
+   on either side, a batch at infinity), against the plain tree, with
+   one B19 launch a level and no other launch, each level and the whole
+   fold timed beside its bounds, and its registers, stack frame and
+   spills;
 4. slice 1: ``ops.verify_batch`` on 8192 lanes (16,384 pairs) of keys,
    messages and signatures made on the host from a seed; the result must
    equal the mask known from construction lane for lane, and a 256-lane
@@ -208,7 +214,8 @@ RLC_A_SWEEP = (8192, 16384, 32768)
 # B11's accumulators on its special lanes (``winacc_special_points``).
 WINACC_SPECIAL_A = 5
 RLC_A_ROUNDS = 5
-RLC_KERNELS = ("g1_madd", "g2_madd", "g1_winacc", "g2_winacc", "sha3_chunks")
+RLC_KERNELS = ("g1_madd", "g2_madd", "g1_winacc", "g2_winacc", "sha3_chunks",
+               "g1_fold_level", "g2_fold_level")
 # Slice 4, benches/hash_bench.py: distinct messages, 16 keys tiled; lanes
 # ≡ 3 (mod 8) carry the next lane's signature, and four lanes an infinite
 # pk, sig or both. The hash points of HASH_SAMPLE lanes and SIG_SAMPLE
@@ -283,10 +290,14 @@ TOWER_KERNELS = ("dbl_fold", "add_fold", "cyclo_sqr", "cyclo_sqr_mul",
                  "fq12_mul", "fq12_sqr", "frob_mul", "easy_down", "easy_up")
 API_KERNELS = {
     "rlc": ("sha3_chunks", "g1_madd", "g2_madd", "g1_winacc", "g2_winacc",
-            "mont_mul", "mont_pow") + TOWER_KERNELS,
-    "combine pallas": ("g2_madd", "g2_winacc", "mont_mul", "mont_pow"),
-    "combine scalarwise": ("g2_step", "mont_mul", "mont_pow"),
-    "combine bitscan": ("g2_selmadd", "g2_dblw", "mont_mul", "mont_pow"),
+            "g1_fold_level", "g2_fold_level", "mont_mul",
+            "mont_pow") + TOWER_KERNELS,
+    "combine pallas": ("g2_madd", "g2_winacc", "g2_fold_level", "mont_mul",
+                       "mont_pow"),
+    "combine scalarwise": ("g2_step", "g2_fold_level", "mont_mul",
+                           "mont_pow"),
+    "combine bitscan": ("g2_selmadd", "g2_dblw", "g2_fold_level",
+                        "mont_mul", "mont_pow"),
     "decrypt shares": ("g1_madd", "g1_step4"),
     "ciphertext check": ("mont_pow",) + TOWER_KERNELS,
     "verify_with_hash_batch": ("g2_madd", "g2_step4", "mont_pow")
@@ -307,16 +318,17 @@ PAR_REPLACED = 7
 PAR_TIMEOUT_S = 600
 PAIR_N = 512
 PAIR_HOST_LANES = 4
-# The kernels every rank's run must launch: B1, B2 (affine, λ, the folds,
-# the checks), B12 (exponents), B10 + B11 (msm="shared"), B15
-# (msm="scalarwise", the combine's partials), B14 (λ at 4096), B13 (sign);
-# and those of DeviceCurve.msm at window 1 (B2, B1, B16) and of
-# multi_pairing (B1, B2).
+# The kernels every rank's run must launch: B1, B2 (affine, λ, the
+# checks), B12 (exponents), B10 + B11 (msm="shared"), B15
+# (msm="scalarwise", the combine's partials), B19 (the folds), B14 (λ at
+# 4096), B13 (sign); and those of DeviceCurve.msm at window 1 (B2, B1,
+# B16, B19) and of multi_pairing (B1, B2).
 PARALLEL_KERNELS = ("mont_mul", "mont_pow", "sha3_chunks", "g1_madd",
                     "g2_madd", "g1_winacc", "g2_winacc", "g1_step", "g2_step",
-                    "lagrange_rowprod", "g2_step4")
+                    "g1_fold_level", "g2_fold_level", "lagrange_rowprod",
+                    "g2_step4")
 LEFTOVER_KERNELS = {"DeviceCurve.msm": ("mont_mul", "mont_pow", "g2_selmadd",
-                                        "g2_dblw"),
+                                        "g2_dblw", "g2_fold_level"),
                     "multi_pairing": ("mont_mul", "mont_pow")}
 
 
@@ -1740,18 +1752,19 @@ def check_ladder_dkg(gen, dev, card):
 
 def rlc_launches(n):
     """Launches of one RLC call: 2 B12 (level 1 and 2 of the transcript),
-    6 + 6 B10, 1 + 1 B11, the megakernel check's B4-B9, 4 B2 (the inverses
-    of jacobian_to_affine on both sums and on H, and the easy part) and B1
-    for the fold (5 stacked products per complete add, one add per level,
-    ⌈log₂ A⌉ levels per group) plus 16 (the affine conversions 4 + 6 +
-    6); the check's easy part and Frobenius products are B18's."""
+    6 + 6 B10, 1 + 1 B11, B19 for the folds (one launch a level, ⌈log₂ A⌉
+    levels per group), the megakernel check's B4-B9, 4 B2 (the inverses of
+    jacobian_to_affine on both sums and on H, and the easy part) and 16 B1
+    (the affine conversions 4 + 6 + 6); the check's easy part and
+    Frobenius products are B18's."""
     from threshold_crypto_tpu_torch.device import cuda_curve as ccv
 
     levels = (min(ccv.ACCUMULATORS, n) - 1).bit_length()
     expect = dict(PALLAS_LAUNCHES)
     expect.update({"sha3_chunks": 2, "g1_madd": 6, "g2_madd": 6,
                    "g1_winacc": 1, "g2_winacc": 1, "mont_pow": 4,
-                   "mont_mul": 2 * 5 * levels + 16})
+                   "g1_fold_level": levels, "g2_fold_level": levels,
+                   "mont_mul": 16})
     return expect
 
 
@@ -1895,12 +1908,15 @@ def run_rlc(dev, results):
 
     from threshold_crypto_tpu_torch.device import cuda_mont
 
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+
     reset_counts()
     ok, r, first_s = rlc_call(pk_aff, sig_aff, h_jac, b"\x01" * 32)
     launches = read_counts()
-    widest_mul = cuda_mont.MUL.widest
+    widest_fold = ccv.G2_FOLD_LEVEL.widest
     print(f"rlc first call {first_s:.2f} s; launches per call {launches}; "
-          f"widest B1 launch {widest_mul} lanes (the G2 fold's first level)",
+          f"widest B19 launch {widest_fold} lanes (the G2 fold's first "
+          f"level); widest B1 launch {cuda_mont.MUL.widest} lanes",
           flush=True)
     expect = rlc_launches(RLC_N)
     got = {k: launches[k] for k in expect}
@@ -1969,7 +1985,7 @@ def run_rlc(dev, results):
     with stage_timer(stages):
         _, _, swall = rlc_call(pk_aff, sig_aff, h_jac, b"\x08" * 32)
     split = print_split("rlc", stages, swall)
-    return dict(launches=launches, widest_mul=widest_mul, wall_s=wall,
+    return dict(launches=launches, widest_fold=widest_fold, wall_s=wall,
                 per_s=RLC_N / wall, kernel_s=kernel_s, timed_wall_s=kwall,
                 split_ms=split,
                 kernel_ms=per_kernel, wall_s_per_accumulators=per_a,
@@ -2599,6 +2615,160 @@ def check_b16(g2, gen, dev, card, ptxas, product_ms):
                            latency_ms=dbl_lat, ptxas=figures["dblw"])}
 
 
+# B19 at the folds of the paths, (G2, batch shape, fold axis, what): the
+# DKG's row commitments over j and value commitments over the positions,
+# the RLC call's partial sums (cuda_curve.ACCUMULATORS) in both groups,
+# and a combine's t + 1 shares in G2. The frozen yardstick counts a
+# complete add as 23 / 69 Fq products (G1 / G2; the torch tree computed
+# its doubling branch on every lane), the general path needs 16 / 44.
+B19_FOLDS = ((False, (DKG_N, DKG_T + 1, DKG_T + 1), 2, "row commitments"),
+             (False, (DKG_N, (DKG_T + 1) * (DKG_T + 2) // 2), 1,
+              "value commitments"),
+             (False, (16384,), 0, "RLC partial sums"),
+             (True, (16384,), 0, "RLC partial sums"),
+             (True, (DKG_T + 1,), 0, "a combine's shares"))
+FROZEN_ADD_FQ_PRODUCTS = (23, 69)
+
+
+def fold_inputs(g2, shape, axis, gen, dev):
+    """A Jacobian batch of ``shape`` of random canonical values, made on
+    the card, with special pairs at the first level (entry f and its
+    partner f + ⌈m/2⌉ over the fold axis, f = 0..4 where m allows, in
+    batch f where the batch has that many): T == Q (the same limbs), T == −Q, T at infinity,
+    Q at infinity, both; with 6 batches or more batch 5 all at infinity."""
+    import math
+
+    from threshold_crypto_tpu_torch.device import mont
+    from threshold_crypto_tpu_torch.device import packed as pk
+    from threshold_crypto_tpu_torch.device.mont import FQ
+
+    k = 2 if g2 else 1
+    m = shape[axis]
+    rest = math.prod(shape) // m
+    comps = [c.reshape(m, rest, FQ.L) for c in pk.unpack(
+        random_packed(3 * k, m * rest, gen, dev), 3 * k)]
+    ys, zs = comps[k:2 * k], comps[2 * k:]
+    half = (m + 1) // 2
+    for f in range(min(5, m - half)):
+        r, q = min(f, rest - 1), f + half
+        if f == 0:
+            for c in comps:
+                c[q, r] = c[f, r]
+        elif f == 1:
+            for c in comps:
+                c[q, r] = c[f, r]
+            for y in ys:
+                y[q, r] = mont.neg(FQ, y[f, r])
+        for z in zs:
+            if f in (2, 4):
+                z[f, r] = 0
+            if f in (3, 4):
+                z[q, r] = 0
+    if rest > 5:
+        for z in zs:
+            z[:, 5] = 0
+    moved = (m,) + tuple(d for i, d in enumerate(shape) if i != axis)
+    comps = [c.reshape(moved + (FQ.L,)).movedim(0, axis) for c in comps]
+    if g2:
+        return tuple((comps[2 * i], comps[2 * i + 1]) for i in range(3))
+    return tuple(comps)
+
+
+def check_b19(dev, gen, card, ptxas):
+    """B19 at B19_FOLDS through ``DeviceCurve.fold_axis``: one B19 launch a
+    level and no other launch, the sums bit-exact against the plain tree
+    (B19's plain version, the torch tree of stacked complete adds, its
+    products on B1 as before B19), each level timed from packed inputs
+    beside its bounds (the frozen 23 / 69 Fq products an add, and the
+    general path's 16 / 44), the whole fold (its packing and unpacking
+    included) and the plain tree; the kernels' ptxas figures. Returns
+    {kernel: result}, G1's at the row commitments' fold, G2's at the RLC
+    sums', every fold under "folds"."""
+    import math
+
+    import torch
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device import curve as dcv
+
+    reg = {kk.name: kk for _, kk in registry()}
+    results = {}
+    for g2, shape, axis, what in B19_FOLDS:
+        curve, k = (dcv.G2, 2) if g2 else (dcv.G1, 1)
+        kernel = reg[f"g{1 + g2}_fold_level"]
+        m = shape[axis]
+        rest = math.prod(shape) // m
+        levels = (m - 1).bit_length()
+        pts = fold_inputs(g2, shape, axis, gen, dev)
+        reset_counts()
+        got = curve.fold_axis(pts, axis)
+        torch.cuda.synchronize()
+        launches = {n: c for n, c in read_counts().items() if c}
+        if launches != {kernel.name: levels}:
+            fail(f"{kernel.name}: fold_axis over {what} launched {launches}, "
+                 f"expected {levels} {kernel.name} and nothing else")
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with kernels_replaced(lambda kk: kk.plain if kk is kernel
+                              else kk.launch):
+            want = curve.fold_axis(pts, axis)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.time() - t0)
+        err = compare(kernel.name, tuple(dcv.leaves(got)),
+                      tuple(dcv.leaves(want)), f"over {what} {shape}")
+        fold_ms = cuda_time_ms(lambda: curve.fold_axis(pts, axis), 3)
+        packed = ccv.pack_point(dcv.tree_map(lambda a: a.movedim(axis, 0),
+                                             pts))
+        level_ms, bounds, general = [], [], []
+        for _ in range(levels):
+            n = packed.shape[1]
+            half = ccv.fold_half(n, rest)
+            level_ms.append(cuda_time_ms(
+                lambda: kernel.launch(packed, rest), 3))
+            moved = (n + half) * 3 * k * 96
+            for products, into in ((FROZEN_ADD_FQ_PRODUCTS, bounds),
+                                   (ADD_FQ_PRODUCTS, general)):
+                into.append(bound_ms(moved, half * products[k - 1]
+                                     * FQ_PRODUCT_IMADS, card)[0])
+            packed = kernel.launch(packed, rest)
+        del packed
+        bound, bound_gen = sum(bounds), sum(general)
+        print(f"{kernel.name} over {what} {list(shape)}, axis {axis}: "
+              f"bit-exact with the plain tree (T == Q, T == -Q and infinity "
+              f"pairs), {levels} B19 launches and no other; levels "
+              f"{[round(x, 4) for x in level_ms]} ms (sum "
+              f"{sum(level_ms):.4f}), whole fold {fold_ms:.4f} ms, plain "
+              f"tree {plain_ms:.1f} ms; bound {bound:.4f} ms at "
+              f"{FROZEN_ADD_FQ_PRODUCTS[k - 1]} products an add "
+              f"({sum(level_ms) / bound:.2f}x), {bound_gen:.4f} ms at the "
+              f"general path's {ADD_FQ_PRODUCTS[k - 1]} "
+              f"({sum(level_ms) / bound_gen:.2f}x)", flush=True)
+        entry = dict(what=what, shape=list(shape), axis=axis, levels=levels,
+                     lanes=ccv.fold_half(m * rest, rest), max_abs_err=err,
+                     ms=sum(level_ms), level_ms=level_ms, fold_ms=fold_ms,
+                     plain_ms=plain_ms, bound_ms=bound, bound_by="operations",
+                     bound_ms_general_path=bound_gen)
+        res = results.setdefault(kernel.name, dict(folds=[]))
+        res["folds"].append(entry)
+        if (not g2 and what == "row commitments") or \
+                (g2 and what == "RLC partial sums"):
+            res.update({key: entry[key] for key in (
+                "lanes", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                "bound_by")})
+        del pts, got, want
+        torch.cuda.empty_cache()
+    for g2 in (False, True):
+        fn = f"fold_level_kernel<{'Fq2' if g2 else 'Fq'}>"
+        figures = ptxas[fn]
+        results[f"g{1 + g2}_fold_level"]["ptxas"] = dict(zip(
+            ("registers", "stack_frame", "spill_stores", "spill_loads"),
+            figures))
+        print(f"g{1 + g2}_fold_level (fold.cu {fn}, the register engine): "
+              f"{figures[0]} registers, {figures[1]} bytes stack frame, "
+              f"{figures[2]} bytes spill stores, {figures[3]} bytes spill "
+              f"loads", flush=True)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # Phase 9: slice 6, the threshold flows at t + 1 = COMBINE_N
 # ---------------------------------------------------------------------------
@@ -2614,7 +2784,7 @@ def combine_launches(n, path, g2):
     ⌈log₂ n⌉ B1, above it one B14 and ⌈log₂ S⌉ B1 over its S chunks; the
     denominators, λ and the canonical form, 3 B1; one B2), the shares'
     affine form (one B2, 4 B1 in G1 and 6 in G2), then the path's MSM and
-    its fold of ⌈log₂ m⌉ levels, 5 B1 each: "pallas" 6 B10 and one B11
+    its fold of ⌈log₂ m⌉ levels, one B19 each: "pallas" 6 B10 and one B11
     (m = min(A, n)), "scalarwise" one B15 (m = n), "bitscan" 255 B16 dblw
     and 255 selmadd per block of min(1024, n) lanes (m = that block)."""
     from threshold_crypto_tpu_torch.device import cuda_curve as ccv
@@ -2624,7 +2794,7 @@ def combine_launches(n, path, g2):
     g = "g2" if g2 else "g1"
     expect = {"lagrange_rowprod": 0, "mont_pow": 2, f"{g}_madd": 0,
               f"{g}_winacc": 0, f"{g}_step": 0, f"{g}_selmadd": 0,
-              f"{g}_dblw": 0}
+              f"{g}_dblw": 0, f"{g}_fold_level": 0}
     mul = _levels(n) + 3 + (6 if g2 else 4)
     if n <= frops._LAGRANGE_MATRIX_MAX:
         mul += _levels(n)
@@ -2641,7 +2811,8 @@ def combine_launches(n, path, g2):
         m = min(ccv.SHARED_BLOCK, n)
         expect.update({f"{g}_dblw": 255,
                        f"{g}_selmadd": 255 * -(-n // m)})
-    expect["mont_mul"] = mul + 5 * _levels(m)
+    expect["mont_mul"] = mul
+    expect[f"{g}_fold_level"] = _levels(m)
     return expect
 
 
@@ -2985,7 +3156,7 @@ def dkg_launches(n, t):
     """Launches per stage of one ``dkg_call`` for n nodes at threshold t:
     every ladder over affine points lifted with one B2 and 4 B1, its
     1P..15P table (14 B10) and one B13 per ``LADDER_CHUNK`` lanes; each
-    fold level one complete add (5 B1); ``G1.eq`` 3 B1.
+    fold level one B19; ``G1.eq`` 3 B1.
 
     commit: the npos fixed-base ladders; rows: t products for the powers
     and one for the coefficient × power grid; row commitments: the powers,
@@ -3000,19 +3171,19 @@ def dkg_launches(n, t):
 
     npos = (t + 1) * (t + 2) // 2
 
-    def ladders(lanes, muls, chunked=True):
+    def ladders(lanes, muls, chunked=True, folds=0):
         steps = -(-lanes // ccv.LADDER_CHUNK) if chunked else 1
         return {"mont_mul": muls + 4, "mont_pow": 1, "g1_madd": 14,
-                "g1_step4": steps}
+                "g1_step4": steps, "g1_fold_level": folds}
 
     return {
         "commit": ladders(npos, 0, chunked=False),
         "rows": {"mont_mul": t + 1, "mont_pow": 0, "g1_madd": 0,
-                 "g1_step4": 0},
-        "row commitments": ladders(n * (t + 1) ** 2,
-                                   t + 1 + 5 * _levels(t + 1)),
-        "value commitments": ladders(n * npos, 2 * t + 2
-                                     + 5 * _levels(npos)),
+                 "g1_step4": 0, "g1_fold_level": 0},
+        "row commitments": ladders(n * (t + 1) ** 2, t + 1,
+                                   folds=_levels(t + 1)),
+        "value commitments": ladders(n * npos, 2 * t + 2,
+                                     folds=_levels(npos)),
         "row check": ladders(n * (t + 1), 1 + 3, chunked=False),
         "value check": ladders(n, t + 2 + 3, chunked=False),
     }
@@ -3262,12 +3433,13 @@ def run_dkg(dev, card):
 def rlc_scalarwise_launches(n):
     """Launches of one ``verify_sig_shares_rlc`` call: per group one B15
     and the affine lift of the points (one B2; 4 B1 in G1, 6 in G2), a
-    fold of ⌈log₂ n⌉ levels (5 B1 each), then the affine sums and H and
-    the megakernel check as in ``rlc_launches`` (3 B2, 16 B1, B4-B9,
+    fold of ⌈log₂ n⌉ levels (one B19 each), then the affine sums and H
+    and the megakernel check as in ``rlc_launches`` (3 B2, 16 B1, B4-B9,
     B18 and the easy part's B2)."""
     expect = dict(PALLAS_LAUNCHES)
     expect.update({"g1_step": 1, "g2_step": 1, "mont_pow": 2 + 4,
-                   "mont_mul": 4 + 6 + 2 * 5 * _levels(n) + 16})
+                   "g1_fold_level": _levels(n), "g2_fold_level": _levels(n),
+                   "mont_mul": 4 + 6 + 16})
     return expect
 
 
@@ -3947,6 +4119,7 @@ def main():
     for g2 in (False, True):
         results.update(check_b16(g2, gen, dev, card, ptxas, product_ms))
     torch.cuda.empty_cache()
+    results.update(check_b19(dev, gen, card, ptxas))
 
     old, new, pair_args = run_slices(dev)
     composed = run_b17_composition(pair_args, dev)
@@ -3962,10 +4135,6 @@ def main():
     phase(f"slice 3: the RLC path at N = {RLC_N} (ops.rlc_exponents -> "
           f"ops.verify_sig_shares_rlc_pallas)")
     rlc = run_rlc(dev, results)
-    for spec in (mont.FQ, mont.FR):
-        at = check_mul(spec, rlc["widest_mul"], rng, dev, card)
-        results["mont_mul"]["widths"].append(
-            dict(at, field=spec.name, where="the RLC fold's first level"))
     rlc_bound = sum(results[k]["bound_ms"] * rlc["launches"][k]
                     for k in ("g1_madd", "g2_madd", "g1_winacc", "g2_winacc",
                               "sha3_chunks"))
@@ -4061,7 +4230,7 @@ def main():
         for key in ("dkg_shape", "ptxas", "widths", "lanes_check_width",
                     "ms_check_width", "plain_ms_check_width",
                     "bound_ms_check_width", "latency_ms",
-                    "product_latency_ms"):
+                    "product_latency_ms", "folds"):
             if key in res:
                 entry[key] = res[key]
         if "accumulators" in res:

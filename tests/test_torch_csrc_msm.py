@@ -1,12 +1,13 @@
 """The curve and SHA3 kernels' CUDA sources, compiled for the host, against
 their plain versions and ``hashlib``.
 
-The per-lane bodies of B10, B11, B13, B15 and B16
+The per-lane bodies of B10, B11, B13, B15, B16 and B19
 (``csrc/ladder_engine.cuh``: the doubling, the complete add and the
 complete mixed add ``jac_madd``, each with its T == Q case a branch into
 the doubling, the mixed add of one lane, the Horner loop of one
-accumulator, the digit and the bit ladder of one lane, and the gated table
-add and the w doublings of one accumulator lane) and of B12
+accumulator, the digit and the bit ladder of one lane, the gated table
+add and the w doublings of one accumulator lane, and one level of the
+pairwise fold) and of B12
 (``csrc/keccak.cuh``) are plain C++
 behind CUDA's function qualifiers. Here g++ compiles them with the
 qualifiers defined away, and a serial loop over the lanes (or
@@ -22,7 +23,11 @@ fourteen launches from acc = Q with Z = 1; for B11 T == Q
 followed by another add in the same window and digits outside 1..7; for
 B16 the block's first lane, T == Q on the first lane of a later block,
 digits outside 1..nent, a ragged last block whose padding has digit 0, and
-0, 1 and 3 doublings), and against ``hashlib.sha3_256``. Without g++ the
+0, 1 and 3 doublings; for B19 whole folds of 1, 2, 3, 43 and 87 entries,
+T == Q, T == −Q and infinity on either side at the first level and T ==
+Q at the second, a batch all at infinity, and a [4, 5, 7] batch over each
+axis, against the torch tree ``fold_axis`` ran before B19), and against
+``hashlib.sha3_256``. Without g++ the
 tests skip (the kernels themselves run only on the card, in
 ``chip_smoke.py``).
 """
@@ -124,6 +129,11 @@ void run(int op, int n, int accs, int ndig, int window, int start) {
     out.resize(P * n);
     for (int l = 0; l < n; ++l)
       tc::dblw_lane_r<F>(acc.data(), out.data(), n, window, l);
+  } else if (op == 9) {  // fold level (B19): in [P, n] -> out [P, accs]
+    auto in = rd(P * n);
+    out.resize(P * accs);
+    for (int l = 0; l < accs; ++l)
+      tc::fold_lane_r<F>(in.data(), out.data(), n, accs, l);
   } else if (op == 5) {  // step (B15): acc, q affine, bits
     auto acc = rd(P * n), q = rd(2 * P / 3 * n), bits = rd(ndig * n);
     out.resize(P * n);
@@ -160,7 +170,7 @@ int main() {
 """
 
 OPS = {"madd": 0, "dbl": 1, "add": 2, "winacc": 3, "sha3": 4, "step": 5,
-       "step4": 6, "selmadd": 7, "dblw": 8}
+       "step4": 6, "selmadd": 7, "dblw": 8, "fold": 9}
 N = 16
 
 
@@ -645,3 +655,182 @@ def test_sha3_body_matches_hashlib_and_plain_version(harness):
             hashlib.sha3_256(words[i].tobytes()).digest()
     assert torch.equal(got, dk.sha3_256_chunks(
         torch.from_numpy(words.view(np.int32))))
+
+
+# ---------------------------------------------------------------------------
+# B19: one level of the pairwise fold
+# ---------------------------------------------------------------------------
+
+def _torch_tree(curve, pts, axis):
+    """The pairwise tree as ``DeviceCurve.fold_axis`` ran it in torch ops
+    before B19: per level one stacked ``jac_add`` of the first half of the
+    entries to the second, an odd level padded with infinity at its end."""
+    pts = dcv.tree_map(lambda a: a.movedim(axis, 0), pts)
+    n = curve.f.shape(pts[2])[0]
+    while n > 1:
+        if n % 2:
+            pad = curve.infinity((1,) + tuple(curve.f.shape(pts[2])[1:]),
+                                 "cpu")
+            pts = dcv.tree_map(lambda a, b: torch.cat([a, b]), pts, pad)
+            n += 1
+        half = n // 2
+        pts = dcv.jac_add(curve.f, dcv.tree_map(lambda a: a[:half], pts),
+                          dcv.tree_map(lambda a: a[half:], pts))
+        n = half
+    return dcv.tree_map(lambda a: a[0], pts)
+
+
+def _harness_level(exe, g2):
+    """One fold level (``p_fold_level``'s arguments) run by the lane body,
+    a serial loop over the output lanes."""
+    rows = (6 if g2 else 3) * 24
+
+    def level(pts, rest):
+        half = ccv.fold_half(pts.shape[1], rest)
+        return _run(exe, "fold", g2, pts.shape[1], [pts], (rows, half),
+                    accs=half)
+    return level
+
+
+def _harness_fold(exe, curve, pts, axis, monkeypatch):
+    """``curve.fold_axis`` with every level run by the lane body; returns
+    the sums and the number of levels."""
+    level = _harness_level(exe, curve is dcv.G2)
+    calls = []
+
+    def run(g2, packed, rest):
+        calls.append(packed.shape[1])
+        return level(packed, rest)
+
+    with monkeypatch.context() as m:
+        m.setattr(ccv, "p_fold_level", run)
+        out = curve.fold_axis(pts, axis)
+    return out, len(calls)
+
+
+def _fold_entries(curve, host, entries, shape, rnd):
+    """Host points (None: infinity) in row-major order -> a Jacobian batch
+    of ``shape``: a random Z on every live entry, and random X and Y on
+    the infinite ones (Z = 0), so that the selects' choice of limbs shows."""
+    pts = _jacobian(curve, host, entries, rnd)
+    live = [p for p in entries if p is not None] or [host.generator]
+    filler = _jacobian(curve, host, [rnd.choice(live) for _ in entries],
+                       rnd)
+    inf = torch.tensor([p is None for p in entries])
+    pts = (*(dcv.tree_map(lambda a, b: torch.where(inf[:, None], b, a),
+                          pts[c], filler[c]) for c in range(2)), pts[2])
+    return dcv.tree_map(lambda a: a.reshape(tuple(shape) + a.shape[1:]), pts)
+
+
+def _walk(host, count, rnd):
+    """count distinct points a + i·b of the group."""
+    a = host.mul(host.generator, rnd.randrange(1, R))
+    b = host.mul(host.generator, rnd.randrange(1, R))
+    out = [a]
+    for _ in range(count - 1):
+        out.append(host.add(out[-1], b))
+    return out
+
+
+def _host_sums(curve, host, entries, shape, axis):
+    """The host group's sums of a row-major batch over ``axis``."""
+    idx = np.arange(len(entries)).reshape(shape)
+    idx = np.moveaxis(idx, axis, 0).reshape(shape[axis], -1)
+    sums = []
+    for col in idx.T:
+        acc = None
+        for i in col:
+            acc = host.add(acc, entries[i])
+        sums.append(acc)
+    return sums
+
+
+def _check_fold(harness, curve, host, entries, shape, axis, rnd,
+                monkeypatch):
+    """The lane body's fold equals the plain versions' and the torch
+    tree's limb for limb, and the host's sums."""
+    pts = _fold_entries(curve, host, entries, shape, rnd)
+    got, levels = _harness_fold(harness, curve, pts, axis, monkeypatch)
+    plain = curve.fold_axis(pts, axis)
+    tree = _torch_tree(curve, pts, axis)
+    for g, p, t in zip(dcv.leaves(got), dcv.leaves(plain), dcv.leaves(tree)):
+        assert torch.equal(g, t) and torch.equal(p, t)
+    assert levels == (shape[axis] - 1).bit_length()
+    flat = dcv.tree_map(lambda a: a.reshape(-1, a.shape[-1]), got)
+    assert curve.to_host_affine(flat) == _host_sums(curve, host, entries,
+                                                    shape, axis)
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 43, 87])
+def test_fold_body_matches_the_torch_tree(harness, group, n, monkeypatch):
+    """``fold_axis`` over n entries (odd levels among them), every level
+    run by B19's lane body: entry 1 (and 40) at infinity with random X and
+    Y; bit-exact with the plain versions, the torch tree and the host's
+    sum. n = 1 runs no level."""
+    curve, host, _, _ = group
+    rnd = random.Random(0xF01D + n)
+    entries = _walk(host, n, rnd)
+    for i in (1, 40):
+        if i < n:
+            entries[i] = None
+    _check_fold(harness, curve, host, entries, (n,), 0, rnd, monkeypatch)
+
+
+def test_fold_body_pads_a_lone_entry(harness, group):
+    """One level over a single entry of 6 lanes (every partner the
+    padding): a live lane stays as it is, a lane at infinity with random
+    X and Y becomes the padding (1, 1, 0), as the plain version's select
+    gives."""
+    curve, host, _, _ = group
+    g2 = curve is dcv.G2
+    rnd = random.Random(0xF1)
+    entries = _walk(host, 6, rnd)
+    entries[2] = entries[4] = None
+    pts = ccv.pack_point(_fold_entries(curve, host, entries, (6,), rnd))
+    got = _harness_level(harness, g2)(pts, 6)
+    want = ccv._fold_level_ref(g2, pts, 6)
+    assert torch.equal(got, want)
+    inf = ccv.packed_infinity(g2, 1, "cpu")[:, 0]
+    for lane in range(6):
+        assert torch.equal(got[:, lane], inf if lane in (2, 4)
+                           else pts[:, lane])
+
+
+def test_fold_body_on_special_pairs(harness, group, monkeypatch):
+    """A [6, 6] batch over axis 0 (levels of 6, 3 and 2 entries; the
+    second pads): batch 0 pairs T == Q (entry 3 = entry 0, another Z),
+    T == −Q (4 = −1) and T at infinity (2) at the first level; batch 1 Q
+    at infinity (3) and both at infinity (1, 4); batch 2 T == Q at the
+    second level (2 = 0 and 5 = 3); batch 3 entirely at infinity; batch 4
+    the doubling at both levels (entries a, b, a, a, b, a); batch 5
+    random."""
+    curve, host, _, _ = group
+    rnd = random.Random(0x5BEC)
+    cols = [_walk(host, 6, rnd) for _ in range(6)]
+    a, b = cols[0][0], cols[0][1]
+    cols[0][3], cols[0][4], cols[0][2] = a, host.neg(b), None
+    cols[1][3] = cols[1][1] = cols[1][4] = None
+    cols[2][2], cols[2][5] = cols[2][0], cols[2][3]
+    cols[3] = [None] * 6
+    cols[4] = [a, b, a, a, b, a]
+    entries = [cols[c][f] for f in range(6) for c in range(6)]
+    got = _check_fold(harness, curve, host, entries, (6, 6), 0, rnd,
+                      monkeypatch)
+    assert curve.to_host_affine(dcv.tree_map(lambda a: a[3:4], got)) == [
+        None]
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+def test_fold_body_over_each_axis_of_a_batch(harness, group, axis,
+                                             monkeypatch):
+    """A [4, 5, 7] batch folded over each of its axes, as the DKG folds
+    its row commitments over axis 2 and its value commitments over axis 1;
+    three entries at infinity."""
+    curve, host, _, _ = group
+    rnd = random.Random(0xA215 + axis)
+    entries = _walk(host, 140, rnd)
+    for i in (3, 50, 139):
+        entries[i] = None
+    _check_fold(harness, curve, host, entries, (4, 5, 7), axis, rnd,
+                monkeypatch)

@@ -191,7 +191,7 @@ def test_tower_sources_build_alone_with_the_shared_headers(name):
     tower source includes tower.cuh, whose one-thread lane bodies no
     launcher runs."""
     srcs = [os.path.basename(s) for s in _build.sources()]
-    assert srcs == ["fq12.cu", "fr.cu", "keccak.cu", "ladder.cu",
+    assert srcs == ["fold.cu", "fq12.cu", "fr.cu", "keccak.cu", "ladder.cu",
                     "miller.cu", "mont.cu", "msm.cu", "shared.cu"]
     assert [os.path.basename(h) for h in _build.headers()] == [
         "curve.cuh", "fq.cuh", "fr.cuh", "keccak.cuh", "ladder_engine.cuh",
@@ -270,8 +270,8 @@ def test_build_renames_into_place_and_caches(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     logs = _build.build()
     names = sorted(logs)
-    assert names == ["fq12", "fr", "keccak", "ladder", "miller", "mont",
-                     "msm", "shared"]
+    assert names == ["fold", "fq12", "fr", "keccak", "ladder", "miller",
+                     "mont", "msm", "shared"]
     assert all("Used 40 registers" in logs[n] for n in names)
     assert all(re.search(rf"nvcc {n}\.cu: \d+\.\d s", logs[n])
                for n in names)
@@ -331,6 +331,39 @@ def test_kernels_list_b14_and_b16():
         assert k.plain.__name__ == k.launch.__name__ + "_ref"
         assert isinstance(k.count, KernelCount)
         assert ("tc_" + k.name) in [fn for fn, _ in _build.SIGNATURES[lib]]
+
+
+def test_kernels_list_b19():
+    """B19, one fold level in G1 and G2 (``csrc/fold.cu``), citing the JAX
+    ``_tree_sum`` (XLA adds, no Pallas kernel), with a plain version, a
+    count and a C launcher; the wrapper takes CUDA tensors only, and the
+    dispatch sends a CPU tensor to the plain version, which counts no
+    launch."""
+    import torch
+
+    from threshold_crypto_tpu_torch.device import cuda_curve as ccv
+    from threshold_crypto_tpu_torch.device.cuda_mont import KernelCount
+
+    b19 = {k.name: k for k in ccv.KERNELS
+           if k.source == "threshold_crypto_tpu_torch/csrc/fold.cu"}
+    assert sorted(b19) == ["g1_fold_level", "g2_fold_level"]
+    for g2, k in ((False, b19["g1_fold_level"]),
+                  (True, b19["g2_fold_level"])):
+        assert k.replaces == "threshold_crypto_tpu/device/curve.py:501"
+        assert k.plain.__name__ == k.launch.__name__ + "_ref"
+        assert getattr(ccv, k.launch.__name__) is k.launch
+        assert isinstance(k.count, KernelCount)
+        assert ("tc_" + k.name) in [fn for fn, _ in _build.SIGNATURES[
+            "fold"]]
+        pts = ccv.packed_infinity(g2, 6, "cpu")
+        with pytest.raises(ValueError, match="CUDA tensor"):
+            k.launch(pts, 2)
+        k.count.reset()
+        assert torch.equal(ccv.p_fold_level(g2, pts, 2),
+                           ccv.packed_infinity(g2, 4, "cpu"))
+        assert k.count.launches == 0
+        with pytest.raises(ValueError, match="whole entries"):
+            ccv.p_fold_level(g2, pts, 4)
 
 
 def test_kernels_list_b17():

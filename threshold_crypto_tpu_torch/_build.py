@@ -85,6 +85,10 @@ SIGNATURES = {
     "fr": [
         ("tc_lagrange_rowprod", [_VP, _VP, _VP, _INT, _INT, _VP]),
     ],
+    "fold": [
+        ("tc_g1_fold_level", [_VP, _VP, _INT, _INT, _VP]),
+        ("tc_g2_fold_level", [_VP, _VP, _INT, _INT, _VP]),
+    ],
     "shared": [
         ("tc_g1_selmadd", [_VP] * 4 + [_INT] * 4 + [_VP]),
         ("tc_g2_selmadd", [_VP] * 4 + [_INT] * 4 + [_VP]),

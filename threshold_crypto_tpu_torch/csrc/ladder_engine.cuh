@@ -1,6 +1,7 @@
 // B13's register-resident G1/G2 engine, and the lane bodies on it: B13's
 // `step4_lane_r`, B15's `step_lane_r`, B11's `winacc_lane_r`, B10's
-// `madd_lane_r` and B16's `selmadd_lane_r` and `dblw_lane_r`; its field
+// `madd_lane_r`, B16's `selmadd_lane_r` and `dblw_lane_r` and B19's
+// `fold_lane_r` (csrc/fold.cu, one level of the pairwise fold); its field
 // product, square and subtraction also carry B1 and B2 (csrc/mont.cu) and
 // B14 (csrc/fr.cuh), in Fq and Fr, and its Fq field (`fp_mul`, `fp_add`,
 // `fp_sub`, `fp_neg`, `fp_small`) B3's test entry `engine_lane_r`
@@ -969,6 +970,37 @@ __device__ __forceinline__ void dblw_lane_r(const int32_t* acc_in,
   reg::f_store(out, T.X, 0, n, lane);
   reg::f_store(out, T.Y, kc, n, lane);
   reg::f_store(out, T.Z, 2 * kc, n, lane);
+}
+
+// B19 (csrc/fold.cu `fold_level_kernel`), one level of the pairwise tree of
+// `DeviceCurve.fold_axis` on the register engine: `in` holds n Jacobian
+// lanes [3k·24, n], and output lane i of the `half` ([3k·24, half]) is
+// lane i plus lane i + half, with `jac_add` (its T == Q case one
+// `jac_dbl`: the add's Xd, Yd, Zd, the limbs of the plain tree's select).
+// Where i + half ≥ n (an odd level's last entries) the partner is the
+// infinity (1, 1, 0) the plain tree pads with: T + ∞ is T, and a T at
+// infinity becomes the padding itself, as `jac_add`'s last select (0 + Q)
+// gives.
+template <class F>
+__device__ __forceinline__ void fold_lane_r(const int32_t* in, int32_t* out,
+                                            int n, int half, int lane) {
+  using R = typename reg::Field<F>::type;
+  constexpr int kc = reg::Field<F>::k;
+  reg::Jac<R> T;
+  reg::f_load(T.X, in, 0, n, lane);
+  reg::f_load(T.Y, in, kc, n, lane);
+  reg::f_load(T.Z, in, 2 * kc, n, lane);
+  if (lane + half < n) {
+    int dbl = 0;
+    reg::jac_add(T, in, 0, kc, n, lane + half, dbl);
+    if (dbl) reg::jac_dbl(T);
+  } else if (reg::f_is_zero(T.Z)) {
+    reg::f_set(T.X, true);
+    reg::f_set(T.Y, true);
+  }
+  reg::f_store(out, T.X, 0, half, lane);
+  reg::f_store(out, T.Y, kc, half, lane);
+  reg::f_store(out, T.Z, 2 * kc, half, lane);
 }
 
 // B10 (`_k_g1_madd` / `_k_g2_madd`) on the register engine: acc [3k·24, n]

@@ -40,12 +40,18 @@ Each kernel is the counterpart of one Pallas kernel of
   them as the JAX package's DIRECT branch does (:970-983). They run on the
   register engine of ``csrc/ladder_engine.cuh`` (``selmadd_lane_r``,
   ``dblw_lane_r``: the add's T == Q case a branch into the doubling).
+* B19 ``g1_fold_level`` / ``g2_fold_level``, in ``csrc/fold.cu``: one level
+  of ``DeviceCurve.fold_axis``'s pairwise tree, lane i of the output the
+  complete add of input lanes i and i + half (``fold_lane_r`` on the
+  register engine; an odd level's unpaired lanes added to the infinity the
+  plain tree pads with). No TPU kernel: the JAX ``_tree_sum`` is XLA adds.
 
 Packed layout (``device/packed.py``): a G1 Jacobian point is int32[72, N]
 (X, Y, Z), a G2 one int32[144, N] (X0, X1, Y0, Y1, Z0, Z1); an affine Q
 int32[48, N] or [96, N]; a table its entries 1P..(2^w−1)P one after the
 other, int32[(2^w−1)·72, N] or [(2^w−1)·144, N]; digits or bits int32[D, N]
-(B16: one window's digits, int32[N]).
+(B16: one window's digits, int32[N]). B19's lanes run fold index major:
+lane f·rest + r holds entry f of batch r.
 
 The wrappers check their operands, allocate their outputs with
 ``torch.empty``, launch on the current stream and count their launches.
@@ -53,8 +59,8 @@ The ``*_ref`` functions are the same functions in plain PyTorch (the
 formulas of ``device/curve.py`` on the unpacked components, and the same
 loops, and for B11 the same accumulator-to-lane assignment and order), so
 the kernels agree with them bit for bit. ``p_madd`` / ``p_winacc`` /
-``p_step4`` / ``p_step`` / ``p_selmadd`` / ``p_dblw`` send a CUDA tensor to
-the kernel and a CPU tensor to its plain version.
+``p_step4`` / ``p_step`` / ``p_selmadd`` / ``p_dblw`` / ``p_fold_level``
+send a CUDA tensor to the kernel and a CPU tensor to its plain version.
 """
 
 from __future__ import annotations
@@ -96,6 +102,8 @@ G1_SELMADD = KernelCount()
 G2_SELMADD = KernelCount()
 G1_DBLW = KernelCount()
 G2_DBLW = KernelCount()
+G1_FOLD_LEVEL = KernelCount()
+G2_FOLD_LEVEL = KernelCount()
 # Entries of B13's table: 1P..15P.
 STEP4_ENTRIES = 15
 # Lanes of one B13 launch of ``scalar_mul_gathered``: the gathered table of
@@ -297,6 +305,38 @@ def g2_dblw(acc, window):
     return _dblw(True, G2_DBLW, acc, window)
 
 
+def fold_half(n: int, rest: int) -> int:
+    """Output lanes of one fold level over n = m·rest input lanes:
+    ⌈m/2⌉·rest."""
+    if rest < 1 or n % rest:
+        raise ValueError(f"the lanes ({n}) must be whole entries of rest = "
+                         f"{rest} lanes")
+    return (n // rest + 1) // 2 * rest
+
+
+def _fold_level(g2, count, pts, rest):
+    k = 2 if g2 else 1
+    n = _check(("pts", pts, 3 * k * L))
+    half = fold_half(n, rest)
+    out = torch.empty((3 * k * L, half), dtype=torch.int32,
+                      device=pts.device)
+    if half:
+        launch("fold", f"tc_g{1 + g2}_fold_level", count, (pts, out), n,
+               half, lanes=half)
+    return out
+
+
+def g1_fold_level(pts, rest):
+    """Kernel B19, G1: pts [72, m·rest] (entry f of batch r at lane
+    f·rest + r) -> [72, ⌈m/2⌉·rest], one level of the pairwise fold."""
+    return _fold_level(False, G1_FOLD_LEVEL, pts, rest)
+
+
+def g2_fold_level(pts, rest):
+    """Kernel B19, G2: pts [144, m·rest] -> [144, ⌈m/2⌉·rest]."""
+    return _fold_level(True, G2_FOLD_LEVEL, pts, rest)
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions
 # ---------------------------------------------------------------------------
@@ -435,6 +475,27 @@ def g2_dblw_ref(acc, window):
     return _dblw_ref(True, acc, window)
 
 
+def _fold_level_ref(g2, pts, rest):
+    """One level of the pairwise tree as one stacked complete add: the
+    first half of the entries plus the second, an odd level's second half
+    padded with infinity."""
+    half = fold_half(pts.shape[1], rest)
+    q = pts[:, half:]
+    if q.shape[1] < half:
+        q = torch.cat([q, packed_infinity(g2, half - q.shape[1],
+                                          pts.device)], 1)
+    return pack_point(dcv.jac_add(_field(g2), unpack_jac(pts[:, :half], g2),
+                                  unpack_jac(q, g2)))
+
+
+def g1_fold_level_ref(pts, rest):
+    return _fold_level_ref(False, pts, rest)
+
+
+def g2_fold_level_ref(pts, rest):
+    return _fold_level_ref(True, pts, rest)
+
+
 # ---------------------------------------------------------------------------
 # Dispatch and the driver
 # ---------------------------------------------------------------------------
@@ -476,6 +537,12 @@ def p_dblw(g2, acc, window):
     if mont.on_card(acc):
         return (g2_dblw if g2 else g1_dblw)(acc, window)
     return (g2_dblw_ref if g2 else g1_dblw_ref)(acc, window)
+
+
+def p_fold_level(g2, pts, rest):
+    if mont.on_card(pts):
+        return (g2_fold_level if g2 else g1_fold_level)(pts, rest)
+    return (g2_fold_level_ref if g2 else g1_fold_level_ref)(pts, rest)
 
 
 def packed_infinity(g2: bool, n: int, device):
@@ -675,7 +742,10 @@ def msm_pallas_shared(curve, points_aff, scalars, nbits: int = 64,
 _SRC = "threshold_crypto_tpu_torch/csrc/msm.cu"
 _LADDER = "threshold_crypto_tpu_torch/csrc/ladder.cu"
 _SHARED = "threshold_crypto_tpu_torch/csrc/shared.cu"
+_FOLD = "threshold_crypto_tpu_torch/csrc/fold.cu"
 _TPU = "threshold_crypto_tpu/device/pallas_curve.py:"
+# B19's JAX counterpart: the XLA adds of ``_tree_sum``.
+_TREE_SUM = "threshold_crypto_tpu/device/curve.py:"
 KERNELS = (
     Kernel("g1_madd", g1_madd, g1_madd_ref, G1_MADD, _SRC, _TPU + "397"),
     Kernel("g2_madd", g2_madd, g2_madd_ref, G2_MADD, _SRC, _TPU + "397"),
@@ -695,4 +765,8 @@ KERNELS = (
            _TPU + "410"),
     Kernel("g1_dblw", g1_dblw, g1_dblw_ref, G1_DBLW, _SHARED, _TPU + "433"),
     Kernel("g2_dblw", g2_dblw, g2_dblw_ref, G2_DBLW, _SHARED, _TPU + "433"),
+    Kernel("g1_fold_level", g1_fold_level, g1_fold_level_ref, G1_FOLD_LEVEL,
+           _FOLD, _TREE_SUM + "501"),
+    Kernel("g2_fold_level", g2_fold_level, g2_fold_level_ref, G2_FOLD_LEVEL,
+           _FOLD, _TREE_SUM + "501"),
 )

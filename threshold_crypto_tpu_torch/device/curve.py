@@ -9,7 +9,7 @@ stands for ``_tree_sum``; ``fr_limbs_from_ints``) and of the
 point formulas of ``threshold_crypto_tpu/device/pallas_curve.py:143-370``
 (``_msm_step``, ``_jac_dbl``, ``_jac_add``, ``_jac_madd``, ``_msm_step_w4``)
 and its ``dcv_select_z``, which are the plain versions of the curve kernels
-B10, B11, B13, B15 and B16 (``device/cuda_curve.py``;
+B10, B11, B13, B15, B16 and B19 (``device/cuda_curve.py``;
 ``csrc/ladder_engine.cuh``).
 
 Points are Jacobian tuples ``(X, Y, Z)`` (infinity ⇔ Z == 0) of batched field
@@ -458,25 +458,27 @@ class DeviceCurve:
     @trace.traced("curve.fold")
     def fold_axis(self, pts, axis: int = 0):
         """Σ over one batch axis by a pairwise tree of complete adds:
-        ⌈log₂ n⌉ levels, each one stacked add of the first half of the
+        ⌈log₂ n⌉ levels, each the complete add of the first half of the
         entries to the second; an odd level is padded with infinity. The
-        other batch axes stay. The JAX ``_tree_sum`` pairs neighbours
-        instead: the same sums as affine points."""
+        other batch axes stay. The fold axis is moved first and the points
+        packed once, lanes fold index major; each level is one
+        ``cuda_curve.p_fold_level`` (on the card one B19 launch, on the
+        CPU its plain version, one stacked ``jac_add``); the sums are
+        unpacked once. The JAX ``_tree_sum`` pairs neighbours instead: the
+        same sums as affine points."""
+        from . import cuda_curve
+
         pts = tree_map(lambda a: a.movedim(axis, 0), pts)
-        n = self.f.shape(pts[2])[0]
+        n, *rest = self.f.shape(pts[2])
+        packed = cuda_curve.pack_point(pts)
+        g2 = self.f is Fq2Ops
         while n > 1:
             with trace.span("curve.fold.level"):
-                if n % 2:
-                    rest = self.f.shape(pts[2])[1:]
-                    pad = self.infinity((1,) + tuple(rest),
-                                        leaves(pts)[0].device)
-                    pts = tree_map(lambda a, b: torch.cat([a, b]), pts, pad)
-                    n += 1
-                half = n // 2
-                pts = self.add(tree_map(lambda a: a[:half], pts),
-                               tree_map(lambda a: a[half:], pts))
-                n = half
-        return tree_map(lambda a: a[0], pts)
+                packed = cuda_curve.p_fold_level(g2, packed,
+                                                 packed.shape[1] // n)
+            n = (n + 1) // 2
+        return tree_map(lambda a: a.reshape(tuple(rest) + a.shape[1:]),
+                        cuda_curve.unpack_jac(packed, g2))
 
     def fold_sum(self, pts):
         """Σ over the leading axis (``fold_axis`` 0). Returns an
